@@ -1,0 +1,28 @@
+"""L2 dynamics models: the RBF kernel, the padded GP and the GP-SSM."""
+
+from safe_exploration_tpu_torch.models.gp import (
+    GP,
+    gp_init,
+    gp_predict,
+    gp_refit,
+    gp_shrink_to_bucket,
+    gp_update_data,
+)
+from safe_exploration_tpu_torch.models.kernels import (
+    gram,
+    init_kernel_params,
+    kernel_diag,
+)
+from safe_exploration_tpu_torch.models.ssm import (
+    GPSSM,
+    make_gp_ssm,
+    ssm_bucketed,
+    ssm_predict,
+    ssm_update,
+)
+
+__all__ = [
+    "GP", "gp_init", "gp_predict", "gp_refit", "gp_shrink_to_bucket",
+    "gp_update_data", "gram", "init_kernel_params", "kernel_diag", "GPSSM",
+    "make_gp_ssm", "ssm_bucketed", "ssm_predict", "ssm_update",
+]

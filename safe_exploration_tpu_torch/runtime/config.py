@@ -1,0 +1,218 @@
+"""Experiment configuration — port of
+``safe_exploration_tpu/runtime/config.py``.
+
+:class:`ExperimentConfig` has the JAX package's fields and defaults, so a
+configuration means the same thing on both sides. :func:`build_experiment`
+wires the slice the port carries: the pendulum, the exact GP state-space
+model, the tracking objective and the batched lane SQP with the batched
+SafeMPC state machine. Other choices raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+
+import torch
+
+from safe_exploration_tpu_torch import resolve_device
+from safe_exploration_tpu_torch.envs import linearize_discretize, make_pendulum
+from safe_exploration_tpu_torch.ops.linalg import dlqr
+from safe_exploration_tpu_torch.solvers.costs import tracking_cost
+from safe_exploration_tpu_torch.solvers.safempc import (
+    SafeMPCConfig,
+    make_safempc_batch,
+)
+from safe_exploration_tpu_torch.solvers.sqp import (
+    SqpConfig,
+    shift_duals,
+    sqp_n_duals,
+    sqp_warm_len,
+)
+from safe_exploration_tpu_torch.solvers.sqp_lanes import (
+    lanes_supported,
+    make_sqp_lane_solver,
+)
+
+__all__ = ["ExperimentConfig", "build_experiment"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    """One experiment = env + SSM + solver + runtime schedule (the JAX
+    package's fields and defaults; see its docstrings for each knob)."""
+
+    name: str = "pendulum_episode"
+    task: str = "episodic"
+    batch_lanes: int = 256
+    batch_backend: str = "auto"
+    env: str = "pendulum"
+    solver: str = "cem"
+    objective: str = "tracking"
+    w_sigma: float = 1.0
+
+    ssm: str = "gp"
+    kern_types: tuple = ("rbf", "rbf")
+    n_max: int = 512
+    m_subset: int = 0
+    n_inducing: int = 64
+    mc_hidden: tuple = (64, 64)
+    mc_samples: int = 16
+    l_mu: float = 0.5
+    l_sigma: float = 0.25
+    log_noise: float = -3.0
+    normalize_inputs: bool = True
+    precision: str = "f32"
+
+    n_safe: int = 5
+    n_perf: int = 0
+    r_shared: int = 1
+    perf_trajectory: str = "taylor"
+    c_safety: float = 2.0
+    feas_tol: float = 1e-4
+    lqr_w_x: float = 1.0
+    lqr_w_u: float = 1.0
+
+    cem_samples: int = 128
+    cem_elites: int = 16
+    cem_iterations: int = 6
+    cem_backend: str = "portable"
+    cem_gp_impl: str = "auto"
+
+    sqp_outer: int = 12
+    sqp_inner: int = 6
+    sqp_polish: int = 3
+    sqp_rescue: int = 0
+    sqp_polish_extra: int = 0
+
+    n_ep: int = 6
+    n_steps: int = 50
+    n_init_samples: int = 40
+    hyp_iters: int = 120
+    seed: int = 0
+
+    def __post_init__(self):
+        choices = {
+            "batch_backend": ("auto", "lanes", "vmapped"),
+            "cem_backend": ("portable", "lanes"),
+            "perf_trajectory": ("taylor", "mean_equivalent"),
+            "cem_gp_impl": ("auto", "xla", "pallas", "fused"),
+        }
+        for field, allowed in choices.items():
+            if getattr(self, field) not in allowed:
+                raise ValueError(
+                    f"config '{self.name}': unknown {field} "
+                    f"{getattr(self, field)!r} ({'|'.join(allowed)})"
+                )
+
+
+def _require_ported(cfg: ExperimentConfig) -> None:
+    """Raise for the choices the port does not carry yet."""
+    todo = {
+        "env": ("pendulum", "cartpole and quadrotor: ROADMAP Queue 1, item 10"),
+        "solver": ("sqp", "the CEM planners: ROADMAP Queue 1, item 9"),
+        "objective": ("tracking", "exploration and risk_tracking: ROADMAP "
+                      "Queue 1, item 10"),
+        "ssm": ("gp", "sparse and MC-dropout models: ROADMAP Queue 1, items "
+                "11 and 12"),
+    }
+    for field, (ported, where) in todo.items():
+        if getattr(cfg, field) != ported:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r} is not ported yet ({where})"
+            )
+    if cfg.n_perf > 0:
+        raise NotImplementedError(
+            "performance trajectories (n_perf > 0) are not ported yet "
+            "(ROADMAP Queue 1, item 10)"
+        )
+
+
+def _kern_tuple(cfg: ExperimentConfig, n_s: int) -> tuple:
+    kt = tuple(cfg.kern_types)
+    if len(kt) == 1:
+        kt = kt * n_s
+    if len(kt) != n_s:
+        raise ValueError(f"kern_types has {len(kt)} entries for n_s={n_s}")
+    return kt
+
+
+def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
+                     device=None) -> dict:
+    """Wire the experiment on ``device`` (CUDA unless ``"cpu"`` is given;
+    raises when CUDA is meant and absent). Returns the batch entries
+    (``batch_planner``, ``init_state_batch``, ``get_action_batch``,
+    ``make_ssm``) with ``env``, ``a``, ``b``, ``k_fb``, ``cost_fn``,
+    ``kern_types``, ``l_mu``, ``l_sigma`` and ``cfg``."""
+    dev = resolve_device(device)
+    _require_ported(cfg)
+    env = make_pendulum(dtype=dtype, device=dev)
+    spec = env.spec
+    kw = {"dtype": dtype, "device": dev}
+    mpc_cfg = SafeMPCConfig(n_safe=cfg.n_safe, c_safety=cfg.c_safety,
+                            lqr_w_x=cfg.lqr_w_x, lqr_w_u=cfg.lqr_w_u)
+    a, b = linearize_discretize(env)
+    k_lqr, _ = dlqr(a, b, cfg.lqr_w_x * torch.eye(spec.n_s, **kw),
+                    cfg.lqr_w_u * torch.eye(spec.n_u, **kw))
+    k_fb = -k_lqr
+
+    sqp_cfg = SqpConfig(
+        n_safe=cfg.n_safe, c_safety=cfg.c_safety,
+        n_outer=cfg.sqp_outer, n_inner=cfg.sqp_inner,
+        n_polish=cfg.sqp_polish, n_rescue_outer=cfg.sqp_rescue,
+        n_polish_extra=cfg.sqp_polish_extra,
+        n_perf=cfg.n_perf, r_shared=cfg.r_shared,
+        perf_method=cfg.perf_trajectory, feas_tol=cfg.feas_tol,
+    )
+    warm_len = sqp_warm_len(sqp_cfg)
+    n_duals = sqp_n_duals(env, sqp_cfg)
+    dual_shift = partial(shift_duals, n_safe=cfg.n_safe,
+                         n_obs=spec.h_obs.shape[0])
+    lane_solver = make_sqp_lane_solver(
+        env, k_fb, a, b, cfg.objective, {"target": spec.target}, sqp_cfg
+    )
+
+    def batch_planner(ssm, x0s, warm, lam=None):
+        if not lanes_supported(ssm, sqp_cfg, cfg.objective):
+            raise NotImplementedError(
+                "this model/solver combination needs the portable NLP, which "
+                "is not ported yet (ROADMAP Queue 1, item 8)"
+            )
+        return lane_solver(ssm, x0s, warm, lam)
+
+    init_state_batch, get_action_batch = make_safempc_batch(
+        env, mpc_cfg, batch_planner, warm_len=warm_len, n_duals=n_duals,
+        dual_shift=dual_shift,
+    )
+    kern_types = _kern_tuple(cfg, spec.n_s)
+    l_mu = torch.full((spec.n_s,), cfg.l_mu, **kw)
+    l_sigma = torch.full((spec.n_s,), cfg.l_sigma, **kw)
+
+    def make_ssm(xs, us, resid):
+        """The GP-SSM factory of this configuration."""
+        from safe_exploration_tpu_torch.models.ssm import make_gp_ssm
+
+        z_scale = (torch.cat([spec.norm_x, spec.norm_u])
+                   if cfg.normalize_inputs else None)
+        return make_gp_ssm(
+            kern_types, xs, us, resid, n_max=cfg.n_max, l_mu=l_mu,
+            l_sigma=l_sigma, log_noise=cfg.log_noise, z_scale=z_scale,
+            precision=cfg.precision, m_subset=cfg.m_subset or None,
+        )
+
+    return {
+        "env": env,
+        "a": a,
+        "b": b,
+        "k_fb": k_fb,
+        "cost_fn": tracking_cost(spec.target),
+        "batch_planner": batch_planner,
+        "init_state_batch": init_state_batch,
+        "get_action_batch": get_action_batch,
+        "kern_types": kern_types,
+        "make_ssm": make_ssm,
+        "l_mu": l_mu,
+        "l_sigma": l_sigma,
+        "cfg": cfg,
+    }

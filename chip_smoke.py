@@ -6,7 +6,7 @@ holds each against its plain PyTorch version, drives the port's main path
 (the batched lane SQP safe-MPC on the pendulum at H=5, B=512, with GP refits
 through the kernels) and checks the GPU against the CPU in f64.
 
-    python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
+    python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
 Phases (any failure exits non-zero, without the final ``ok`` line):
   1. device   card name and power limit (nvidia-smi), CUDA and torch versions
@@ -288,14 +288,17 @@ def _time_rollout(exp, ssm, x0, warm, dev) -> dict:
     bmat = (s_lift.T @ s_lift).tolist()
     rows = [x0[:, i] for i in range(2)]
     u = torch.movedim(warm.reshape(x0.shape[0], -1), 0, -1).contiguous()
-    tangents = sl._basis_tangents(u.shape[0], u.shape[1], u.dtype, u.device)
 
-    def roll(v):
-        return sl._rollout_y_lanes(ssm, v, rows, k_fb, a, b, cfg, bmat)
+    def roll(v, k=1):
+        return sl._rollout_y_lanes(ssm, v, [r.repeat(k) for r in rows], k_fb,
+                                   a, b, cfg, bmat)
+
+    def linearize():
+        return roll(u), sl._lane_jacobian(roll, u, roll(u).shape[0])
 
     out = {}
     for key, fn in (("rollout_ms", lambda: roll(u)),
-                    ("linearize_ms", lambda: sl._linearize(roll, u, tangents))):
+                    ("linearize_ms", linearize)):
         fn()
         _sync(dev)
         t0 = time.perf_counter()
@@ -380,8 +383,8 @@ def phase_path(seed: int, batch: int = 512, dev: str = "cuda") -> dict:
         **res_split,
     }
     print(f"[path] one tube rollout at B={batch}: plain "
-          f"{res_split['rollout_ms']:.1f} ms, linearized (rollout + jvp per "
-          f"decision variable) {res_split['linearize_ms']:.1f} ms", flush=True)
+          f"{res_split['rollout_ms']:.1f} ms, linearized (rollout + lane "
+          f"Jacobian) {res_split['linearize_ms']:.1f} ms", flush=True)
     print(f"[path] B={batch} H=5 f32: feasible_frac per step {feas}, "
           f"solves/s {res['solves_per_s']:.2f} (second call {t_second:.2f} s; "
           f"first {t_first:.2f} s), refit {refit_ms:.3f} ms, violations {viol}, "
@@ -453,8 +456,8 @@ SHORT = {"rbf_gram_masked": "gram", "cholesky_blocked": "cholesky",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                  "chip_smoke.json"))
+    ap.add_argument("--out", default=os.path.join("build", "chip_smoke.json"),
+                    help="where the full JSON record is written")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "

@@ -24,7 +24,7 @@ _TENSORS = ("x", "y", "mask", "log_noise", "chol", "beta", "kinv")
 
 
 def gpssm_from_numpy(arrays: dict, kern_types: tuple, *, device,
-                     dtype=torch.float64, precision: str = "f32") -> GPSSM:
+                     dtype=torch.float64) -> GPSSM:
     def t(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -32,7 +32,6 @@ def gpssm_from_numpy(arrays: dict, kern_types: tuple, *, device,
         kern_types=tuple(kern_types),
         params=tuple({k: t(v) for k, v in p.items()} for p in arrays["params"]),
         head=int(np.asarray(arrays["head"])),
-        precision=precision,
         **{k: t(arrays[k]) for k in _TENSORS},
     )
     z_scale = arrays.get("z_scale")

@@ -3,13 +3,15 @@
 
 The whole solve is written batch-LAST: every per-lane scalar is a ``(B,)``
 tensor, tiny-matrix algebra (ellipsoids, closed-loop maps, Newton systems) is
-unrolled over indices, and the GP contractions are ``(n, B)`` matmuls. The
-Gauss-Newton machinery is ``torch.func``: the rollout is linearized by one
-``jvp`` per basis tangent, vmapped over the ``(n_var, n_var, B)`` basis, so
-no transform ever builds a cross-lane Jacobian; the AL gradient is
-``torch.func.grad`` of the linearized AL and its Hessian a vmapped ``jvp``
-of that gradient. ``lax.scan`` / ``lax.cond`` become Python loops and one
-host ``bool`` for the violation-gated extra polish.
+unrolled over indices, and the GP contractions are ``(n, B)`` matmuls.
+
+The Gauss-Newton machinery is plain reverse-mode autograd over lane-folded
+copies (:func:`_lane_jacobian`): lanes are independent, so evaluating the
+rollout on ny copies of the B lanes and pulling back e_k through copy k
+gives the per-lane Jacobian ``(n_var, ny, B)`` in one backward pass; the AL
+Hessian is the same fold over the gradient (reverse over reverse). No
+derivative ever couples two lanes. ``lax.scan`` / ``lax.cond`` become Python
+loops and one host ``bool`` for the violation-gated extra polish.
 
 Covered here: a shared :class:`GPSSM` with the RBF kernel menu, n_s <= 2
 (the scalar-unrolled tube), no performance trajectory, the tracking
@@ -28,7 +30,6 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-from torch.func import grad, jvp, vmap
 
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, _solve_spd_unrolled
@@ -345,17 +346,34 @@ def _cost_lanes(cost_kind: str, cost_args: dict, y, u_flat, t_len, n_s, n_u):
 # ------------------------------------------------------------------- GN-AL
 
 
-def _basis_tangents(n_var: int, b: int, dtype, device=None):
-    return torch.eye(n_var, dtype=dtype, device=device)[:, :, None] * torch.ones(
-        (1, 1, b), dtype=dtype, device=device
-    )                                                       # (n_var, n_var, B)
+def _lane_jacobian(fn, u, n_out: int):
+    """J (n_var, n_out, B) with J[i, k, b] = d fn(u)[k, b] / d u[i, b].
+
+    Lanes are independent, so one reverse pass over n_out lane-folded copies
+    gives the whole per-lane Jacobian: ``fn(uw, k)`` evaluates on ``k``
+    copies of the B lanes (lane c * B + b is copy c of lane b) and copy c
+    carries the cotangent e_c. Reverse mode, not ``torch.func.jvp``: forward
+    mode materializes an efficient zero tangent for every tensor and Python
+    scalar without one, and arithmetic on those zero tensors leaves C++ for
+    Python reference kernels, which dominated the solve.
+    """
+    n_var, bsz = u.shape
+    with torch.enable_grad():
+        uw = u.detach().repeat(1, n_out).requires_grad_(True)
+        out = fn(uw, n_out)
+        sel = torch.eye(n_out, dtype=u.dtype, device=u.device)
+        (jt,) = torch.autograd.grad(out, uw, sel.repeat_interleave(bsz, dim=1))
+    return jt.reshape(n_var, n_out, bsz)
 
 
-def _linearize(fn, u, tangents):
-    """(fn(u), J) with J[i] = d fn(u)[t_i]: one jvp per basis tangent,
-    vmapped; the primal is evaluated once."""
-    y, jy = vmap(lambda t: jvp(fn, (u,), (t,)), out_dims=(None, 0))(tangents)
-    return y, jy
+def _lane_grad(fn, u, create_graph: bool = False):
+    """d fn(u)[b] / d u[:, b] (n_var, B) for a per-lane scalar map fn."""
+    with torch.enable_grad():
+        if not u.requires_grad:
+            u = u.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(torch.sum(fn(u)), u,
+                                   create_graph=create_graph)
+    return g
 
 
 def _select_candidates(vals, cands, f0, u):
@@ -440,7 +458,6 @@ def solve_safempc_lanes(
         s = _relu0(lam + mu * dist(y))
         return cost(y, u) + torch.sum(s * s - lam * lam, dim=0) / (2.0 * mu)
 
-    tangents = _basis_tangents(n_var, bsz, dtype, device)
     alphas = [0.5 ** i for i in range(cfg.n_linesearch)]
     polish_alphas = [1.0, 0.5, 0.25, 0.125]
     eye = torch.eye(n_var, dtype=dtype, device=device)[:, :, None]
@@ -453,19 +470,34 @@ def solve_safempc_lanes(
         y_wide = rollout_at(u_wide, [xr.repeat(n_c) for xr in x0_rows])
         return eval_wide(u_wide, y_wide, n_c).reshape(n_c, bsz)
 
+    def linearize(u):
+        """The primal rollout y (ny, B) and its lane Jacobian (n_var, ny, B)."""
+        y = rollout_y(u)
+        jy = _lane_jacobian(
+            lambda uw, k: rollout_at(uw, [xr.repeat(k) for xr in x0_rows]),
+            u, y.shape[0])
+        return y, jy
+
+    def lin_at(y, jy, u, vw, k):
+        """y + J (v - u) on k lane-folded copies."""
+        return y.repeat(1, k) + torch.einsum(
+            "ib,iyb->yb", vw - u.repeat(1, k), jy.repeat(1, 1, k))
+
     def gn_step(u, lam, mu):
-        # one primal rollout + n_var jvps of it; all further derivatives on
+        # one primal rollout + its lane Jacobian; all further derivatives on
         # the tiny y-space maps at y + J (v - u): the exact AL gradient at
         # v = u and the classical GN curvature
-        y, jy = _linearize(rollout_y, u, tangents)
+        y, jy = linearize(u)
 
-        def al_lin(v):
-            y_lin = y + torch.einsum("ib,iyb->yb", v - u, jy)
-            return al_of(y_lin, v, lam, mu)
+        def al_lin(vw, k=1):
+            return al_of(lin_at(y, jy, u, vw, k), vw, lam.repeat(1, k), mu)
 
         f0 = al_lin(u)
-        grad_fn = grad(lambda v: torch.sum(al_lin(v)))
-        g, h = _linearize(grad_fn, u, tangents)             # (n_var, [n_var,] B)
+        g = _lane_grad(al_lin, u)
+        h = _lane_jacobian(
+            lambda vw, k: _lane_grad(lambda v: al_lin(v, k), vw,
+                                     create_graph=True),
+            u, n_var)                                       # (n_var, n_var, B)
 
         diag = torch.stack([torch.abs(h[i, i]) for i in range(n_var)])
         diag_scale = torch.clamp(torch.max(diag, dim=0).values, min=1.0)
@@ -492,17 +524,19 @@ def solve_safempc_lanes(
         return u, lam
 
     def polish_step(u):
-        y, jy = _linearize(rollout_y, u, tangents)
+        y, jy = linearize(u)
         g = dist(y)
         v = _relu0(g)
         active = (g > 0.0).to(dtype)
 
-        def g_lin(vv):
-            return dist(y + torch.einsum("ib,iyb->yb", vv - u, jy))
+        def g_lin(vw, k=1):
+            return dist(lin_at(y, jy, u, vw, k))
 
         # J^T v with the active mask folded in
-        jtv = grad(lambda vv: torch.sum(_relu0(g_lin(vv)) * v))(u)
-        _, gj = _linearize(lambda vv: _relu0(g_lin(vv)) * active, u, tangents)
+        jtv = _lane_grad(lambda vv: torch.sum(_relu0(g_lin(vv)) * v, dim=0), u)
+        gj = _lane_jacobian(
+            lambda vw, k: _relu0(g_lin(vw, k)) * active.repeat(1, k),
+            u, n_con)                                       # (n_var, n_con, B)
         jtj = torch.einsum("icb,jcb->ijb", gj, gj)
         d = _solve_spd_unrolled(jtj + 1e-6 * eye, -jtv)
         cands = torch.stack(

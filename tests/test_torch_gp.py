@@ -106,6 +106,25 @@ def test_gp_shrink_to_bucket_matches_jax():
     _assert_factors(jb, tb)
 
 
+def test_masked_gram_matches_jax_and_the_batched_plain_kernel():
+    from safe_exploration_tpu_torch.ops.kernels import gram_plain
+
+    x, _, params, log_noise = _data()
+    mask = (np.arange(20) < 15).astype(np.float64)
+    noise = np.exp(2.0 * log_noise)
+    batched = gram_plain(_t(x), _t(mask),
+                         _t([p["log_lengthscales"] for p in params]),
+                         _t([p["log_sf"] for p in params]), _t(noise)).numpy()
+    for d, p in enumerate(params):
+        ours = tgp._masked_gram("rbf", {k: _t(v) for k, v in p.items()},
+                                _t(x), _t(mask), _t(noise[d])).numpy()
+        ref = jgp._masked_gram("rbf", {k: jnp.asarray(v) for k, v in p.items()},
+                               jnp.asarray(x), jnp.asarray(mask),
+                               jnp.asarray(noise[d]))
+        assert _rel(ours, ref) < 1e-12
+        assert _rel(batched[d], ours) < 1e-12
+
+
 def test_gp_predict_matches_jax():
     j, t = _both_init()
     z = np.random.default_rng(3).uniform(-1.0, 1.0, (11, 3))
@@ -137,7 +156,7 @@ def test_ssm_update_with_input_scaling_matches_jax():
     assert tb.gp.n_max == jb.gp.n_max == 32
     probe = np.random.default_rng(4).uniform(-0.5, 0.5, (9, 3))
     jm, jv = jgp.gp_predict_batch(jb.gp, jnp.asarray(probe / z_scale))
-    tm, tv = tb.predict_latent(_t(probe))
+    tm, tv = tssm.ssm_predict(tb, _t(probe[:, :2]), _t(probe[:, 2:]))
     assert _rel(tm.numpy(), jm) < 1e-9
     assert _rel(tv.numpy(), jv) < 1e-9
 

@@ -1,6 +1,7 @@
 """PyTorch port: the slice end to end against the JAX package, f64 on the CPU.
 
-The prior (a, b, k_fb), the plant step, the dual shift, and then the closed
+The prior (a, b, k_fb), the plant step and reset, the normalizations, the
+tracking cost, the dual shift, and then the closed
 loop the port carries: build_experiment -> make_ssm -> get_action_batch ->
 plant step -> ssm_update -> get_action_batch, at n_max 32, 16 data points,
 B 8, on both sides from the same numpy data and noise. Controls, feasible
@@ -15,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from safe_exploration_tpu.envs import base as jax_base  # noqa: E402
 from safe_exploration_tpu.envs.base import _integrate as jax_integrate  # noqa: E402
 from safe_exploration_tpu.models.ssm import (  # noqa: E402
     ssm_bucketed as jax_bucketed,
@@ -24,8 +26,11 @@ from safe_exploration_tpu.runtime.config import (  # noqa: E402
     ExperimentConfig as JaxConfig,
     build_experiment as jax_build,
 )
+from safe_exploration_tpu.solvers.costs import (  # noqa: E402
+    tracking_cost as jax_tracking_cost,
+)
 from safe_exploration_tpu.solvers.sqp import shift_duals as jax_shift  # noqa: E402
-from safe_exploration_tpu_torch.envs import env_step  # noqa: E402
+from safe_exploration_tpu_torch.envs import base, env_step  # noqa: E402
 from safe_exploration_tpu_torch.models.ssm import (  # noqa: E402
     ssm_bucketed,
     ssm_update,
@@ -82,6 +87,37 @@ def test_env_step_matches_jax(exps):
     np.testing.assert_array_equal(u_app.numpy(), np.clip(u, -1.0, 1.0))
     jx = _jax_step(jexp, jnp.asarray(x), jnp.asarray(u), jnp.asarray(noise))
     assert _rel(xn.numpy(), jx) < 1e-12
+
+
+def test_env_reset_and_normalization_match_jax(exps):
+    jexp, texp = exps
+    z = np.random.default_rng(3).standard_normal((4, 2))
+    x0 = base.env_reset(texp["env"], batch=(4,), noise=_t(z))
+    js = jexp["env"].spec
+    np.testing.assert_allclose(x0.numpy(), np.asarray(js.init_m + js.init_std
+                                                      * z), rtol=1e-15)
+    ts = texp["env"].spec
+    for name in ("normalize_state", "unnormalize_state"):
+        ours = getattr(base, name)(ts, x0).numpy()
+        ref = getattr(jax_base, name)(js, jnp.asarray(x0.numpy()))
+        np.testing.assert_allclose(ours, np.asarray(ref), rtol=1e-15)
+    u = _t([[0.3], [-0.7]])
+    for name in ("normalize_control", "unnormalize_control"):
+        ref = getattr(jax_base, name)(js, jnp.asarray(u.numpy()))
+        np.testing.assert_allclose(getattr(base, name)(ts, u).numpy(),
+                                   np.asarray(ref), rtol=1e-15)
+
+
+def test_tracking_cost_matches_jax(exps):
+    jexp, texp = exps
+    rng = np.random.default_rng(6)
+    p, q, v = (rng.standard_normal((3, 2)), rng.standard_normal((3, 2, 2)),
+               rng.random((3, 2)))
+    k = rng.standard_normal((3, 1))
+    ours = texp["cost_fn"](_t(p), _t(q), _t(v), _t(k))
+    ref = jax_tracking_cost(jexp["env"].spec.target)(
+        *(jnp.asarray(a) for a in (p, q, v, k)))
+    assert abs(float(ours) - float(ref)) <= 1e-12 * abs(float(ref))
 
 
 def test_shift_duals_matches_jax():

@@ -50,7 +50,7 @@ def _gram_args(n, dtype, device="cpu", seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("n", [128, 200, 512])
+@pytest.mark.parametrize("n", [128, 200, 512, 1024])
 def test_cuda_kernels_match_plain(n, dtype):
     _need_cuda()
     dt = getattr(torch, dtype)

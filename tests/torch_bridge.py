@@ -1,7 +1,10 @@
 """Test helper: a JAX GPSSM's state as numpy arrays, the JAX side of the
-bridge whose PyTorch side is ``safe_exploration_tpu_torch.models.convert``."""
+bridge whose PyTorch side is ``safe_exploration_tpu_torch.models.convert``,
+and the thread setting the port's CPU tests share."""
 
 import numpy as np
+import pytest
+import torch
 
 
 def jax_gpssm_to_numpy(ssm) -> dict:
@@ -17,3 +20,13 @@ def jax_gpssm_to_numpy(ssm) -> dict:
         "l_sigma": np.asarray(ssm.l_sigma),
         "z_scale": None if ssm.z_scale is None else np.asarray(ssm.z_scale),
     }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run tiny lane batches: one intra-op thread is as
+    fast and leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -1,6 +1,6 @@
-"""Test helper: a JAX GPSSM's state as numpy arrays, the JAX side of the
-bridge whose PyTorch side is ``safe_exploration_tpu_torch.models.convert``,
-and the thread setting the port's CPU tests share."""
+"""Helpers the port's CPU tests share (no tests here): a JAX GPSSM's state
+as numpy arrays, the JAX side of the bridge whose PyTorch side is
+``safe_exploration_tpu_torch.models.convert``, and one torch thread."""
 
 import numpy as np
 import pytest

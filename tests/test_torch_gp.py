@@ -25,7 +25,7 @@ from safe_exploration_tpu_torch.models.convert import (  # noqa: E402
     gpssm_from_numpy,
     gpssm_to_numpy,
 )
-from torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(_REPO, "tests", "goldens")

@@ -28,7 +28,7 @@ from safe_exploration_tpu.ops.pallas import (  # noqa: E402
     rbf_gram_masked as pallas_gram,
     trsm_lower_blocked as pallas_trsm,
 )
-from torch_bridge import one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import one_torch_thread  # noqa: E402,F401
 from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     cholesky_blocked,
     cholesky_plain,

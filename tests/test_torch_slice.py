@@ -40,7 +40,7 @@ from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
     build_experiment,
 )
 from safe_exploration_tpu_torch.solvers.sqp import shift_duals  # noqa: E402
-from torch_bridge import one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import one_torch_thread  # noqa: E402,F401
 
 B = 8
 N_DATA = 16

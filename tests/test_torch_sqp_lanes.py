@@ -31,7 +31,7 @@ from safe_exploration_tpu.solvers.sqp import (  # noqa: E402
     _solve_spd_unrolled as jax_solve_spd,
 )
 from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy  # noqa: E402
-from torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
 from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
     ExperimentConfig,
     build_experiment,

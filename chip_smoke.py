@@ -2,9 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``safe_exploration_tpu_torch/csrc``,
-holds each against its plain PyTorch version, drives the port's main path
+holds each against its plain PyTorch version, drives the port's two paths
 (the batched lane SQP safe-MPC on the pendulum at H=5, B=512, with GP refits
-through the kernels) and checks the GPU against the CPU in f64.
+through the kernels; the batched lane CEM at H=5, B=256, M=64, scoring
+through the cem_score and gp_predict kernels) and checks the GPU against the
+CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -15,12 +17,24 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               (e=2, n=128; L^-1 with m=128, beta with m=1), at n=512 and at a
               ragged n=200, in f32 and f64; NaN on an indefinite input; CUDA-
               event times of kernel, plain version and the torch.linalg call
+     cem      gp_predict and cem_score against their plain versions at
+              n = 64 and 128, L = 16,384 and a ragged 1,000, f32 and f64, with
+              and without the Jacobian, z_scale on and off, tracking and
+              exploration; CUDA-event times of kernel and plain version
   4. path     build_experiment at the headline budget, a GP refit, two batched
               get_action_batch calls around a plant step and an ssm_update
               (a second refit); launch counts are zeroed just before and read
               just after
   5. parity   the refit factors and the first get_action_batch in f64 at B=16
               on the GPU (kernels) and on the CPU (plain versions)
+  6. cem      the lane CEM (bench.py's bench_cem_solves configuration: n_max
+              64 with 48 points, B=256, M=64, 12 elites, 4 iterations), a
+              refit and two get_action_batch calls around a plant step and
+              an ssm_update, launch counts zeroed just before and read just
+              after; then one solve per cem_gp_impl ("auto", "pallas", "xla")
+              twice each in alternating order, same generator seed
+  7. cemparity  f64, B=16: one get_action_batch on the GPU (kernels) and on
+              the CPU (plain versions) with the draws of one CPU generator
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -45,6 +59,11 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 E = 2          # GP output dims on the pendulum path
 N_PATH = 128   # n_max of the headline path
 D_IN = 3       # pendulum state + action
+N_CEM = 64     # n_max of the CEM path (bench.py bench_cem_solves)
+B_CEM = 256    # CEM instances
+M_CEM = 64     # CEM samples per instance: L = M * B scoring lanes
+H_CEM = 5      # CEM horizon
+CEM_FEAS_JAX = 0.273  # cem_feasible_frac the JAX package records (BENCH_r05)
 
 
 def _fail(msg: str) -> None:
@@ -249,7 +268,7 @@ def _make_data(rng, n_data, dtype, device, exp):
     return xs, us, resid
 
 
-def _bench_ssm(exp, xs, us, resid, dtype, device):
+def _bench_ssm(exp, xs, us, resid, dtype, device, n_max=N_PATH):
     """bench.py's model: GP-SSM on raw inputs, l_mu 0.05, l_sigma 0.02,
     log_noise -4, then log_sf = -3 for every dim and a refit."""
     from safe_exploration_tpu_torch.models import gp_refit, make_gp_ssm
@@ -257,7 +276,7 @@ def _bench_ssm(exp, xs, us, resid, dtype, device):
     def full(v):
         return torch.full((2,), v, dtype=dtype, device=device)
 
-    ssm = make_gp_ssm(exp["kern_types"], xs, us, resid, n_max=N_PATH,
+    ssm = make_gp_ssm(exp["kern_types"], xs, us, resid, n_max=n_max,
                       l_mu=full(0.05), l_sigma=full(0.02), log_noise=-4.0)
     params = tuple({**p, "log_sf": torch.tensor(-3.0, dtype=dtype,
                                                 device=device)}
@@ -319,6 +338,16 @@ def _violations(exp, x: torch.Tensor) -> int:
     return int(((x @ spec.h_mat_obs.T) > spec.h_obs).any(dim=1).sum())
 
 
+def _refit_wrappers():
+    from safe_exploration_tpu_torch.ops.kernels import (
+        cholesky_blocked,
+        rbf_gram_masked,
+        trsm_lower,
+    )
+
+    return (rbf_gram_masked, cholesky_blocked, trsm_lower)
+
+
 def phase_path(seed: int, batch: int = 512, dev: str = "cuda") -> dict:
     from safe_exploration_tpu_torch.envs import env_step
     from safe_exploration_tpu_torch.models import gp_refit, ssm_bucketed, ssm_update
@@ -357,7 +386,7 @@ def phase_path(seed: int, batch: int = 512, dev: str = "cuda") -> dict:
     u2, state, info2 = exp["get_action_batch"](state, plan, x1)
     _sync(dev)
     t_second = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    launches = {w.__name__: w.launches for w in _refit_wrappers()}
     _, x2 = env_step(exp["env"], x1, u2,
                      noise=torch.tensor(rng.standard_normal((batch, 2)),
                                         dtype=dtype, device=dev))
@@ -441,6 +470,400 @@ def phase_parity(seed: int, batch: int = 16) -> dict:
     return res
 
 
+def _cem_model(seed: int, n: int, z_scale: bool) -> dict:
+    """A pendulum GP-SSM with n_max n and n - 7 points and bench.py's
+    hyperparameters (log_sf -3, log_noise -4), built in f64 on the CPU and
+    handed over as numpy arrays."""
+    from safe_exploration_tpu_torch.models import gp_refit, make_gp_ssm
+    from safe_exploration_tpu_torch.models.convert import gpssm_to_numpy
+
+    rng = np.random.default_rng(seed)
+    k = n - 7
+    x = torch.tensor(rng.uniform(-1.0, 1.0, (k, 2)) * [0.3, 1.0])
+    u = torch.tensor(rng.uniform(-1.0, 1.0, (k, 1)))
+    w = torch.tensor(rng.normal(size=(3, 2)))
+    y = 0.02 * torch.sin(3.0 * torch.cat([x, u], 1) @ w)
+    def full(v):
+        return torch.full((2,), v, dtype=torch.float64)
+
+    ssm = make_gp_ssm(("rbf", "rbf"), x, u, y, n_max=n, l_mu=full(0.05),
+                      l_sigma=full(0.02), log_noise=-4.0,
+                      z_scale=(torch.tensor([0.5, 2.0, 1.0], dtype=torch.float64)
+                               if z_scale else None))
+    params = tuple({**p, "log_sf": torch.tensor(-3.0, dtype=torch.float64)}
+                   for p in ssm.gp.params)
+    return gpssm_to_numpy(ssm.replace(gp=gp_refit(ssm.gp.replace(
+        params=params))))
+
+
+def _cem_plant(dtype, device):
+    """(k_fb, a, b, bmat) and the polytopes of the pendulum, and its target."""
+    from safe_exploration_tpu_torch.envs import linearize_discretize, make_pendulum
+    from safe_exploration_tpu_torch.ops.linalg import dlqr
+
+    env = make_pendulum(dtype=dtype, device=device)
+    a, b = linearize_discretize(env)
+    eye = torch.eye(2, dtype=dtype, device=device)
+    k_fb = -dlqr(a, b, eye, torch.eye(1, dtype=dtype, device=device))[0]
+    s_lift = torch.cat([eye, k_fb], 0)
+    spec = env.spec
+    return ([k_fb, a, b, s_lift.T @ s_lift],
+            [spec.h_mat_obs, spec.h_obs, spec.h_mat_safe, spec.h_safe],
+            spec.target)
+
+
+def _gp_ops(n: int, L: int, jac: bool) -> float:
+    """Operations of one gp_predict call: per lane and dim the distance
+    (5 n d), kv (2 n), mean (2 n), quadratic form (2 n^2 + 2 n) and, with the
+    Jacobian, 2 n (d + 1)."""
+    return E * L * (2 * n * n + n * (5 * D_IN + 6)
+                    + (2 * n * (D_IN + 1) if jac else 0))
+
+
+def phase_cem_kernels(seed: int) -> dict:
+    """gp_predict and cem_score against their plain versions at every shape,
+    dtype and option, then times at the CEM path's shapes (f32)."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
+    from safe_exploration_tpu_torch.ops.kernels import (
+        gp_predict_lanes,
+        gp_predict_plain,
+        tube_score_lanes,
+        tube_score_plain,
+    )
+
+    rng = np.random.default_rng(seed + 10)
+    consts, polys, target = _cem_plant(torch.float64, "cuda")
+
+    def gp_args(arr, zz, dtype):
+        m = arr["mask"]
+        vals = (arr["x"], arr["beta"] * m, arr["kinv"] * m[:, None] * m[None],
+                np.stack([p["log_lengthscales"] for p in arr["params"]]),
+                np.stack([p["log_sf"] for p in arr["params"]]), zz)
+        return [torch.tensor(np.ascontiguousarray(v), dtype=dtype,
+                             device="cuda") for v in vals]
+
+    def score_args(arr, u, x0, dtype, kind):
+        ssm = gpssm_from_numpy(arr, ("rbf", "rbf"), device="cuda", dtype=dtype)
+        t = {"dtype": dtype, "device": "cuda"}
+        return (ssm, torch.tensor(u, **t), torch.tensor(x0, **t), *consts,
+                *polys, 2.0, H_CEM, kind,
+                {"target": target} if kind == "tracking" else {})
+
+    def up64(arr):
+        """The f32-rounded model as f64 values: the plain result the f32
+        kernel is held to is computed from the same inputs."""
+        def rnd(v):
+            if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+                return v.astype(np.float32).astype(np.float64)
+            return v
+
+        return {**{k: rnd(v) for k, v in arr.items()},
+                "params": [{k: rnd(v) for k, v in p.items()}
+                           for p in arr["params"]]}
+
+    worst = {"gp_predict": 0.0, "cem_score": 0.0}
+    for n in (N_CEM, 128):
+        for z_scale in (True, False):
+            arr = _cem_model(seed + n, n, z_scale)
+            for L in (M_CEM * B_CEM, 1000):
+                zz = rng.uniform(-1.0, 1.0, (D_IN, L))
+                u = 0.4 * rng.standard_normal((H_CEM, L))
+                x0 = rng.uniform(-1.0, 1.0, (2, L)) * np.array([[0.15], [0.4]])
+                for dtype in (torch.float32, torch.float64):
+                    f64 = dtype == torch.float64
+                    errs = []
+                    for jac in (False, True) if z_scale else ():
+                        args = gp_args(arr, zz, dtype)
+                        out = gp_predict_lanes(*args, want_jac=jac)
+                        ref = gp_predict_plain(*args, want_jac=jac)
+                        errs.append(max(_rel(o, r) for o, r in zip(out, ref)))
+                    e_gp = max(errs, default=0.0)
+                    e_cs = 0.0
+                    for kind in ("tracking", "exploration"):
+                        out = tube_score_lanes(*score_args(arr, u, x0, dtype,
+                                                           kind))
+                        ref = tube_score_plain(*score_args(
+                            arr if f64 else up64(arr), u.astype(np.float32)
+                            if not f64 else u, x0.astype(np.float32)
+                            if not f64 else x0, torch.float64, kind))
+                        e_cs = max(e_cs, *(_rel(o, r) for o, r in zip(out, ref)))
+                    tol_gp, tol_cs = (1e-10, 1e-10) if f64 else (3e-5, 2e-4)
+                    print(f"[cem-kernels] {str(dtype)[6:]} n={n} L={L} z_scale="
+                          f"{z_scale}: gp_predict rel {e_gp:.2e} (tol "
+                          f"{tol_gp:g}), cem_score rel {e_cs:.2e} (tol "
+                          f"{tol_cs:g})", flush=True)
+                    if e_gp > tol_gp or e_cs > tol_cs:
+                        _fail(f"CEM kernel disagrees with plain at {dtype} n={n}"
+                              f" L={L} z_scale={z_scale}")
+                    if not f64:
+                        worst["gp_predict"] = max(worst["gp_predict"], e_gp)
+                        worst["cem_score"] = max(worst["cem_score"], e_cs)
+
+    # times and max_abs_err at the path's shapes, f32: the final B-lane
+    # passes call gp_predict at L = B with the Jacobian ("pallas" runs it at
+    # L = M B), every CEM iteration calls cem_score at L = M B
+    dt, sz = torch.float32, 4
+    arr = _cem_model(seed, N_CEM, False)
+    timings, abs_err = {}, {}
+    for L in (B_CEM, M_CEM * B_CEM):
+        args = gp_args(arr, rng.uniform(-1.0, 1.0, (D_IN, L)), dt)
+        out = gp_predict_lanes(*args, want_jac=True)
+        ref = gp_predict_plain(*args, want_jac=True)
+        if L == B_CEM:
+            abs_err["gp_predict"] = max(_abs(o, r) for o, r in zip(out, ref))
+        n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2 + D_IN * L
+                        + 2 * E * L + E * D_IN * L)
+        timings[f"gp_predict_L{L}"] = dict(
+            ms=_time_ms(lambda: gp_predict_lanes(*args, want_jac=True), 20),
+            plain_ms=_time_ms(lambda: gp_predict_plain(*args, want_jac=True),
+                              5),
+            library_ms=None,
+            bound=_bound_ms(n_bytes, _gp_ops(N_CEM, L, True), dt))
+    L = M_CEM * B_CEM
+    u = 0.4 * rng.standard_normal((H_CEM, L)).astype(np.float32)
+    x0 = (rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]]).astype(np.float32)
+    args = score_args(arr, u, x0, dt, "tracking")
+    out = tube_score_lanes(*args)
+    ref = tube_score_plain(*score_args(up64(arr), u, x0, torch.float64,
+                                       "tracking"))
+    abs_err["cem_score"] = max(_abs(o, r) for o, r in zip(out, ref))
+    ops = H_CEM * _gp_ops(N_CEM, L, False) + (H_CEM - 1) * E * L * 2 * N_CEM * (
+        D_IN + 1)
+    n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2
+                    + (H_CEM + 2) * L + 2 * L)
+    timings["cem_score"] = dict(
+        ms=_time_ms(lambda: tube_score_lanes(*args), 20),
+        plain_ms=_time_ms(lambda: tube_score_plain(*args), 3),
+        library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
+    for name, r in timings.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        print(f"[cem-kernels] time f32 n={N_CEM} {name}: kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, library null (no one PyTorch "
+              f"call computes it), bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})", flush=True)
+    return {"worst_rel_f32": worst, "errs": abs_err, "timings": timings}
+
+
+def _cem_exp(dtype, dev, gp_impl="auto"):
+    from safe_exploration_tpu_torch.runtime.config import (
+        ExperimentConfig,
+        build_experiment,
+    )
+
+    cfg = ExperimentConfig(solver="cem", n_safe=H_CEM, n_max=N_CEM,
+                           cem_samples=M_CEM, cem_elites=12, cem_iterations=4,
+                           cem_gp_impl=gp_impl)
+    return build_experiment(cfg, dtype=dtype, device=dev)
+
+
+def phase_cem_path(seed: int, batch: int = B_CEM, dev: str = "cuda") -> dict:
+    """The lane CEM end to end, then the cem_gp_impl A/B in one process."""
+    from safe_exploration_tpu_torch.envs import env_step
+    from safe_exploration_tpu_torch.models import ssm_bucketed, ssm_update
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+
+    dtype = torch.float32
+    rng = np.random.default_rng(seed + 2)
+    exp = _cem_exp(dtype, dev)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    xs, us, resid = _make_data(rng, 48, dtype, dev, exp)
+    ssm = _bench_ssm(exp, xs, us, resid, dtype, dev, n_max=N_CEM)
+    plan0 = ssm_bucketed(ssm)
+    x0 = torch.tensor(rng.uniform(-1.0, 1.0, (batch, 2)) * [0.15, 0.4],
+                      dtype=dtype, device=dev)
+    noise = [torch.tensor(rng.standard_normal((batch, 2)), dtype=dtype,
+                          device=dev) for _ in range(2)]
+    state = exp["init_state_batch"](batch)
+    _sync(dev)
+    t0 = time.perf_counter()
+    u1, state, info1 = exp["get_action_batch"](state, plan0, x0)
+    _sync(dev)
+    t_first = time.perf_counter() - t0
+    _, x1 = env_step(exp["env"], x0, u1, noise=noise[0])
+    k_new = 8
+    resid1 = x1[:k_new] - (x0[:k_new] @ exp["a"].T + u1[:k_new] @ exp["b"].T)
+    ssm = ssm_update(ssm, x0[:k_new], u1[:k_new], resid1)
+    plan = ssm_bucketed(ssm)
+    _sync(dev)
+    t0 = time.perf_counter()
+    u2, state, info2 = exp["get_action_batch"](state, plan, x1)
+    _sync(dev)
+    t_second = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    _, x2 = env_step(exp["env"], x1, u2, noise=noise[1])
+    feas = [float(i["feasible"].float().mean()) for i in (info1, info2)]
+    viol = _violations(exp, x1) + _violations(exp, x2)
+    outs = [u1, u2, x1, x2, info1["warm_next"], info2["warm_next"],
+            info1["cost"], info2["cost"], info1["violation"],
+            info2["violation"], info1["p_traj"], info2["p_traj"]]
+    finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    print(f"[cem] B={batch} M={M_CEM} H={H_CEM} f32 auto: feasible_frac per "
+          f"step {feas} (the JAX package records {CEM_FEAS_JAX} on its own "
+          f"draws), solves/s {batch / t_second:.1f} (second call "
+          f"{t_second * 1e3:.1f} ms; first {t_first * 1e3:.1f} ms), violations "
+          f"{viol}, finite {finite}, launches {launches}", flush=True)
+    if not finite:
+        _fail("non-finite output on the CEM path")
+    if viol:
+        _fail(f"{viol} state-constraint violations on the CEM path")
+    for name, count in launches.items():
+        if count == 0:
+            _fail(f"kernel {name} was not launched on the CEM path")
+
+    # the cem_gp_impl A/B: the first step again, per impl, in turns
+    exps = {impl: _cem_exp(dtype, dev, impl) for impl in ("auto", "pallas",
+                                                           "xla")}
+    ab = {impl: {"s": []} for impl in exps}
+    for impl in ("auto", "pallas", "xla", "xla", "pallas", "auto"):
+        e = exps[impl]
+        for w in KERNEL_WRAPPERS:
+            w.launches = 0
+        st = e["init_state_batch"](batch)
+        _sync(dev)
+        t0 = time.perf_counter()
+        u, _, info = e["get_action_batch"](st, plan0, x0)
+        _sync(dev)
+        r = ab[impl]
+        r["s"].append(time.perf_counter() - t0)
+        r["launches"] = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        r["flags"] = info["feasible"].cpu()
+        _, xn = env_step(e["env"], x0, u, noise=noise[0])
+        r["violations"] = _violations(e, xn)
+        r["finite"] = bool(torch.isfinite(u).all())
+    for impl, r in ab.items():
+        r["solves_per_s"] = batch / float(np.median(r["s"]))
+        r["feasible_frac"] = float(r["flags"].float().mean())
+        print(f"[cem] A/B {impl}: solves/s {r['solves_per_s']:.1f} (solve s "
+              f"{[round(x, 4) for x in r['s']]}), feasible_frac "
+              f"{r['feasible_frac']:.4f}, violations {r['violations']}, "
+              f"launches {r['launches']}", flush=True)
+        if r["violations"] or not r["finite"]:
+            _fail(f"cem_gp_impl={impl}: violations or non-finite controls")
+    split = _cem_split(exps["auto"], plan0, x0, batch, dev)
+    agree = int((ab["auto"]["flags"] == ab["xla"]["flags"]).sum())
+    for r in ab.values():
+        del r["flags"]
+    print(f"[cem] auto vs xla feasible flags agree on {agree} of {batch} lanes "
+          f"(gate {int(np.ceil(0.95 * batch))})", flush=True)
+    if agree < 0.95 * batch:
+        _fail(f"auto and xla feasible flags agree on only {agree} lanes")
+    return {"feasible_frac": feas, "solves_per_s": batch / t_second,
+            "first_call_s": t_first, "second_call_s": t_second,
+            "violations": viol, "finite": finite, "launches": launches,
+            "feasible_frac_jax_recorded": CEM_FEAS_JAX, "ab": ab,
+            "auto_xla_flags_agree": agree, **split}
+
+
+def _cem_split(exp, plan, x0, batch, dev) -> dict:
+    """Where an "auto" solve's time goes: the host time of one final B-lane
+    scoring pass (tube rollout through gp_predict, margins, cost; a solve
+    runs two), and the device's busy share over one solve from
+    torch.profiler's per-kernel device times."""
+    from safe_exploration_tpu_torch.solvers import sqp_lanes as sl
+    from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg
+
+    k_fb, a, b = (exp[k].tolist() for k in ("k_fb", "a", "b"))
+    s_lift = torch.cat([torch.eye(2, dtype=x0.dtype, device=dev), exp["k_fb"]])
+    bmat = (s_lift.T @ s_lift).tolist()
+    spec = exp["env"].spec
+    polys = [v.tolist() for v in (spec.h_mat_obs, spec.h_obs, spec.h_mat_safe,
+                                  spec.h_safe)]
+    u = torch.zeros((H_CEM, batch), dtype=x0.dtype, device=dev)
+    rows = [x0[:, 0], x0[:, 1]]
+
+    def final_pass():
+        y = sl._rollout_y_lanes(plan, u, rows, k_fb, a, b,
+                                _TubeCfg(H_CEM, exp["cfg"].c_safety, 0), bmat,
+                                impl="pallas")
+        sl._dist_lanes(y, H_CEM, 2, *polys)
+        sl._cost_lanes("tracking", {"target": spec.target.tolist()}, y, u,
+                       H_CEM, 2, 1)
+
+    final_pass()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        final_pass()
+    _sync(dev)
+    pass_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    warm = torch.zeros((batch, H_CEM, 1), dtype=x0.dtype, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _sync(dev)
+        t0 = time.perf_counter()
+        exp["batch_planner"](plan, x0, warm)
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                    for e in events) / 1e3
+    # device ms per launch of the two kernels (the wrappers' CUDA-event times
+    # in the kernels phase also hold their host-side argument preparation)
+    per_launch = {
+        name: sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                  if f"{name}_kernel" in e.key) / 1e3 / max(1, sum(
+                      e.count for e in events if f"{name}_kernel" in e.key))
+        for name in ("cem_score", "gp_predict")}
+    busy = device_ms / wall_ms
+    print(f"[cem] where an auto solve's time goes: one final B-lane scoring "
+          f"pass {pass_ms:.2f} ms (a solve runs two); under the profiler the "
+          f"solve took {wall_ms:.2f} ms with {device_ms:.3f} ms of device time "
+          f"(busy share {busy:.3f}, idle {1 - busy:.3f}); device ms per "
+          f"launch {per_launch}", flush=True)
+    return {"final_pass_ms": pass_ms, "profiled_solve_ms": wall_ms,
+            "device_ms": device_ms, "device_busy_share": busy,
+            "device_ms_per_launch": per_launch}
+
+
+def phase_cem_parity(seed: int, batch: int = 16) -> dict:
+    """f64, B=16: one get_action_batch of the lane CEM on the GPU (kernels)
+    and on the CPU (plain versions), both with the draws of one seeded CPU
+    generator."""
+    from functools import partial
+
+    from safe_exploration_tpu_torch.models import ssm_bucketed
+    from safe_exploration_tpu_torch.solvers.safempc import (
+        SafeMPCConfig,
+        make_safempc_batch,
+    )
+
+    dtype = torch.float64
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(seed + 3)
+        exp = _cem_exp(dtype, dev)
+        xs, us, resid = _make_data(rng, 48, dtype, dev, exp)
+        ssm = _bench_ssm(exp, xs, us, resid, dtype, dev, n_max=N_CEM)
+        x0 = torch.tensor(rng.uniform(-1.0, 1.0, (batch, 2)) * [0.15, 0.4],
+                          dtype=dtype, device=dev)
+        gen = torch.Generator().manual_seed(seed)
+        init, step = make_safempc_batch(
+            exp["env"], SafeMPCConfig(n_safe=H_CEM, c_safety=exp["cfg"].c_safety),
+            partial(exp["batch_planner"], generator=gen), warm_len=H_CEM)
+        t0 = time.perf_counter()
+        u, _, info = step(init(batch), ssm_bucketed(ssm), x0)
+        out[dev] = dict(u=u, info=info, s=time.perf_counter() - t0)
+    g, c = out["cuda"], out["cpu"]
+    feas_equal = bool(torch.equal(g["info"]["feasible"].cpu(),
+                                  c["info"]["feasible"]))
+    warm = _rel(g["info"]["warm_next"], c["info"]["warm_next"])
+    u_rel = _rel(g["u"], c["u"])
+    res = {"feasible_equal": feas_equal, "warm_next_rel": warm, "u_rel": u_rel,
+           "feasible_frac": float(c["info"]["feasible"].double().mean()),
+           "gpu_s": g["s"], "cpu_s": c["s"]}
+    print(f"[cem-parity] f64 B={batch}: feasible equal {feas_equal} (frac "
+          f"{res['feasible_frac']}), warm_next rel {warm:.2e} (tol 1e-6), u rel "
+          f"{u_rel:.2e} (GPU {g['s']:.2f} s, CPU {c['s']:.2f} s)", flush=True)
+    if not feas_equal:
+        _fail("CEM feasible flags differ GPU vs CPU")
+    if warm > 1e-6:
+        _fail(f"CEM warm_next differs GPU vs CPU: {warm}")
+    return res
+
+
 SOURCES = {
     "rbf_gram_masked": ("safe_exploration_tpu_torch/csrc/gram.cu",
                         "safe_exploration_tpu/ops/pallas/gram.py:41"),
@@ -448,9 +871,14 @@ SOURCES = {
                          "safe_exploration_tpu/ops/pallas/cholesky.py:110"),
     "trsm_lower": ("safe_exploration_tpu_torch/csrc/trsm.cu",
                    "safe_exploration_tpu/ops/pallas/trsm.py:39"),
+    "gp_predict_lanes": ("safe_exploration_tpu_torch/csrc/gp_predict.cu",
+                         "safe_exploration_tpu/ops/pallas/gp_predict.py:46"),
+    "tube_score_lanes": ("safe_exploration_tpu_torch/csrc/cem_score.cu",
+                         "safe_exploration_tpu/ops/pallas/cem_score.py:50"),
 }
 SHORT = {"rbf_gram_masked": "gram", "cholesky_blocked": "cholesky",
-         "trsm_lower": "trsm"}
+         "trsm_lower": "trsm", "gp_predict_lanes": "gp_predict",
+         "tube_score_lanes": "cem_score"}
 
 
 def main() -> int:
@@ -474,25 +902,39 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kern = phase_kernels(args.seed)
+    cem_kern = phase_cem_kernels(args.seed)
     path = phase_path(args.seed)
     parity = phase_parity(args.seed)
+    cem = phase_cem_path(args.seed)
+    cem_parity = phase_cem_parity(args.seed)
 
-    t = kern["timings"][N_PATH]
+    # each kernel's launches are those of the path that runs it: the refit
+    # kernels' from the SQP path, the CEM kernels' from the CEM path; times
+    # at that path's shapes (gp_predict: the final B-lane passes)
+    times = {**kern["timings"][N_PATH],
+             "gp_predict": cem_kern["timings"][f"gp_predict_L{B_CEM}"],
+             "cem_score": cem_kern["timings"]["cem_score"]}
+    errs = {**kern["errs"], **cem_kern["errs"]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         short = SHORT[name]
-        r = t[short]
+        r = times[short]
+        launches = (cem["launches"] if short in cem_kern["errs"]
+                    else path["launches"])[name]
         kernels.append({
             "name": short, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": path["launches"][name],
-            "max_abs_err": kern["errs"][short], "ms": r["ms"],
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": errs[short], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels,
               "kernel_times": {str(n): v for n, v in kern["timings"].items()},
-              "path": path, "parity": parity, "failures": FAILURES,
+              "cem_kernel_times": cem_kern["timings"],
+              "cem_kernel_worst_rel_f32": cem_kern["worst_rel_f32"],
+              "path": path, "parity": parity, "cem_path": cem,
+              "cem_parity": cem_parity, "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

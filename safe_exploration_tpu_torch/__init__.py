@@ -5,13 +5,20 @@ keeps its module layout and names so each function has an obvious
 counterpart, and runs on an NVIDIA GPU (Hopper, ``sm_90a``):
 
   ops/linalg.py          DARE / LQR / ZOH discretization
-  ops/kernels/           hand-written CUDA kernels of the GP refit (masked RBF
-                         Gram, blocked Cholesky, blocked TRSM), each beside its
-                         plain PyTorch version; built with nvcc on first use
+  ops/ellipsoid.py,      ellipsoid calculus and the Lipschitz remainder boxes
+  ops/lipschitz.py
+  ops/kernels/           hand-written CUDA kernels, each beside its plain
+                         PyTorch version, built with nvcc on first use: the GP
+                         refit (masked RBF Gram, blocked Cholesky, blocked
+                         TRSM) and the lane CEM (fused lane GP posterior,
+                         whole-tube CEM scorer)
   envs/                  plants (pendulum) and the Env substrate
   models/                RBF kernels, the padded GP, the GP state-space model
-  solvers/               tracking cost, the lane-major Gauss-Newton AL SQP,
-                         the batched SafeMPC fallback state machine
+  reachability/          one- and multi-step ellipsoid reachability, the
+                         ellipsoid-vs-polytope safety margins
+  solvers/               tracking and exploration costs, the lane-major
+                         Gauss-Newton AL SQP, the portable and the lane-major
+                         constrained CEM, the batched SafeMPC state machine
   runtime/config.py      ExperimentConfig + build_experiment
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no

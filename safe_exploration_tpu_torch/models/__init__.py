@@ -4,6 +4,7 @@ from safe_exploration_tpu_torch.models.gp import (
     GP,
     gp_init,
     gp_predict,
+    gp_predict_mean_jac,
     gp_refit,
     gp_shrink_to_bucket,
     gp_update_data,
@@ -17,12 +18,15 @@ from safe_exploration_tpu_torch.models.ssm import (
     GPSSM,
     make_gp_ssm,
     ssm_bucketed,
+    ssm_noise_var,
     ssm_predict,
+    ssm_predict_jac,
     ssm_update,
 )
 
 __all__ = [
-    "GP", "gp_init", "gp_predict", "gp_refit", "gp_shrink_to_bucket",
-    "gp_update_data", "gram", "init_kernel_params", "kernel_diag", "GPSSM",
-    "make_gp_ssm", "ssm_bucketed", "ssm_predict", "ssm_update",
+    "GP", "gp_init", "gp_predict", "gp_predict_mean_jac", "gp_refit",
+    "gp_shrink_to_bucket", "gp_update_data", "gram", "init_kernel_params",
+    "kernel_diag", "GPSSM", "make_gp_ssm", "ssm_bucketed", "ssm_noise_var",
+    "ssm_predict", "ssm_predict_jac", "ssm_update",
 ]

@@ -30,7 +30,7 @@ from safe_exploration_tpu_torch.ops.kernels import (
 )
 
 __all__ = ["GP", "gp_init", "gp_refit", "gp_update_data",
-           "gp_shrink_to_bucket", "gp_predict"]
+           "gp_shrink_to_bucket", "gp_predict", "gp_predict_mean_jac"]
 
 _JITTER = 1e-6
 
@@ -207,3 +207,23 @@ def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     mean = torch.stack(means, dim=-1).reshape(lead + (gp.n_out,))
     var = torch.stack(vars_, dim=-1).reshape(lead + (gp.n_out,))
     return mean, var
+
+
+def gp_predict_mean_jac(gp: GP, z: torch.Tensor):
+    """Posterior mean, latent variance and the closed-form mean Jacobian at
+    inputs z (..., d_in) -> (mean (..., e), var (..., e), jac (..., e, d_in)).
+
+    RBF: d/dz sum_i c_i k(z, x_i) = (sum_i c_i k_i x_i - z sum_i c_i k_i)
+    / ls^2 with c = mask * beta (``kernels.weighted_mean_jac``)."""
+    lead = z.shape[:-1]
+    z2 = z.reshape(-1, z.shape[-1])
+    mean, var = gp_predict(gp, z2)
+    jacs = []
+    for d in range(gp.n_out):
+        kt, params = gp.kern_types[d], gp.params[d]
+        w = gram(kt, params, z2, gp.x) * (gp.mask * gp.beta[d])   # (m, n_max)
+        ls2 = torch.exp(2.0 * params["log_lengthscales"])
+        jacs.append((w @ gp.x - torch.sum(w, dim=-1, keepdim=True) * z2) / ls2)
+    jac = torch.stack(jacs, dim=-2)
+    return (mean.reshape(lead + (gp.n_out,)), var.reshape(lead + (gp.n_out,)),
+            jac.reshape(lead + jac.shape[-2:]))

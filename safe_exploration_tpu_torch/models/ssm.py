@@ -17,7 +17,7 @@ from safe_exploration_tpu_torch.models.gp import GP
 from safe_exploration_tpu_torch.models.kernels import init_kernel_params
 
 __all__ = ["GPSSM", "make_gp_ssm", "ssm_update", "ssm_bucketed",
-           "ssm_predict"]
+           "ssm_predict", "ssm_predict_jac", "ssm_noise_var"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +79,27 @@ def make_gp_ssm(kern_types: tuple, x: torch.Tensor, u: torch.Tensor,
 def ssm_predict(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor):
     """Residual mean and variance at (state, action) pairs (..., n_s)."""
     return ssm.predict_latent(torch.cat([x, u], dim=-1))
+
+
+def ssm_predict_jac(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor):
+    """Prediction and mean Jacobians split over state and control at
+    (..., n_s), (..., n_u) -> (mu, var, jac_mu_x (..., n_s, n_s),
+    jac_mu_u (..., n_s, n_u)); the Jacobian is taken in raw inputs (the
+    chain rule of ``z_scale`` applied)."""
+    n_s = x.shape[-1]
+    z = torch.cat([x, u], dim=-1)
+    if ssm.z_scale is not None:
+        z = z / ssm.z_scale
+    mu, var, jac = gp_mod.gp_predict_mean_jac(ssm.gp, z)
+    if ssm.z_scale is not None:
+        jac = jac / ssm.z_scale
+    return mu, var, jac[..., :n_s], jac[..., n_s:]
+
+
+def ssm_noise_var(ssm: GPSSM) -> torch.Tensor:
+    """Observation-noise variance per output dim; the tube adds it to the
+    latent variance, so it covers plant process noise."""
+    return ssm.noise_var()
 
 
 def ssm_update(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor, y: torch.Tensor,

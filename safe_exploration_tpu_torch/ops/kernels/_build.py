@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/torch_kernels/lib<name>-<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited source is rebuilt),
+(the hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited source or header is rebuilt),
 then loaded with ``ctypes``. Nothing is built while a module is imported:
 the wrappers call :func:`load` at their first launch on a CUDA tensor.
 :func:`build` starts one ``nvcc`` per source, all at once, so a cold start
@@ -25,7 +26,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build", "load", "lib_path",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("gram", "cholesky", "trsm")
+SOURCES = ("gram", "cholesky", "trsm", "gp_predict", "cem_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,8 +49,10 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -3,8 +3,10 @@
 
 :class:`ExperimentConfig` has the JAX package's fields and defaults, so a
 configuration means the same thing on both sides. :func:`build_experiment`
-wires the slice the port carries: the pendulum, the exact GP state-space
-model, the tracking objective and the batched lane SQP with the batched
+wires what the port carries: the pendulum, the exact GP state-space model,
+the tracking and exploration objectives, and the two solvers — the lane SQP
+and the CEM (the single-instance ``planner`` on the portable or the lane
+backend, the batched ``batch_planner`` on the lane CEM) — with the batched
 SafeMPC state machine. Other choices raise ``NotImplementedError`` naming
 the ROADMAP item that brings them.
 """
@@ -19,7 +21,19 @@ import torch
 from safe_exploration_tpu_torch import resolve_device
 from safe_exploration_tpu_torch.envs import linearize_discretize, make_pendulum
 from safe_exploration_tpu_torch.ops.linalg import dlqr
-from safe_exploration_tpu_torch.solvers.costs import tracking_cost
+from safe_exploration_tpu_torch.solvers.cem import (
+    CemConfig,
+    cem_plan,
+    cem_warm_len,
+)
+from safe_exploration_tpu_torch.solvers.cem_lanes import (
+    cem_lanes_supported,
+    make_cem_lane_solver,
+)
+from safe_exploration_tpu_torch.solvers.costs import (
+    exploration_cost,
+    tracking_cost,
+)
 from safe_exploration_tpu_torch.solvers.safempc import (
     SafeMPCConfig,
     make_safempc_batch,
@@ -109,16 +123,18 @@ class ExperimentConfig:
 
 def _require_ported(cfg: ExperimentConfig) -> None:
     """Raise for the choices the port does not carry yet."""
+    if cfg.solver not in ("sqp", "cem"):
+        raise ValueError(f"unknown solver {cfg.solver!r} (sqp|cem)")
     todo = {
-        "env": ("pendulum", "cartpole and quadrotor: ROADMAP Queue 1, item 10"),
-        "solver": ("sqp", "the CEM planners: ROADMAP Queue 1, item 9"),
-        "objective": ("tracking", "exploration and risk_tracking: ROADMAP "
-                      "Queue 1, item 10"),
-        "ssm": ("gp", "sparse and MC-dropout models: ROADMAP Queue 1, items "
-                "11 and 12"),
+        "env": (("pendulum",),
+                "cartpole and quadrotor: ROADMAP Queue 1, item 10"),
+        "objective": (("tracking", "exploration"),
+                      "risk_tracking: ROADMAP Queue 1, item 10"),
+        "ssm": (("gp",), "sparse and MC-dropout models: ROADMAP Queue 1, "
+                "items 11 and 12"),
     }
     for field, (ported, where) in todo.items():
-        if getattr(cfg, field) != ported:
+        if getattr(cfg, field) not in ported:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} is not ported yet ({where})"
             )
@@ -141,7 +157,9 @@ def _kern_tuple(cfg: ExperimentConfig, n_s: int) -> tuple:
 def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                      device=None) -> dict:
     """Wire the experiment on ``device`` (CUDA unless ``"cpu"`` is given;
-    raises when CUDA is meant and absent). Returns the batch entries
+    raises when CUDA is meant and absent). Returns the single-instance
+    ``planner(generator, ssm, x0, warm_mean, noise=None)`` (CEM only; the
+    SQP's is the unported portable NLP), the batch entries
     (``batch_planner``, ``init_state_batch``, ``get_action_batch``,
     ``make_ssm``) with ``env``, ``a``, ``b``, ``k_fb``, ``cost_fn``,
     ``kern_types``, ``l_mu``, ``l_sigma`` and ``cfg``."""
@@ -157,29 +175,78 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                     cfg.lqr_w_u * torch.eye(spec.n_u, **kw))
     k_fb = -k_lqr
 
-    sqp_cfg = SqpConfig(
-        n_safe=cfg.n_safe, c_safety=cfg.c_safety,
-        n_outer=cfg.sqp_outer, n_inner=cfg.sqp_inner,
-        n_polish=cfg.sqp_polish, n_rescue_outer=cfg.sqp_rescue,
-        n_polish_extra=cfg.sqp_polish_extra,
-        n_perf=cfg.n_perf, r_shared=cfg.r_shared,
-        perf_method=cfg.perf_trajectory, feas_tol=cfg.feas_tol,
-    )
-    warm_len = sqp_warm_len(sqp_cfg)
-    n_duals = sqp_n_duals(env, sqp_cfg)
-    dual_shift = partial(shift_duals, n_safe=cfg.n_safe,
-                         n_obs=spec.h_obs.shape[0])
-    lane_solver = make_sqp_lane_solver(
-        env, k_fb, a, b, cfg.objective, {"target": spec.target}, sqp_cfg
-    )
+    if cfg.objective == "tracking":
+        cost_fn, cost_args = tracking_cost(spec.target), {"target": spec.target}
+    else:
+        cost_fn, cost_args = exploration_cost(), {}
+    n_duals, dual_shift = 0, None
+    if cfg.solver == "cem":
+        cem_cfg = CemConfig(
+            n_safe=cfg.n_safe, n_samples=cfg.cem_samples,
+            n_elites=cfg.cem_elites, n_iterations=cfg.cem_iterations,
+            feas_tol=cfg.feas_tol, n_perf=cfg.n_perf, r_shared=cfg.r_shared,
+            perf_method=cfg.perf_trajectory, gp_impl=cfg.cem_gp_impl,
+        )
+        warm_len = cem_warm_len(cem_cfg)
+        cem_lane_solver = make_cem_lane_solver(
+            env, k_fb, a, b, cfg.c_safety, cfg.objective, cost_args, cem_cfg)
 
-    def batch_planner(ssm, x0s, warm, lam=None):
-        if not lanes_supported(ssm, sqp_cfg, cfg.objective):
+        def batch_planner(ssm, x0s, warm, *, generator=None, noise=None):
+            """The lane CEM; ``generator`` / ``noise`` replace the JAX
+            package's key (``None``: a fresh generator seeded 0)."""
+            if not cem_lanes_supported(ssm, cfg.objective):
+                raise NotImplementedError(
+                    "this model needs the vmapped portable CEM, which the port "
+                    "does not carry (per-lane and sparse models: ROADMAP "
+                    "Queue 1, items 7 and 11)"
+                )
+            return cem_lane_solver(ssm, x0s, warm, generator=generator,
+                                   noise=noise)
+
+        if cfg.cem_backend == "lanes":
+            def planner(generator, ssm, x0, warm_mean, noise=None):
+                """Single instance through the lane CEM (B = 1)."""
+                k_ff, feas, viol, info = batch_planner(
+                    ssm, x0[None], warm_mean[None], generator=generator,
+                    noise=noise)
+                return k_ff[0], feas[0], viol[0], {
+                    k: v[0] for k, v in info.items()}
+        else:
+            def planner(generator, ssm, x0, warm_mean, noise=None):
+                """Single instance through the portable CEM."""
+                return cem_plan(
+                    generator, ssm, x0, k_fb, a, b, spec.u_min, spec.u_max,
+                    spec.h_mat_obs, spec.h_obs, spec.h_mat_safe, spec.h_safe,
+                    cfg.c_safety, cost_fn, cem_cfg, warm_mean, noise=noise)
+    else:
+        sqp_cfg = SqpConfig(
+            n_safe=cfg.n_safe, c_safety=cfg.c_safety,
+            n_outer=cfg.sqp_outer, n_inner=cfg.sqp_inner,
+            n_polish=cfg.sqp_polish, n_rescue_outer=cfg.sqp_rescue,
+            n_polish_extra=cfg.sqp_polish_extra,
+            n_perf=cfg.n_perf, r_shared=cfg.r_shared,
+            perf_method=cfg.perf_trajectory, feas_tol=cfg.feas_tol,
+        )
+        warm_len = sqp_warm_len(sqp_cfg)
+        n_duals = sqp_n_duals(env, sqp_cfg)
+        dual_shift = partial(shift_duals, n_safe=cfg.n_safe,
+                             n_obs=spec.h_obs.shape[0])
+        lane_solver = make_sqp_lane_solver(
+            env, k_fb, a, b, cfg.objective, cost_args, sqp_cfg)
+
+        def batch_planner(ssm, x0s, warm, lam=None):
+            if not lanes_supported(ssm, sqp_cfg, cfg.objective):
+                raise NotImplementedError(
+                    "this model/solver combination needs the portable NLP, "
+                    "which is not ported yet (ROADMAP Queue 1, item 8)"
+                )
+            return lane_solver(ssm, x0s, warm, lam)
+
+        def planner(*args, **kwargs):
             raise NotImplementedError(
-                "this model/solver combination needs the portable NLP, which "
-                "is not ported yet (ROADMAP Queue 1, item 8)"
+                "the single-instance SQP planner is the portable NLP, which is "
+                "not ported yet (ROADMAP Queue 1, item 8)"
             )
-        return lane_solver(ssm, x0s, warm, lam)
 
     init_state_batch, get_action_batch = make_safempc_batch(
         env, mpc_cfg, batch_planner, warm_len=warm_len, n_duals=n_duals,
@@ -206,7 +273,8 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         "a": a,
         "b": b,
         "k_fb": k_fb,
-        "cost_fn": tracking_cost(spec.target),
+        "cost_fn": cost_fn,
+        "planner": planner,
         "batch_planner": batch_planner,
         "init_state_batch": init_state_batch,
         "get_action_batch": get_action_batch,

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tracking_cost"]
+__all__ = ["tracking_cost", "exploration_cost"]
 
 
 def tracking_cost(target: torch.Tensor, w_x: float = 1.0, w_u: float = 0.1,
@@ -23,5 +23,15 @@ def tracking_cost(target: torch.Tensor, w_x: float = 1.0, w_u: float = 0.1,
             k_ff_all * k_ff_all
         )
         return stage + w_terminal * torch.sum(dx[-1] * dx[-1])
+
+    return cost_fn
+
+
+def exploration_cost(scale: float = 1.0):
+    """Information-seeking objective: the summed predictive std along the
+    trajectory, negated (costs are minimized)."""
+
+    def cost_fn(p_traj, q_traj, var_traj, k_ff_all):
+        return -scale * torch.sum(torch.sqrt(var_traj))
 
     return cost_fn

@@ -17,6 +17,9 @@ import torch
 
 from safe_exploration_tpu_torch.envs.base import Env, linearize_discretize
 from safe_exploration_tpu_torch.ops.linalg import dlqr
+from safe_exploration_tpu_torch.reachability.onestep import (
+    multistep_reachability,
+)
 
 __all__ = ["SafeMPCConfig", "SafeMPCState", "make_safempc_batch"]
 
@@ -103,13 +106,12 @@ def make_safempc_batch(
             )
             lam_next = state.lam
         warm_next = pinfo.get("warm_next", k_ff_new)
-        if "p_traj" not in pinfo:
-            raise NotImplementedError(
-                "planners without predicted centers need multistep "
-                "reachability, which is not ported yet (ROADMAP Queue 1, "
-                "item 4)"
-            )
-        p_traj = pinfo["p_traj"]                            # (B, T, n_s)
+        if "p_traj" in pinfo:
+            p_traj = pinfo["p_traj"]                        # (B, T, n_s)
+        else:
+            p_traj, _, _ = multistep_reachability(
+                ssm, xs, k_ff_new, k_fb.expand(t_len, *k_fb.shape), a, b,
+                cfg.c_safety)
         p_refs = torch.cat([xs[:, None], p_traj[:, :-1]], dim=1)
 
         feas = feasible[:, None]

@@ -14,11 +14,17 @@ derivative ever couples two lanes. ``lax.scan`` / ``lax.cond`` become Python
 loops and one host ``bool`` for the violation-gated extra polish.
 
 Covered here: a shared :class:`GPSSM` with the RBF kernel menu, n_s <= 2
-(the scalar-unrolled tube), no performance trajectory, the tracking
-objective, GN Hessian, exact line search and fixed feedback gains. The
-array-form tube (n_s > 2), performance trajectories, the exploration and
-risk objectives and per-lane / sparse models are still to port (ROADMAP
-Queue 1, items 7, 10 and 11).
+(the scalar-unrolled tube), no performance trajectory, the tracking and
+exploration objectives, GN Hessian, exact line search and fixed feedback
+gains. The array-form tube (n_s > 2), performance trajectories, the risk
+objective and per-lane / sparse models are still to port (ROADMAP Queue 1,
+items 7, 10 and 11).
+
+The tube rollout also serves the lane CEM (solvers/cem_lanes.py), which
+scores without derivatives: there ``impl="pallas"`` routes the posterior
+through the fused CUDA kernel (``ops/kernels/gp_predict.py``). The kernel is
+forward-only, so the SQP, which differentiates through the posterior, keeps
+the plain form, as in the JAX package.
 
 Kinks follow the JAX package: ``max(x, 0)`` is written as
 ``(x + |x|) / 2`` (:func:`_relu0`), which has JAX's derivative 1/2 at the
@@ -32,14 +38,18 @@ from typing import Callable
 import torch
 
 from safe_exploration_tpu_torch.models.ssm import GPSSM
+from safe_exploration_tpu_torch.ops.kernels import gp_predict_lanes
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, _solve_spd_unrolled
 
-__all__ = ["lanes_supported", "solve_safempc_lanes", "make_sqp_lane_solver"]
+__all__ = ["lanes_supported", "gp_pallas_supported", "solve_safempc_lanes",
+           "make_sqp_lane_solver"]
 
 # kernel type -> additive parts (the JAX package's models/gp_lanes table,
 # restricted to the ported menu)
 _KERNEL_PARTS = {"rbf": ("rbf",)}
-_LANE_COSTS = ("tracking",)
+# the Sigma-free stock objectives; a Sigma-consuming one (risk_tracking, not
+# ported) must be added to _wants_sigma as well
+_LANE_COSTS = ("tracking", "exploration")
 
 
 def _relu0(x: torch.Tensor) -> torch.Tensor:
@@ -75,13 +85,50 @@ def _const_rows(mat):
 # ----------------------------------------------------------------- GP (lanes)
 
 
-def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool):
+def _gp_of(ssm):
+    """The GP state of a lane-capable SSM (the port carries the exact
+    :class:`GPSSM` only)."""
+    return ssm.gp
+
+
+def gp_pallas_supported(ssm) -> bool:
+    """Whether the fused posterior kernel (``ops/kernels/gp_predict.py``)
+    covers this model: a shared exact GP-SSM with the all-RBF menu."""
+    if not isinstance(ssm, GPSSM):
+        return False
+    gp = _gp_of(ssm)
+    return all(kt == "rbf" for kt in gp.kern_types) and gp.precision == "f32"
+
+
+def _gp_predict_lanes_pallas(ssm, z, *, want_jac: bool):
+    """:func:`_gp_predict_lanes` through the fused kernel: the mask is
+    folded into the weights (zeroed rows and columns add exactly 0) and the
+    z_scale chain rule is applied outside. Forward-only."""
+    gp = _gp_of(ssm)
+    m = gp.mask
+    zz = z if ssm.z_scale is None else z / ssm.z_scale[:, None]
+    out = gp_predict_lanes(
+        gp.x, gp.beta * m[None, :], gp.kinv * (m[None, :, None] * m[None, None, :]),
+        torch.stack([p["log_lengthscales"] for p in gp.params]),
+        torch.stack([p["log_sf"] for p in gp.params]), zz.contiguous(),
+        want_jac=want_jac)
+    if want_jac and ssm.z_scale is not None:
+        mu, var, jac = out
+        return mu, var, jac / ssm.z_scale[None, :, None]
+    return out
+
+
+def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
+                      impl: str = "xla"):
     """Posterior mean/var (+ closed-form mean Jacobian) at B query lanes.
 
     ``z``: (d_in, B) raw state-action inputs. Returns (mu (e, B), var (e, B)
     [, jac (e, d_in, B)]), with the conditioning-aware variance floor and the
-    z_scale chain rule of the JAX package.
+    z_scale chain rule of the JAX package. ``impl="pallas"`` takes the fused
+    kernel (forward-only; the name is the JAX package's).
     """
+    if impl == "pallas":
+        return _gp_predict_lanes_pallas(ssm, z, want_jac=want_jac)
     gp = ssm.gp
     xr, w_mean, w_var, mask = gp.x, gp.beta, gp.kinv, gp.mask
     zz = z if ssm.z_scale is None else z / ssm.z_scale[:, None]
@@ -186,12 +233,13 @@ def _sum_two_ellipsoids_q(q1, q2):
              for j in range(n)] for i in range(n)]
 
 
-def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat):
+def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
     """Lane tube rollout from a point state: u_flat (n_var, B), x0 list of
     n_s (B,) rows -> (p_traj, q_traj, var_traj), lists over stages of lane
     structures. Stage 0 is the point step, stages 1..T-1 the closed-loop
     ellipsoid steps; ``bmat`` is S^T S of the Lipschitz lift. ``k_fb``,
-    ``a``, ``b``, ``bmat`` may be tensors or nested lists of floats."""
+    ``a``, ``b``, ``bmat`` may be tensors or nested lists of floats;
+    ``impl`` selects the posterior (:func:`_gp_predict_lanes`)."""
     t_len = cfg.n_safe
     n_s = len(x0)
     a_rows, b_rows = _const_rows(a), _const_rows(b)
@@ -205,7 +253,7 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat):
 
     kff = kff_at(0)
     z = torch.stack(list(x0) + kff)
-    mu, var = _gp_predict_lanes(ssm, z, want_jac=False)
+    mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl)
     p = [
         sum(a_rows[i][j] * x0[j] for j in range(n_s))
         + sum(b_rows[i][k] * kff[k] for k in range(n_u))
@@ -222,7 +270,7 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat):
     for t in range(1, t_len):
         kff = kff_at(t)
         z = torch.stack(list(p) + kff)
-        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True)
+        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl)
         p_next = [
             sum(a_rows[i][j] * p[j] for j in range(n_s))
             + sum(b_rows[i][k] * kff[k] for k in range(n_u))
@@ -257,15 +305,17 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat):
     return p_traj, q_traj, var_traj
 
 
-def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat):
-    """Packed tube rollout (ny, B); the port covers n_s <= 2 and n_perf = 0."""
-    if len(x0_rows) > 2 or cfg.n_perf > 0:
+def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat,
+                     impl="xla", want_sigma=False):
+    """Packed tube rollout (ny, B); the port covers n_s <= 2 and n_perf = 0
+    (so no perf-trajectory covariance, ``want_sigma``)."""
+    if len(x0_rows) > 2 or cfg.n_perf > 0 or want_sigma:
         raise NotImplementedError(
             "the array-form tube (n_s > 2) and performance trajectories are "
             "not ported yet (ROADMAP Queue 1, item 10)"
         )
     return _pack_y(*_rollout_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg,
-                                   bmat))
+                                   bmat, impl=impl))
 
 
 def _pack_y(p_traj, q_traj, var_traj):
@@ -322,14 +372,25 @@ def _dist_lanes(y, t_len, n_s, h_mat_obs, h_obs, h_mat_safe, h_safe):
     return torch.stack(rows)
 
 
+def _wants_sigma(cost_kind: str, n_perf: int) -> bool:
+    """Whether the lane rollout must carry the perf-trajectory covariance
+    recursion for this objective (the JAX package's risk cost with a
+    performance trajectory; neither is ported)."""
+    return cost_kind == "risk_tracking" and n_perf > 0
+
+
 def _cost_lanes(cost_kind: str, cost_args: dict, y, u_flat, t_len, n_s, n_u):
-    """Lane form of the tracking objective -> (B,)."""
+    """Lane forms of the tracking and exploration objectives -> (B,)."""
     if cost_kind not in _LANE_COSTS:
         raise NotImplementedError(
             f"lane cost {cost_kind!r} is not ported yet (ROADMAP Queue 1, "
-            "item 10); the port carries 'tracking'"
+            "item 10); the port carries 'tracking' and 'exploration'"
         )
-    p_cost, _, _ = _unpack_y(y, t_len, n_s)
+    p_cost, _, var_cost = _unpack_y(y, t_len, n_s)
+    if cost_kind == "exploration":
+        scale = cost_args.get("scale", 1.0)
+        return -scale * sum(torch.sqrt(var_cost[t][i])
+                            for t in range(t_len) for i in range(n_s))
     target = _const_rows(cost_args["target"])
     w_x = cost_args.get("w_x", 1.0)
     w_u = cost_args.get("w_u", 0.1)
@@ -431,7 +492,8 @@ def solve_safempc_lanes(
                   bmat=(s_lift.T @ s_lift).tolist())
     polys = (h_mat_obs.tolist(), h_obs.tolist(), h_mat_safe.tolist(),
              h_safe.tolist())
-    cost_args = {**cost_args, "target": _const_rows(cost_args["target"])}
+    if "target" in cost_args:
+        cost_args = {**cost_args, "target": _const_rows(cost_args["target"])}
 
     x0 = x0s.T
     u0 = torch.movedim(u_init.reshape(bsz, n_var), 0, -1)   # (n_var, B)

@@ -5,7 +5,8 @@
     numpy arrays: ``batch_feasible`` exact, ``batch_k_ff`` at 1e-4,
     ``batch_cost`` at 1e-3 (the gates of tests/test_goldens.py);
   * ``solve_safempc_lanes`` against the JAX lane solve on the same inputs at
-    H=5, B=8 with a small budget: feasible flags exact, k_ff at 1e-4.
+    H=5, B=8 with a small budget, for the tracking and the exploration
+    objective: feasible flags exact, k_ff at 1e-4.
 
 The JAX solve is compiled once for the module (its compile dominates the
 run time); the port runs eagerly.
@@ -157,9 +158,10 @@ def test_cfg3_golden_batch_block(fitted):
         < 1e-3
 
 
-def test_solve_safempc_lanes_matches_jax_lane_solve(fitted):
+@pytest.mark.parametrize("objective", ["tracking", "exploration"])
+def test_solve_safempc_lanes_matches_jax_lane_solve(fitted, objective):
     jssm, tssm = fitted
-    kw = dict(solver="sqp", n_safe=5, n_max=32, **SMALL)
+    kw = dict(solver="sqp", n_safe=5, n_max=32, objective=objective, **SMALL)
     jexp = jax_build(JaxConfig(**kw), dtype=jnp.float64)
     texp = build_experiment(ExperimentConfig(**kw), dtype=torch.float64,
                             device="cpu")
@@ -182,8 +184,15 @@ def test_solve_safempc_lanes_matches_jax_lane_solve(fitted):
 def test_lanes_supported_covers_the_ported_slice(fitted):
     _, tssm = fitted
     assert tl.lanes_supported(tssm, SqpConfig(), "tracking")
-    assert not tl.lanes_supported(tssm, SqpConfig(), "exploration")
+    assert tl.lanes_supported(tssm, SqpConfig(), "exploration")
+    assert not tl.lanes_supported(tssm, SqpConfig(), "risk_tracking")
     assert not tl.lanes_supported(tssm, SqpConfig(n_perf=3), "tracking")
     assert not tl.lanes_supported(tssm, SqpConfig(opt_k_fb=True), "tracking")
+    for kw in (dict(objective="risk_tracking"), dict(env="cartpole"),
+               dict(ssm="sparse_gp"), dict(n_perf=3)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_experiment(ExperimentConfig(solver="cem", **kw),
+                             device="cpu")
+    exp = build_experiment(ExperimentConfig(solver="sqp"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_experiment(ExperimentConfig(solver="cem"), device="cpu")
+        exp["planner"](None, tssm, None, None)

@@ -18,9 +18,10 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               ragged n=200, in f32 and f64; NaN on an indefinite input; CUDA-
               event times of kernel, plain version and the torch.linalg call
      cem      gp_predict and cem_score against their plain versions at
-              n = 64 and 128, L = 16,384 and a ragged 1,000, f32 and f64, with
-              and without the Jacobian, z_scale on and off, tracking and
-              exploration; CUDA-event times of kernel and plain version
+              n = 64 (H 5) and 128 (H 3, pendulum_batch's shape), L = 16,384
+              and a ragged 1,000, f32 and f64, with and without the
+              Jacobian, z_scale on and off, tracking and exploration;
+              CUDA-event times of kernel and plain version
   4. path     build_experiment at the headline budget, a GP refit, two batched
               get_action_batch calls around a plant step and an ssm_update
               (a second refit); launch counts are zeroed just before and read
@@ -546,7 +547,7 @@ def phase_cem_kernels(seed: int) -> dict:
         ssm = gpssm_from_numpy(arr, ("rbf", "rbf"), device="cuda", dtype=dtype)
         t = {"dtype": dtype, "device": "cuda"}
         return (ssm, torch.tensor(u, **t), torch.tensor(x0, **t), *consts,
-                *polys, 2.0, H_CEM, kind,
+                *polys, 2.0, u.shape[0], kind,
                 {"target": target} if kind == "tracking" else {})
 
     def up64(arr):
@@ -562,12 +563,13 @@ def phase_cem_kernels(seed: int) -> dict:
                            for p in arr["params"]]}
 
     worst = {"gp_predict": 0.0, "cem_score": 0.0}
-    for n in (N_CEM, 128):
+    # bench_cem_solves' shape (n_max 64, H 5) and pendulum_batch's (128, 3)
+    for n, horizon in ((N_CEM, H_CEM), (128, 3)):
         for z_scale in (True, False):
             arr = _cem_model(seed + n, n, z_scale)
             for L in (M_CEM * B_CEM, 1000):
                 zz = rng.uniform(-1.0, 1.0, (D_IN, L))
-                u = 0.4 * rng.standard_normal((H_CEM, L))
+                u = 0.4 * rng.standard_normal((horizon, L))
                 x0 = rng.uniform(-1.0, 1.0, (2, L)) * np.array([[0.15], [0.4]])
                 for dtype in (torch.float32, torch.float64):
                     f64 = dtype == torch.float64
@@ -588,9 +590,10 @@ def phase_cem_kernels(seed: int) -> dict:
                             if not f64 else x0, torch.float64, kind))
                         e_cs = max(e_cs, *(_rel(o, r) for o, r in zip(out, ref)))
                     tol_gp, tol_cs = (1e-10, 1e-10) if f64 else (3e-5, 2e-4)
-                    print(f"[cem-kernels] {str(dtype)[6:]} n={n} L={L} z_scale="
-                          f"{z_scale}: gp_predict rel {e_gp:.2e} (tol "
-                          f"{tol_gp:g}), cem_score rel {e_cs:.2e} (tol "
+                    print(f"[cem-kernels] {str(dtype)[6:]} n={n} H={horizon} "
+                          f"L={L} z_scale={z_scale}: gp_predict rel "
+                          f"{e_gp:.2e} (tol {tol_gp:g}), cem_score rel "
+                          f"{e_cs:.2e} (tol "
                           f"{tol_cs:g})", flush=True)
                     if e_gp > tol_gp or e_cs > tol_cs:
                         _fail(f"CEM kernel disagrees with plain at {dtype} n={n}"

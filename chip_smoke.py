@@ -513,12 +513,33 @@ def _cem_plant(dtype, device):
             spec.target)
 
 
-def _gp_ops(n: int, L: int, jac: bool) -> float:
-    """Operations of one gp_predict call: per lane and dim the distance
-    (5 n d), kv (2 n), mean (2 n), quadratic form (2 n^2 + 2 n) and, with the
-    Jacobian, 2 n (d + 1)."""
-    return E * L * (2 * n * n + n * (5 * D_IN + 6)
-                    + (2 * n * (D_IN + 1) if jac else 0))
+def _gp_prep_ops(n: int) -> int:
+    """Operations of the posterior made once per call: the scaled support
+    rows x/ls and c_j = log sf2 - |x_j/ls|^2 / 2 (3 d + 2 per row and dim)."""
+    return E * n * (3 * D_IN + 2)
+
+
+def _gp_lane_ops(n: int, jac: bool) -> int:
+    """Operations of the posterior per lane and output dim, counted as the
+    least the function needs (an FMA is 2, an add, multiply, divide, sqrt,
+    exp or compare 1): z' = z/ls and |z'|^2 / 2 (3 d + 1); per support row
+    the exponent c_j - |z'|^2 / 2 + x_j/ls . z' and its exp (2 d + 2); the
+    mean (2 n); the quadratic form and the floor (2 n^2 + 2 n + 2); with the
+    Jacobian, X^T (kv w) - z sum(kv w) over ls^2 (2 n d + 3 d)."""
+    return (2 * n * n + n * (2 * D_IN + 6) + 3 * D_IN + 3
+            + (2 * n * D_IN + 3 * D_IN if jac else 0))
+
+
+def _tube_ops(t_len: int, m_obs: int, m_safe: int) -> int:
+    """Operations of the n_s = 2, n_u = 1 tube per lane, past the posterior,
+    with the tracking cost, counted as in :func:`_gp_lane_ops` on symmetric
+    2x2 shapes: the point step (12) and Q_0 = 2 c^2 (var + noise) (4); per
+    ellipsoid stage the next centre (12), H = a + J_x + (b + J_u) k (14),
+    H Q H^T (21), the closed-form lambda_max(Q S^T S) and its root (18), the
+    remainder radii (12) and the two diagonal Minkowski sums (40); per
+    polytope row its margin added into viol (14); the cost (8 T + 5)."""
+    return (16 + 117 * (t_len - 1) + 14 * (t_len * m_obs + m_safe)
+            + 8 * t_len + 5)
 
 
 def phase_cem_kernels(seed: int) -> dict:
@@ -614,14 +635,14 @@ def phase_cem_kernels(seed: int) -> dict:
         ref = gp_predict_plain(*args, want_jac=True)
         if L == B_CEM:
             abs_err["gp_predict"] = max(_abs(o, r) for o, r in zip(out, ref))
-        n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2 + D_IN * L
-                        + 2 * E * L + E * D_IN * L)
+        n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2
+                        + E * (D_IN + 1) + D_IN * L + 2 * E * L + E * D_IN * L)
+        ops = _gp_prep_ops(N_CEM) + E * L * _gp_lane_ops(N_CEM, True)
         timings[f"gp_predict_L{L}"] = dict(
             ms=_time_ms(lambda: gp_predict_lanes(*args, want_jac=True), 20),
             plain_ms=_time_ms(lambda: gp_predict_plain(*args, want_jac=True),
                               5),
-            library_ms=None,
-            bound=_bound_ms(n_bytes, _gp_ops(N_CEM, L, True), dt))
+            library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
     L = M_CEM * B_CEM
     u = 0.4 * rng.standard_normal((H_CEM, L)).astype(np.float32)
     x0 = (rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]]).astype(np.float32)
@@ -630,8 +651,9 @@ def phase_cem_kernels(seed: int) -> dict:
     ref = tube_score_plain(*score_args(up64(arr), u, x0, torch.float64,
                                        "tracking"))
     abs_err["cem_score"] = max(_abs(o, r) for o, r in zip(out, ref))
-    ops = H_CEM * _gp_ops(N_CEM, L, False) + (H_CEM - 1) * E * L * 2 * N_CEM * (
-        D_IN + 1)
+    ops = (_gp_prep_ops(N_CEM) + E * L * (_gp_lane_ops(N_CEM, False) + (
+        H_CEM - 1) * _gp_lane_ops(N_CEM, True))
+        + L * _tube_ops(H_CEM, len(polys[1]), len(polys[3])))
     n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2
                     + (H_CEM + 2) * L + 2 * L)
     timings["cem_score"] = dict(

@@ -23,6 +23,7 @@ from safe_exploration_tpu_torch.ops.kernels.cholesky import (
     cholesky_plain,
 )
 from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
+    gp_pallas_supported,
     gp_predict_lanes,
     gp_predict_plain,
 )
@@ -38,7 +39,7 @@ KERNEL_WRAPPERS = (rbf_gram_masked, cholesky_blocked, trsm_lower,
 
 __all__ = [
     "KERNEL_WRAPPERS", "cem_score_supported", "cholesky_blocked",
-    "cholesky_plain", "gp_predict_lanes", "gp_predict_plain", "gram_plain",
-    "rbf_gram_masked", "solve_psd", "trsm_lower", "trsm_plain",
-    "tube_score_lanes", "tube_score_plain",
+    "cholesky_plain", "gp_pallas_supported", "gp_predict_lanes",
+    "gp_predict_plain", "gram_plain", "rbf_gram_masked", "solve_psd",
+    "trsm_lower", "trsm_plain", "tube_score_lanes", "tube_score_plain",
 ]

@@ -10,7 +10,7 @@ tracking or exploration cost — in one launch. It equals
 
 The GP runs in raw input coordinates: ``z_scale`` is folded into the
 support rows and the lengthscales, so the Jacobian needs no chain rule.
-:func:`tube_score_plain` is the kernel's arithmetic in plain PyTorch; the
+:func:`tube_score_plain` is that chain itself, in its plain lane form; the
 wrapper takes it for tensors on the CPU and launches the kernel for tensors
 on a CUDA device.
 """
@@ -32,8 +32,8 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
     stream_ptr,
 )
 from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
+    gp_pallas_supported,
     posterior_hyper,
-    posterior_plain,
 )
 
 __all__ = ["cem_score_supported", "tube_score_lanes", "tube_score_plain"]
@@ -46,10 +46,8 @@ _COSTS = ("tracking", "exploration")
 
 def cem_score_supported(ssm, n_s: int, cost_kind: str, n_perf: int) -> bool:
     """Whether the scorer covers this configuration: the fused posterior's
-    models (``sqp_lanes.gp_pallas_supported``), n_s == 2, no performance
+    models (:func:`gp_pallas_supported`), n_s == 2, no performance
     trajectory, the tracking or exploration cost."""
-    from safe_exploration_tpu_torch.solvers.sqp_lanes import gp_pallas_supported
-
     return (gp_pallas_supported(ssm) and n_s == 2 and n_perf == 0
             and cost_kind in _COSTS)
 
@@ -94,86 +92,6 @@ def _weights(cost_args):
             float(cost_args.get("scale", 1.0)))
 
 
-def _margins(viol, p, q, h):
-    hm, hv = h
-    for i in range(hm.shape[0]):
-        lin = hm[i, 0] * p[0] + hm[i, 1] * p[1]
-        sup = sum(hm[i, j] * q[j][k] * hm[i, k]
-                  for j in range(2) for k in range(2))
-        g = lin + torch.sqrt(torch.clamp(sup, min=0.0)) - hv[i]
-        viol = viol + torch.clamp(g, min=0.0)
-    return viol
-
-
-def _diag_sum(q, hw):
-    """q (+) diag(2 hw^2), the trace-minimal Minkowski sum (floor 1e-30)."""
-    eps = 1e-30
-    t1 = q[0][0] + q[1][1] + eps
-    t2 = 2.0 * hw[0] * hw[0] + 2.0 * hw[1] * hw[1] + eps
-    c = torch.sqrt(t1 / t2)
-    out = [[(1.0 + 1.0 / c) * q[i][j] for j in range(2)] for i in range(2)]
-    for i in range(2):
-        out[i][i] = out[i][i] + (1.0 + c) * 2.0 * hw[i] * hw[i]
-    return out
-
-
-def _score_plain(pr, u, x0, c_safety, t_len, cost_kind, cost_args):
-    """The kernel's per-lane arithmetic on (L,) rows."""
-    a, b, kfb, bl = pr["a"], pr["b"], pr["k_fb"], pr["bmat"]
-    noise, l_mu, l_sigma, tgt = pr["noise"], pr["l_mu"], pr["l_sigma"], pr["target"]
-    n_u = b.shape[1]
-    zero = torch.zeros_like(x0[0])
-    viol, stage, expl, ctrl = zero, zero, zero, zero
-    z = torch.cat([x0, u[:n_u]])
-    for t in range(t_len):
-        out = posterior_plain(pr["x"], pr["w_mean"], pr["w_var"],
-                              *pr["hyper"], z, t > 0)
-        mu, var = out[0], out[1]
-        kff = [z[2 + k] for k in range(n_u)]
-        for k in range(n_u):
-            ctrl = ctrl + kff[k] * kff[k]
-        pn = [a[i, 0] * z[0] + a[i, 1] * z[1]
-              + sum(b[i, k] * kff[k] for k in range(n_u)) + mu[i]
-              for i in range(2)]
-        hw_c = [c_safety * torch.sqrt(var[i] + noise[i]) for i in range(2)]
-        if t == 0:
-            q = [[2.0 * hw_c[i] * hw_c[i] if i == j else zero
-                  for j in range(2)] for i in range(2)]
-        else:
-            jac = out[2]
-            h = [[a[i, j] + jac[i, j]
-                  + sum((b[i, k] + jac[i, 2 + k]) * kfb[k, j]
-                        for k in range(n_u))
-                  for j in range(2)] for i in range(2)]
-            hq = [[h[i][0] * q[0][j] + h[i][1] * q[1][j] for j in range(2)]
-                  for i in range(2)]
-            q_lin = [[hq[i][0] * h[j][0] + hq[i][1] * h[j][1]
-                      for j in range(2)] for i in range(2)]
-            qb = [[q[i][0] * bl[0, j] + q[i][1] * bl[1, j] for j in range(2)]
-                  for i in range(2)]
-            tr = qb[0][0] + qb[1][1]
-            det = qb[0][0] * qb[1][1] - qb[0][1] * qb[1][0]
-            disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
-            r_sqr = torch.clamp(0.5 * (tr + disc), min=0.0)
-            r = torch.sqrt(r_sqr)
-            hw_t = [0.5 * l_mu[i] * r_sqr for i in range(2)]
-            hw_c = [c_safety * (torch.sqrt(var[i] + noise[i]) + l_sigma[i] * r)
-                    for i in range(2)]
-            q = _diag_sum(_diag_sum(q_lin, hw_c), hw_t)
-        p = pn
-        expl = expl + torch.sqrt(var[0]) + torch.sqrt(var[1])
-        viol = _margins(viol, p, q, pr["h_obs"])
-        if t < t_len - 1:
-            stage = stage + sum((p[i] - tgt[i]) ** 2 for i in range(2))
-            z = torch.cat([torch.stack(p), u[(t + 1) * n_u:(t + 2) * n_u]])
-    viol = _margins(viol, p, q, pr["h_safe"])
-    w_x, w_u, w_t, scale = _weights(cost_args)
-    if cost_kind == "exploration":
-        return -scale * expl, viol
-    term = sum((p[i] - tgt[i]) ** 2 for i in range(2))
-    return w_x * stage + w_u * ctrl + w_t * term, viol
-
-
 def _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind):
     n_u = len(k_fb)
     if x0_cols.shape[0] != 2 or u_flat.shape != (t_len * n_u, x0_cols.shape[1]):
@@ -187,12 +105,22 @@ def _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind):
 def tube_score_plain(ssm, u_flat, x0_cols, k_fb, a, b, bmat, h_mat_obs, h_obs,
                      h_mat_safe, h_safe, c_safety, t_len, cost_kind,
                      cost_args):
-    """Plain version of :func:`tube_score_lanes` (same arguments)."""
+    """Plain version of :func:`tube_score_lanes` (same arguments): the
+    solvers' own lane chain in its plain form."""
+    # the solvers import this package (through the GP refit), so their
+    # lane chain is imported when the plain version runs
+    from safe_exploration_tpu_torch.solvers import sqp_lanes
+    from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg
+
     _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind)
-    pr = _prepare(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
-                  cost_kind, cost_args, u_flat)
-    return _score_plain(pr, u_flat, x0_cols, c_safety, t_len, cost_kind,
-                        cost_args)
+    y = sqp_lanes._rollout_y_lanes(
+        ssm, u_flat, [x0_cols[0], x0_cols[1]], k_fb, a, b,
+        _TubeCfg(n_safe=t_len, c_safety=c_safety, n_perf=0), bmat)
+    g = sqp_lanes._dist_lanes(y, t_len, 2, h_mat_obs, h_obs, h_mat_safe,
+                              h_safe)
+    viol = torch.sum(torch.clamp(g, min=0.0), dim=0)
+    return sqp_lanes._cost_lanes(cost_kind, cost_args, y, u_flat, t_len, 2,
+                                 len(k_fb)), viol
 
 
 def tube_score_lanes(ssm, u_flat: torch.Tensor, x0_cols: torch.Tensor, k_fb,

@@ -30,10 +30,20 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
     stream_ptr,
 )
 
-__all__ = ["gp_predict_lanes", "gp_predict_plain", "posterior_plain",
-           "posterior_hyper"]
+__all__ = ["gp_pallas_supported", "gp_predict_lanes", "gp_predict_plain",
+           "posterior_plain", "posterior_hyper"]
 
 _ARGTYPES = (VP,) * 11 + (INT,) * 6 + (VP,)
+
+
+def gp_pallas_supported(ssm) -> bool:
+    """Whether this kernel covers the model: an exact GP-SSM (the port's
+    only kind, known by its padded GP ``ssm.gp``; the models package builds
+    on this one, so it is not imported here) with the all-RBF menu at f32
+    precision."""
+    gp = getattr(ssm, "gp", None)
+    return (gp is not None and gp.precision == "f32"
+            and all(kt == "rbf" for kt in gp.kern_types))
 
 
 def posterior_hyper(inv_ls: torch.Tensor, log_sf: torch.Tensor):

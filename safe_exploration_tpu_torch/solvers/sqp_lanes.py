@@ -38,7 +38,10 @@ from typing import Callable
 import torch
 
 from safe_exploration_tpu_torch.models.ssm import GPSSM
-from safe_exploration_tpu_torch.ops.kernels import gp_predict_lanes
+from safe_exploration_tpu_torch.ops.kernels import (
+    gp_pallas_supported,
+    gp_predict_lanes,
+)
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, _solve_spd_unrolled
 
 __all__ = ["lanes_supported", "gp_pallas_supported", "solve_safempc_lanes",
@@ -89,15 +92,6 @@ def _gp_of(ssm):
     """The GP state of a lane-capable SSM (the port carries the exact
     :class:`GPSSM` only)."""
     return ssm.gp
-
-
-def gp_pallas_supported(ssm) -> bool:
-    """Whether the fused posterior kernel (``ops/kernels/gp_predict.py``)
-    covers this model: a shared exact GP-SSM with the all-RBF menu."""
-    if not isinstance(ssm, GPSSM):
-        return False
-    gp = _gp_of(ssm)
-    return all(kt == "rbf" for kt in gp.kern_types) and gp.precision == "f32"
 
 
 def _gp_predict_lanes_pallas(ssm, z, *, want_jac: bool):

@@ -2,11 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``safe_exploration_tpu_torch/csrc``,
-holds each against its plain PyTorch version, drives the port's two paths
+holds each against its plain PyTorch version, drives the port's three paths
 (the batched lane SQP safe-MPC on the pendulum at H=5, B=512, with GP refits
 through the kernels; the batched lane CEM at H=5, B=256, M=64, scoring
-through the cem_score and gp_predict kernels) and checks the GPU against the
-CPU in f64.
+through the cem_score and gp_predict kernels; the episodic closed loop of
+``runtime.main --config pendulum_episode``, also at n_max 2048 where the
+refits take cholesky_hbm) and checks the GPU against the CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -36,6 +37,19 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               twice each in alternating order, same generator seed
   7. cemparity  f64, B=16: one get_action_batch on the GPU (kernels) and on
               the CPU (plain versions) with the draws of one CPU generator
+  8. hbm      cholesky_hbm against its plain version at n = 1300, 2048 and
+              4096 (e=2, f32 within 3e-4 of the f64 factor, f64 at 1e-9), NaN
+              on an indefinite input, trsm_lower at n = m = 2048; CUDA-event
+              times of cholesky_hbm, cholesky_blocked (called past its
+              wrapper's limit), cholesky_ex and the plain version at 1024 and
+              2048, and cholesky_hbm's device time per kernel (profiler)
+  9. episode  the episodic CLI's run_experiment on the card: (a)
+              pendulum_episode (3 of its 6 episodes), (b) the same with
+              n_max 2048, 1,024 initial points, 60 hyperparameter steps;
+              launch counts zeroed just before each run and read just after;
+              per-episode series and fit / calibration / refit times
+ 10. episode-parity  f64, one episode of 3 steps at n_max 2048: GPU against
+              CPU on one set of draws
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -681,6 +695,17 @@ def _cem_exp(dtype, dev, gp_impl="auto"):
     return build_experiment(cfg, dtype=dtype, device=dev)
 
 
+def _cem_path_wrappers():
+    """The kernels the CEM path runs: all but the large-matrix Cholesky
+    (its n_max 64 refits take cholesky_blocked)."""
+    from safe_exploration_tpu_torch.ops.kernels import (
+        KERNEL_WRAPPERS,
+        cholesky_hbm,
+    )
+
+    return [w for w in KERNEL_WRAPPERS if w is not cholesky_hbm]
+
+
 def phase_cem_path(seed: int, batch: int = B_CEM, dev: str = "cuda") -> dict:
     """The lane CEM end to end, then the cem_gp_impl A/B in one process."""
     from safe_exploration_tpu_torch.envs import env_step
@@ -715,7 +740,7 @@ def phase_cem_path(seed: int, batch: int = B_CEM, dev: str = "cuda") -> dict:
     u2, state, info2 = exp["get_action_batch"](state, plan, x1)
     _sync(dev)
     t_second = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    launches = {w.__name__: w.launches for w in _cem_path_wrappers()}
     _, x2 = env_step(exp["env"], x1, u2, noise=noise[1])
     feas = [float(i["feasible"].float().mean()) for i in (info1, info2)]
     viol = _violations(exp, x1) + _violations(exp, x2)
@@ -751,7 +776,7 @@ def phase_cem_path(seed: int, batch: int = B_CEM, dev: str = "cuda") -> dict:
         _sync(dev)
         r = ab[impl]
         r["s"].append(time.perf_counter() - t0)
-        r["launches"] = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        r["launches"] = {w.__name__: w.launches for w in _cem_path_wrappers()}
         r["flags"] = info["feasible"].cpu()
         _, xn = env_step(e["env"], x0, u, noise=noise[0])
         r["violations"] = _violations(e, xn)
@@ -889,6 +914,343 @@ def phase_cem_parity(seed: int, batch: int = 16) -> dict:
     return res
 
 
+N_HBM = 2048   # n_max of the large-GP episodic run (b): the HBM tier's shape
+
+
+def _spd_cuda(n: int, seed: int) -> torch.Tensor:
+    """(E, n, n) f64 m m^T + n I on the card (the matrices of
+    tests/test_pallas.py), from a seeded CUDA generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = torch.randn((E, n, n), generator=g, dtype=torch.float64,
+                    device="cuda")
+    return m @ m.mT + n * torch.eye(n, dtype=torch.float64, device="cuda")
+
+
+def _close(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
+    """|a - b| <= tol + tol |b| elementwise (the rtol = atol gate of
+    tests/test_pallas.py for the f32 Pallas Cholesky)."""
+    a, b = a.double(), b.double()
+    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def _blocked_direct(a: torch.Tensor) -> torch.Tensor:
+    """cholesky.cu called past its wrapper's n <= 1024 limit, for the
+    crossover timing only."""
+    from safe_exploration_tpu_torch.ops.kernels import _build
+    from safe_exploration_tpu_torch.ops.kernels._common import (
+        INT, VP, is_f64, stream_ptr)
+
+    n = a.shape[-1]
+    out = torch.empty_like(a)
+    fn = _build.load("cholesky", "cholesky_blocked", (VP, VP, INT, INT, INT,
+                                                      VP))
+    code = fn(a.data_ptr(), out.data_ptr(), a.numel() // (n * n), n,
+              is_f64(a), stream_ptr(a))
+    if code:
+        raise RuntimeError(f"cholesky_blocked: cudaError {code}")
+    return out
+
+
+def _device_ms_by_kernel(fn, names: tuple) -> dict:
+    """Device time of one call of ``fn`` per CUDA kernel whose name contains
+    one of ``names`` (torch.profiler), averaged over 3 calls."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                out[name] += getattr(e, "self_device_time_total", 0.0) / 3e3
+    return out
+
+
+def phase_hbm_kernels(seed: int) -> dict:
+    """cholesky_hbm against its plain version at n = 1300 (ragged), 2048 and
+    4096 with e = 2 in f32 (within 3e-4 of the f64 plain factor) and f64
+    (1e-9); NaN on an indefinite input; CUDA-event times of the kernel, its
+    plain version, cholesky_ex and cholesky_blocked (called directly) at
+    1024 and 2048; trsm_lower against its plain version at the refit's K^-1
+    shape n = m = 2048."""
+    from safe_exploration_tpu_torch.ops.kernels import (
+        cholesky_blocked,
+        cholesky_hbm,
+        cholesky_hbm_plain,
+        trsm_lower,
+        trsm_plain,
+    )
+
+    res = {"checks": {}}
+    for n in (1300, N_HBM, 4096):
+        a64 = _spd_cuda(n, seed + n)
+        ref = cholesky_hbm_plain(a64)
+        for dtype in (torch.float32, torch.float64):
+            l = cholesky_hbm(a64.to(dtype))
+            upper_zero = bool((torch.triu(l, 1) == 0).all())
+            if dtype == torch.float64:
+                err = _rel(l, ref)
+                ok = err <= 1e-9
+                gate = "rel <= 1e-9"
+            else:
+                err = _abs(l, ref)
+                ok = _close(l, ref, 3e-4)
+                gate = "|d| <= 3e-4 + 3e-4 |ref|"
+            res["checks"][f"{str(dtype)[6:]}_n{n}"] = err
+            print(f"[hbm] {str(dtype)[6:]} e={E} n={n}: cholesky_hbm vs plain "
+                  f"(f64) {err:.2e} ({gate}: {ok}), zeros above the diagonal "
+                  f"{upper_zero}", flush=True)
+            if not (ok and upper_zero):
+                _fail(f"cholesky_hbm disagrees with plain at {dtype} n={n}")
+            if dtype == torch.float32 and n == N_HBM:
+                res["max_abs_err"] = err
+    bad = _spd_cuda(1300, seed)
+    bad[:, 700, 700] = -1.0
+    nan_ok = True
+    for dtype in (torch.float32, torch.float64):
+        l = cholesky_hbm(bad.to(dtype))
+        nan_ok &= bool(torch.isfinite(l[:, :700, :700]).all()) and bool(
+            torch.isnan(l[:, 700:, 700]).all()) and bool(
+            torch.isnan(l[:, -1, -1]).all())
+    print(f"[hbm] indefinite input -> NaN from the bad pivot on, finite "
+          f"before it (f32, f64): {nan_ok}", flush=True)
+    if not nan_ok:
+        _fail("cholesky_hbm does not give NaN on an indefinite input")
+
+    # K^-1's solve at n = m = 2048, the shape every run-(b) refit gives trsm
+    l64 = cholesky_hbm_plain(_spd_cuda(N_HBM, seed + 1))
+    eye = torch.eye(N_HBM, dtype=torch.float64, device="cuda").expand(
+        E, N_HBM, N_HBM).contiguous()
+    x_ref = trsm_plain(l64, eye)
+    e_t = {}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
+        e_t[str(dtype)[6:]] = _rel(trsm_lower(l64.to(dtype), eye.to(dtype)),
+                                   x_ref)
+        if e_t[str(dtype)[6:]] > tol:
+            _fail(f"trsm_lower disagrees with plain at {dtype} n=m={N_HBM}")
+    print(f"[hbm] trsm_lower n=m={N_HBM} vs plain (f64): rel {e_t} (tol f32 "
+          f"2e-4, f64 1e-10)", flush=True)
+    res["trsm_2048_rel"] = e_t
+
+    # crossover: cholesky_blocked (direct) against cholesky_hbm, with the
+    # plain version and cholesky_ex beside them
+    times = {}
+    for n in (1024, N_HBM):
+        for dtype in (torch.float32, torch.float64):
+            a = _spd_cuda(n, seed + 2).to(dtype)
+            sz = a.element_size()
+            bound = _bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dtype)
+            t = {"hbm_ms": _time_ms(lambda: cholesky_hbm(a), 10),
+                 "blocked_ms": _time_ms(lambda: _blocked_direct(a), 10),
+                 "library_ms": _time_ms(lambda: torch.linalg.cholesky_ex(a),
+                                        10),
+                 "plain_ms": _time_ms(lambda: cholesky_hbm_plain(a), 1),
+                 "hbm_device_ms_by_kernel": _device_ms_by_kernel(
+                     lambda: cholesky_hbm(a),
+                     ("update_partial", "reduce_column", "factor_diag",
+                      "solve_strip", "emset")),
+                 "bound_ms": bound[0], "bound_by": bound[1]}
+            t["hbm_device_ms"] = sum(t["hbm_device_ms_by_kernel"].values())
+            if n == 1024:
+                t["blocked_wrapper_ms"] = _time_ms(lambda: cholesky_blocked(a),
+                                                   10)
+            times[f"{str(dtype)[6:]}_n{n}"] = t
+            print(f"[hbm] time {str(dtype)[6:]} e={E} n={n}: cholesky_hbm "
+                  f"{t['hbm_ms']:.4f} ms (device {t['hbm_device_ms']:.4f}: "
+                  f"{ {k: round(v, 4) for k, v in t['hbm_device_ms_by_kernel'].items()} }), "
+                  f"cholesky_blocked {t['blocked_ms']:.4f} ms, cholesky_ex "
+                  f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.2f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})",
+                  flush=True)
+    a = _spd_cuda(N_HBM, seed + 3).float()
+    l = cholesky_hbm(a)
+    t_trsm = _time_ms(lambda: trsm_lower(l, eye.float()), 5)
+    print(f"[hbm] time f32 trsm_lower n=m={N_HBM} (K^-1's solve): "
+          f"{t_trsm:.3f} ms", flush=True)
+    res["times"] = times
+    res["trsm_2048_ms"] = t_trsm
+    return res
+
+
+def _episode_cfg(name: str, sets: list[str]):
+    from safe_exploration_tpu_torch.runtime.config import CONFIGS
+    from safe_exploration_tpu_torch.runtime.main import _apply_overrides
+
+    return _apply_overrides(CONFIGS[name], sets)
+
+
+# (a) runs 3 of the registered 6 episodes to keep the script near 5 min;
+# (b) runs its whole schedule
+RUN_A = ["n_ep=3"]
+RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60"]
+
+
+def phase_episode(seed: int) -> dict:
+    """run_experiment on the card, f32: (a) pendulum_episode as registered
+    but for 3 of its 6 episodes (n_max 512: every refit on
+    cholesky_blocked), (b) the same at BASELINE
+    config 4's data scale on the exact GP (n_max 2048, 1,024 initial
+    points, 60 hyperparameter steps: every refit on cholesky_hbm). Counts
+    are zeroed just before each run and read just after; the fits, the
+    Lipschitz calibrations and the ssm_updates are timed inside the run."""
+    import safe_exploration_tpu_torch.runtime.episode as ep_mod
+    from safe_exploration_tpu_torch.models.gp import gp_refit
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    out = {}
+    for tag, sets in (("a", RUN_A), ("b", RUN_B)):
+        cfg = _episode_cfg("pendulum_episode", sets + [f"seed={seed}"])
+        spans = {"fit": [], "calibrate": [], "update": []}
+        saved = {k: getattr(ep_mod, k) for k in (
+            "ssm_fit", "_calibrate_lipschitz", "ssm_update")}
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*args, **kw)
+                torch.cuda.synchronize()
+                spans[name].append(time.perf_counter() - t0)
+                return r
+            return call
+
+        ep_mod.ssm_fit = timed("fit", saved["ssm_fit"])
+        ep_mod._calibrate_lipschitz = timed("calibrate",
+                                            saved["_calibrate_lipschitz"])
+        ep_mod.ssm_update = timed("update", saved["ssm_update"])
+        captured = {}
+        run_episodic = ep_mod.run_episodic
+
+        def keep(*args, **kw):
+            r = run_episodic(*args, **kw)
+            captured["ssm"] = r["ssm"]
+            return r
+
+        ep_mod.run_episodic = keep
+        try:
+            for w in KERNEL_WRAPPERS:
+                w.launches = 0
+            t0 = time.perf_counter()
+            summary = run_experiment(cfg, dtype=torch.float32, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        finally:
+            for k, v in saved.items():
+                setattr(ep_mod, k, v)
+            ep_mod.run_episodic = run_episodic
+        gp = captured["ssm"].gp
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gp_refit(gp)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        series = summary["series"]
+        n_refits = 2 * cfg.n_ep + 2   # build, one per fit, one per update
+        want_n = [min(cfg.n_init_samples + ep * cfg.n_steps, cfg.n_max)
+                  for ep in range(cfg.n_ep)]
+        finite = all(np.isfinite(v).all() for v in series.values())
+        big, small = (("cholesky_hbm", "cholesky_blocked") if tag == "b"
+                      else ("cholesky_blocked", "cholesky_hbm"))
+        r = {"config": {k: getattr(cfg, k) for k in (
+                 "n_max", "n_init_samples", "hyp_iters", "n_ep", "n_steps",
+                 "cem_samples", "cem_elites", "cem_iterations")},
+             "series": series, "wall_s": wall, "launches": launches,
+             "refits": n_refits, "fit_s": spans["fit"],
+             "calibrate_s": spans["calibrate"], "update_s": spans["update"],
+             "refit_s_final_model": refit_s,
+             "l_mu": captured["ssm"].l_mu.tolist(),
+             "l_sigma": captured["ssm"].l_sigma.tolist()}
+        out[tag] = r
+        print(f"[episode] ({tag}) {cfg.name} {r['config']} f32: wall "
+              f"{wall:.1f} s", flush=True)
+        for key in ("violations", "feasibility_rate", "model_error",
+                    "mean_cost", "episode_time_s", "n_data"):
+            print(f"[episode] ({tag})   {key}: {series[key]}", flush=True)
+        print(f"[episode] ({tag})   fit s {[round(v, 3) for v in spans['fit']]}"
+              f", calibrate s {[round(v, 3) for v in spans['calibrate']]}, "
+              f"ssm_update (refit) s {[round(v, 4) for v in spans['update']]}"
+              f", one gp_refit of the final model {refit_s * 1e3:.2f} ms; "
+              f"l_mu {r['l_mu']}, l_sigma {r['l_sigma']}", flush=True)
+        print(f"[episode] ({tag})   launches {launches} ({n_refits} refits)",
+              flush=True)
+        if any(series["violations"]):
+            _fail(f"run ({tag}): violations {series['violations']}")
+        if not finite:
+            _fail(f"run ({tag}): non-finite series")
+        if series["n_data"] != want_n:
+            _fail(f"run ({tag}): n_data {series['n_data']}, want {want_n}")
+        if launches[big] != n_refits or launches[small] != 0:
+            _fail(f"run ({tag}): {big} launched {launches[big]} times and "
+                  f"{small} {launches[small]} in {n_refits} refits")
+        if launches["rbf_gram_masked"] != n_refits or \
+                launches["trsm_lower"] != 3 * n_refits:
+            _fail(f"run ({tag}): refit kernels launched {launches}")
+    return out
+
+
+def phase_episode_parity(seed: int) -> dict:
+    """f64, one episode of 3 steps at n_max 2048 with 1,100 initial points
+    and 3 hyperparameter steps, on the GPU (kernels) and on the CPU (plain
+    versions) with one set of draws from a CPU generator: the series equal
+    (counts exactly, floats at 1e-9 relative) and the final factors within
+    1e-9."""
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.runtime.episode import (
+        episode_draws,
+        run_episodic,
+    )
+
+    cfg = _episode_cfg("pendulum_episode", [
+        "n_max=2048", "n_init_samples=1100", "hyp_iters=3", "n_ep=1",
+        "n_steps=3", "cem_samples=32", "cem_elites=8", "cem_iterations=2"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        exp = build_experiment(cfg, dtype=torch.float64, device=dev)
+        spec = exp["env"].spec
+        draws = episode_draws(
+            torch.Generator().manual_seed(seed), spec, n_ep=cfg.n_ep,
+            n_steps=cfg.n_steps, n_init=cfg.n_init_samples,
+            n_region=128 * (spec.n_s + spec.n_u),
+            plan_shape=exp["planner_noise_shape"], dtype=torch.float64)
+        t0 = time.perf_counter()
+        r = run_episodic(
+            exp["env"], exp["init_state"], exp["get_action"], exp["a"],
+            exp["b"], exp["k_fb"], kern_types=exp["kern_types"],
+            n_max=cfg.n_max, l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
+            n_ep=cfg.n_ep, n_steps=cfg.n_steps,
+            n_init_samples=cfg.n_init_samples, hyp_iters=cfg.hyp_iters,
+            make_ssm=exp["make_ssm"], draws=draws)
+        out[dev] = dict(r, s=time.perf_counter() - t0)
+    g, c = out["cuda"], out["cpu"]
+    gs, cs = g["series"], c["series"]
+    counts_equal = all(gs[k] == cs[k] for k in ("violations",
+                                                 "feasibility_rate", "n_data"))
+    floats = {k: max(abs(x - y) / max(abs(y), 1e-300)
+                     for x, y in zip(gs[k], cs[k]))
+              for k in ("model_error", "mean_cost")}
+    factors = {f: _rel(getattr(g["ssm"].gp, f), getattr(c["ssm"].gp, f))
+               for f in ("chol", "beta", "kinv")}
+    res = {"counts_equal": counts_equal, "series_rel": floats,
+           "factors_rel": factors, "series_cpu": cs, "gpu_s": g["s"],
+           "cpu_s": c["s"]}
+    print(f"[episode-parity] f64 n_max 2048, 1,100 points, 3 steps: series "
+          f"counts equal {counts_equal} (feasibility {cs['feasibility_rate']}"
+          f", n_data {cs['n_data']}), float series rel {floats} (tol 1e-9), "
+          f"final factors rel {factors} (tol 1e-9); GPU {g['s']:.1f} s, CPU "
+          f"{c['s']:.1f} s", flush=True)
+    if not counts_equal or max(floats.values()) > 1e-9:
+        _fail(f"episode series differ GPU vs CPU: {gs} vs {cs}")
+    if max(factors.values()) > 1e-9:
+        _fail(f"final GP factors differ GPU vs CPU: {factors}")
+    return res
+
+
 SOURCES = {
     "rbf_gram_masked": ("safe_exploration_tpu_torch/csrc/gram.cu",
                         "safe_exploration_tpu/ops/pallas/gram.py:41"),
@@ -900,10 +1262,12 @@ SOURCES = {
                          "safe_exploration_tpu/ops/pallas/gp_predict.py:46"),
     "tube_score_lanes": ("safe_exploration_tpu_torch/csrc/cem_score.cu",
                          "safe_exploration_tpu/ops/pallas/cem_score.py:50"),
+    "cholesky_hbm": ("safe_exploration_tpu_torch/csrc/cholesky_hbm.cu",
+                     "safe_exploration_tpu/ops/pallas/cholesky_hbm.py:52"),
 }
 SHORT = {"rbf_gram_masked": "gram", "cholesky_blocked": "cholesky",
          "trsm_lower": "trsm", "gp_predict_lanes": "gp_predict",
-         "tube_score_lanes": "cem_score"}
+         "tube_score_lanes": "cem_score", "cholesky_hbm": "cholesky_hbm"}
 
 
 def main() -> int:
@@ -932,20 +1296,33 @@ def main() -> int:
     parity = phase_parity(args.seed)
     cem = phase_cem_path(args.seed)
     cem_parity = phase_cem_parity(args.seed)
+    hbm = phase_hbm_kernels(args.seed)
+    episode = phase_episode(args.seed)
+    episode_parity = phase_episode_parity(args.seed)
 
     # each kernel's launches are those of the path that runs it: the refit
-    # kernels' from the SQP path, the CEM kernels' from the CEM path; times
-    # at that path's shapes (gp_predict: the final B-lane passes)
+    # kernels' from the SQP path, the CEM kernels' from the CEM path,
+    # cholesky_hbm's from the episodic run (b); times at that path's shapes
+    # (gp_predict: the final B-lane passes; cholesky_hbm: n = 2048, f32)
+    t_hbm = hbm["times"][f"float32_n{N_HBM}"]
     times = {**kern["timings"][N_PATH],
              "gp_predict": cem_kern["timings"][f"gp_predict_L{B_CEM}"],
-             "cem_score": cem_kern["timings"]["cem_score"]}
-    errs = {**kern["errs"], **cem_kern["errs"]}
+             "cem_score": cem_kern["timings"]["cem_score"],
+             "cholesky_hbm": {"ms": t_hbm["hbm_ms"],
+                              "plain_ms": t_hbm["plain_ms"],
+                              "library_ms": t_hbm["library_ms"],
+                              "bound_ms": t_hbm["bound_ms"],
+                              "bound_by": t_hbm["bound_by"]}}
+    errs = {**kern["errs"], **cem_kern["errs"],
+            "cholesky_hbm": hbm["max_abs_err"]}
+    path_launches = {"cholesky_hbm": episode["b"]["launches"]}
+    for short in cem_kern["errs"]:
+        path_launches[short] = cem["launches"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         short = SHORT[name]
         r = times[short]
-        launches = (cem["launches"] if short in cem_kern["errs"]
-                    else path["launches"])[name]
+        launches = path_launches.get(short, path["launches"])[name]
         kernels.append({
             "name": short, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -959,7 +1336,8 @@ def main() -> int:
               "cem_kernel_times": cem_kern["timings"],
               "cem_kernel_worst_rel_f32": cem_kern["worst_rel_f32"],
               "path": path, "parity": parity, "cem_path": cem,
-              "cem_parity": cem_parity, "failures": FAILURES,
+              "cem_parity": cem_parity, "hbm": hbm, "episode": episode,
+              "episode_parity": episode_parity, "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

@@ -7,14 +7,18 @@ defined for any mask and beta = K^-1 (m * y) is exactly zero on padding.
 
 The refit (Gram -> Cholesky -> beta and K^-1) runs through the hand-written
 CUDA kernels of :mod:`safe_exploration_tpu_torch.ops.kernels` on a CUDA
-device and through their plain PyTorch versions on the CPU. It is never
-differentiated, so the kernels need no backward. ``linv.T @ linv`` stays a
-``torch.matmul``.
+device and through their plain PyTorch versions on the CPU: the Cholesky is
+``cholesky_blocked`` up to its ``MAX_N`` (1024) and ``cholesky_hbm`` above,
+the split of the two Pallas kernels' ranges. It is never differentiated, so
+the kernels need no backward. ``linv.T @ linv`` stays a ``torch.matmul``.
+The hyperparameter fit (:func:`gp_nll`, :func:`gp_fit`) differentiates a
+library Cholesky instead, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -25,12 +29,15 @@ from safe_exploration_tpu_torch.models.kernels import (
 )
 from safe_exploration_tpu_torch.ops.kernels import (
     cholesky_blocked,
+    cholesky_hbm,
     rbf_gram_masked,
     trsm_lower,
 )
+from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
 
 __all__ = ["GP", "gp_init", "gp_refit", "gp_update_data",
-           "gp_shrink_to_bucket", "gp_predict", "gp_predict_mean_jac"]
+           "gp_shrink_to_bucket", "gp_nll", "gp_fit", "gp_predict",
+           "gp_predict_mean_jac"]
 
 _JITTER = 1e-6
 
@@ -59,6 +66,10 @@ class GP:
     def n_out(self) -> int:
         return self.y.shape[1]
 
+    @property
+    def n_points(self) -> torch.Tensor:
+        return torch.sum(self.mask).to(torch.int32)
+
     def replace(self, **changes) -> "GP":
         return dataclasses.replace(self, **changes)
 
@@ -83,8 +94,9 @@ def _kinv_from_chol(l: torch.Tensor) -> torch.Tensor:
 
 def gp_refit(gp: GP) -> GP:
     """Recompute the posterior factors (chol, beta, kinv) for the current data
-    and hyperparameters: one batched Gram, one batched Cholesky and three
-    batched triangular solves over all output dims."""
+    and hyperparameters: one batched Gram, one batched Cholesky (the blocked
+    kernel up to n_max 1024, the left-looking one above) and three batched
+    triangular solves over all output dims."""
     if gp.precision == "ff":
         raise NotImplementedError(
             "precision='ff' (float-float refits) is not ported: on the H100 it "
@@ -99,7 +111,7 @@ def gp_refit(gp: GP) -> GP:
     log_sf = torch.stack([p["log_sf"] for p in gp.params])
     noise_var = torch.exp(2.0 * gp.log_noise)
     k = rbf_gram_masked(gp.x, gp.mask, log_ls, log_sf, noise_var)
-    l = cholesky_blocked(k)
+    l = cholesky_blocked(k) if gp.n_max <= MAX_N else cholesky_hbm(k)
     ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()  # (e, n, 1)
     z = trsm_lower(l, ym)
     beta = trsm_lower(l, z, transpose=True).squeeze(-1)
@@ -186,6 +198,82 @@ def gp_shrink_to_bucket(gp: GP, *, min_bucket: int = 32) -> GP:
         chol=gp.chol[:, :n_bucket, :n_bucket], beta=gp.beta[:, :n_bucket],
         kinv=gp.kinv[:, :n_bucket, :n_bucket], head=min(gp.head, n_bucket),
     )
+
+
+def gp_nll(params: tuple, log_noise: torch.Tensor, gp: GP) -> torch.Tensor:
+    """Negative log marginal likelihood, summed over output dims; identity
+    padding adds 0 to the quadratic form and the log-det.
+
+    Differentiable in ``params`` and ``log_noise`` through a library
+    Cholesky (``cholesky_ex``), as the JAX package differentiates
+    ``jnp.linalg.cholesky`` here and not a kernel. A failed factorization
+    gives NaN, as JAX's does, instead of raising."""
+    n_eff = torch.sum(gp.mask)
+    k = torch.stack([
+        _masked_gram(gp.kern_types[d], params[d], gp.x, gp.mask,
+                     torch.exp(2.0 * log_noise[d]))
+        for d in range(gp.n_out)])
+    l, info = torch.linalg.cholesky_ex(k)
+    nan = torch.tensor(float("nan"), dtype=k.dtype, device=k.device)
+    l = l + torch.where(info == 0, torch.zeros_like(nan), nan)[:, None, None]
+    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1)
+    z = torch.linalg.solve_triangular(l, ym, upper=False).squeeze(-1)
+    per = 0.5 * torch.sum(z * z, dim=-1) + torch.sum(
+        torch.log(torch.diagonal(l, dim1=-2, dim2=-1)), dim=-1)
+    return torch.sum(per) + gp.n_out * 0.5 * n_eff * math.log(2.0 * math.pi)
+
+
+def _theta_leaves(params: tuple, log_noise: torch.Tensor) -> list:
+    """The hyperparameters in the JAX package's pytree order: per output dim
+    its dict's entries by sorted key, then the log noise."""
+    return [p[k] for p in params for k in sorted(p)] + [log_noise]
+
+
+def _theta_from_leaves(leaves: list, like: tuple):
+    params, i = [], 0
+    for p in like:
+        params.append({k: leaves[i + j] for j, k in enumerate(sorted(p))})
+        i += len(p)
+    return tuple(params), leaves[i]
+
+
+def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
+           prior_strength: float = 0.5) -> GP:
+    """Hyperparameter fit: ``iters`` Adam steps on the log-space NLL plus a
+    weak Gaussian prior (``prior_strength``) centred at the current
+    hyperparameters, then a refit.
+
+    Adam is written out in optax's order of operations (moments, bias
+    correction, ``-lr * mu_hat / (sqrt(nu_hat) + 1e-8)``) rather than taken
+    from ``torch.optim``, so the two packages' fits agree to rounding.
+    The loop never reads a value back to the host."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    ref = [t.detach() for t in _theta_leaves(gp.params, gp.log_noise)]
+    theta = [t.clone() for t in ref]
+    mu = [torch.zeros_like(t) for t in theta]
+    nu = [torch.zeros_like(t) for t in theta]
+    for count in range(1, iters + 1):
+        leaves = [t.requires_grad_(True) for t in theta]
+        with torch.enable_grad():
+            params, log_noise = _theta_from_leaves(leaves, gp.params)
+            loss = gp_nll(params, log_noise, gp)
+            if prior_strength > 0.0:
+                prior = None
+                for t, t0 in zip(leaves, ref):
+                    sq = torch.sum((t - t0) ** 2)
+                    prior = sq if prior is None else prior + sq
+                loss = loss + prior_strength * prior
+            grads = torch.autograd.grad(loss, leaves)
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+        new = []
+        for i, (t, g) in enumerate(zip(theta, grads)):
+            mu[i] = (1 - b1) * g + b1 * mu[i]
+            nu[i] = (1 - b2) * g ** 2 + b2 * nu[i]
+            step = (mu[i] / c1) / (torch.sqrt(nu[i] / c2) + eps)
+            new.append(t.detach() + -lr * step)
+        theta = new
+    params, log_noise = _theta_from_leaves(theta, gp.params)
+    return gp_refit(gp.replace(params=params, log_noise=log_noise))
 
 
 def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,11 +14,13 @@ __all__ = ["KERNELS", "init_kernel_params", "gram", "kernel_diag"]
 
 def _sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Pairwise squared distances (n1, d) x (n2, d) -> (n1, n2) in the
-    ||a||^2 + ||b||^2 - 2ab matmul form, clamped at 0."""
+    ||a||^2 + ||b||^2 - 2ab matmul form, floored at 0 with ``maximum``,
+    whose derivative at the tie is 1/2 as JAX's (``clamp``'s is 1): the
+    Lipschitz estimate differentiates twice through it."""
     n1 = torch.sum(x1 * x1, dim=-1, keepdim=True)
     n2 = torch.sum(x2 * x2, dim=-1, keepdim=True)
     d2 = n1 + n2.T - 2.0 * (x1 @ x2.T)
-    return torch.clamp(d2, min=0.0)
+    return torch.maximum(d2, torch.zeros_like(d2))
 
 
 def _k_rbf(params: dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

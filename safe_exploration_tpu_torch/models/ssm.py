@@ -17,7 +17,9 @@ from safe_exploration_tpu_torch.models.gp import GP
 from safe_exploration_tpu_torch.models.kernels import init_kernel_params
 
 __all__ = ["GPSSM", "make_gp_ssm", "ssm_update", "ssm_bucketed",
-           "ssm_predict", "ssm_predict_jac", "ssm_noise_var"]
+           "ssm_predict", "ssm_predict_jac", "ssm_noise_var", "ssm_fit",
+           "ssm_n_points", "ssm_probe_points", "lipschitz_probe_set",
+           "calibrate_lipschitz", "estimate_lipschitz"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,3 +119,97 @@ def ssm_bucketed(ssm: GPSSM) -> GPSSM:
     """Bucketed view of the model for the planner's hot loop (see
     :func:`gp_shrink_to_bucket`)."""
     return ssm.replace(gp=gp_mod.gp_shrink_to_bucket(ssm.gp))
+
+
+def _require_gp(ssm, what: str) -> None:
+    if not isinstance(ssm, GPSSM):
+        raise NotImplementedError(
+            f"{what} of {type(ssm).__name__}: the port carries the exact GP "
+            "model only (sparse GP: ROADMAP Queue 1, item 11; MC-dropout: "
+            "item 12)")
+
+
+def ssm_fit(ssm, *, iters: int = 200, lr: float = 5e-2):
+    """Re-optimize the GP hyperparameters (:func:`gp_mod.gp_fit`) and
+    refit."""
+    _require_gp(ssm, "ssm_fit")
+    return ssm.replace(gp=gp_mod.gp_fit(ssm.gp, iters=iters, lr=lr))
+
+
+def ssm_n_points(ssm) -> torch.Tensor:
+    """Number of valid transitions the model holds (a 0-d int32 tensor)."""
+    _require_gp(ssm, "ssm_n_points")
+    return ssm.gp.n_points
+
+
+def ssm_probe_points(ssm) -> torch.Tensor:
+    """The (padded) training inputs in raw units: the default probe set of
+    :func:`estimate_lipschitz`."""
+    _require_gp(ssm, "ssm_probe_points")
+    return ssm.gp.x if ssm.z_scale is None else ssm.gp.x * ssm.z_scale
+
+
+def lipschitz_probe_set(spec, generator: torch.Generator | None = None,
+                        n_samples: int = 64, *, draws=None) -> torch.Tensor:
+    """Probe inputs over the operating region: states uniform over the
+    bounding box of the state polytope, controls uniform over the control
+    box, (n_samples, n_s + n_u). ``draws`` = (ux (n, n_s), uu (n, n_u)),
+    uniforms on [0, 1), replaces the draws of ``generator`` (``None``: a
+    fresh generator seeded 0, as the JAX package uses PRNGKey(0))."""
+    from safe_exploration_tpu_torch.solvers.static_exploration import (
+        polytope_box_bounds,
+    )
+
+    lo, hi = polytope_box_bounds(spec.h_mat_obs, spec.h_obs)
+    kw = {"dtype": spec.u_min.dtype, "device": spec.u_min.device}
+    n_s, n_u = spec.h_mat_obs.shape[1], spec.u_min.shape[0]
+    if draws is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        draws = tuple(torch.rand((n_samples, k), generator=generator,
+                                 dtype=kw["dtype"], device=generator.device)
+                      for k in (n_s, n_u))
+    ux, uu = (torch.as_tensor(d).to(**kw) for d in draws)
+    xs = ux * torch.as_tensor(hi - lo, **kw) + torch.as_tensor(lo, **kw)
+    us = uu * (spec.u_max - spec.u_min) + spec.u_min
+    return torch.cat([xs, us], dim=-1)
+
+
+def calibrate_lipschitz(ssm, spec, generator: torch.Generator | None = None,
+                        *, n_region: int | None = None, factor: float = 1.2,
+                        draws=None):
+    """Estimate l_mu / l_sigma over the training buffer plus ``n_region``
+    (default 128 d_in) probes of the operating region
+    (:func:`lipschitz_probe_set`; ``draws`` as there)."""
+    probes = ssm_probe_points(ssm)
+    if n_region is None:
+        n_region = 128 * probes.shape[-1]
+    region = lipschitz_probe_set(spec, generator, n_region, draws=draws)
+    return estimate_lipschitz(
+        ssm, torch.cat([probes, region.to(probes.dtype)], dim=0),
+        factor=factor)
+
+
+def estimate_lipschitz(ssm, z_points: torch.Tensor, *, factor: float = 2.0,
+                       l_mu_min: float = 1e-4, l_sigma_min: float = 1e-4):
+    """Data-driven Lipschitz constants: per output dim ``l_mu = factor *
+    max_z ||Hess mu(z)||_2`` and ``l_sigma = factor * max_z ||grad
+    sigma(z)||_2`` over the probe points, floored. The Hessians and gradients
+    are ``torch.func`` transforms vmapped over the points; the spectral norm
+    of each d_in x d_in Hessian comes from ``eigvalsh``."""
+    from torch.func import hessian, jacrev, vmap
+
+    def mean(z):
+        return ssm.predict_latent(z)[0]
+
+    def std(z):
+        return torch.sqrt(ssm.predict_latent(z)[1])
+
+    hess = vmap(hessian(mean))(z_points)                  # (m, e, d, d)
+    grads = vmap(jacrev(std))(z_points)                   # (m, e, d)
+    hess_norms = torch.amax(torch.abs(torch.linalg.eigvalsh(hess)), dim=-1)
+    grad_norms = torch.linalg.vector_norm(grads, dim=-1)
+    l_mu = torch.clamp(factor * torch.amax(hess_norms, dim=0), min=l_mu_min)
+    l_sigma = torch.clamp(factor * torch.amax(grad_norms, dim=0),
+                          min=l_sigma_min)
+    return ssm.replace(l_mu=l_mu, l_sigma=l_sigma)

@@ -2,11 +2,13 @@
 
   gram.py        masked identity-padded RBF Gram   (csrc/gram.cu)
   cholesky.py    blocked lower Cholesky            (csrc/cholesky.cu)
+  cholesky_hbm.py  left-looking Cholesky, n > 1024 (csrc/cholesky_hbm.cu)
   trsm.py        blocked triangular solves, PSD solve (csrc/trsm.cu)
   gp_predict.py  fused lane GP posterior (+ mean Jacobian) (csrc/gp_predict.cu)
   cem_score.py   whole-tube constrained-CEM score  (csrc/cem_score.cu)
 
-The first three run the GP refit, the last two the lane CEM planner. Every
+The first four run the GP refit (cholesky up to n = 1024, cholesky_hbm
+above), the last two the lane CEM planner. Every
 wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a tensor on a CUDA device (raising if the kernel
 cannot be built or launched — there is no fallback). Each wrapper counts
@@ -22,6 +24,10 @@ from safe_exploration_tpu_torch.ops.kernels.cholesky import (
     cholesky_blocked,
     cholesky_plain,
 )
+from safe_exploration_tpu_torch.ops.kernels.cholesky_hbm import (
+    cholesky_hbm,
+    cholesky_hbm_plain,
+)
 from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
     gp_pallas_supported,
     gp_predict_lanes,
@@ -35,11 +41,11 @@ from safe_exploration_tpu_torch.ops.kernels.trsm import (
 )
 
 KERNEL_WRAPPERS = (rbf_gram_masked, cholesky_blocked, trsm_lower,
-                   gp_predict_lanes, tube_score_lanes)
+                   gp_predict_lanes, tube_score_lanes, cholesky_hbm)
 
 __all__ = [
     "KERNEL_WRAPPERS", "cem_score_supported", "cholesky_blocked",
-    "cholesky_plain", "gp_pallas_supported", "gp_predict_lanes",
+    "cholesky_hbm", "cholesky_hbm_plain", "cholesky_plain", "gp_pallas_supported", "gp_predict_lanes",
     "gp_predict_plain", "gram_plain", "rbf_gram_masked", "solve_psd",
     "trsm_lower", "trsm_plain", "tube_score_lanes", "tube_score_plain",
 ]

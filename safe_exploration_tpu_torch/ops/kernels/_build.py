@@ -26,7 +26,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build", "load", "lib_path",
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("gram", "cholesky", "trsm", "gp_predict", "cem_score")
+SOURCES = ("gram", "cholesky", "trsm", "gp_predict", "cem_score",
+           "cholesky_hbm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,14 +1,15 @@
 """Experiment configuration — port of
 ``safe_exploration_tpu/runtime/config.py``.
 
-:class:`ExperimentConfig` has the JAX package's fields and defaults, so a
-configuration means the same thing on both sides. :func:`build_experiment`
-wires what the port carries: the pendulum, the exact GP state-space model,
-the tracking and exploration objectives, and the two solvers — the lane SQP
-and the CEM (the single-instance ``planner`` on the portable or the lane
-backend, the batched ``batch_planner`` on the lane CEM) — with the batched
-SafeMPC state machine. Other choices raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+:class:`ExperimentConfig` has the JAX package's fields and defaults, and
+:data:`CONFIGS` its registry of named configurations, so a name means the
+same thing on both sides. :func:`build_experiment` wires what the port
+carries: the pendulum, the exact GP state-space model, the tracking and
+exploration objectives, and the two solvers — the lane SQP and the CEM (the
+single-instance ``planner`` on the portable or the lane backend with the
+single-instance SafeMPC machine, the batched ``batch_planner`` on the lane
+CEM) — with the batched SafeMPC machine. Other choices raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from safe_exploration_tpu_torch.solvers.costs import (
 )
 from safe_exploration_tpu_torch.solvers.safempc import (
     SafeMPCConfig,
+    make_safempc,
     make_safempc_batch,
 )
 from safe_exploration_tpu_torch.solvers.sqp import (
@@ -49,7 +51,8 @@ from safe_exploration_tpu_torch.solvers.sqp_lanes import (
     make_sqp_lane_solver,
 )
 
-__all__ = ["ExperimentConfig", "build_experiment"]
+__all__ = ["ExperimentConfig", "CONFIGS", "build_experiment",
+           "register_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,11 +161,13 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                      device=None) -> dict:
     """Wire the experiment on ``device`` (CUDA unless ``"cpu"`` is given;
     raises when CUDA is meant and absent). Returns the single-instance
-    ``planner(generator, ssm, x0, warm_mean, noise=None)`` (CEM only; the
-    SQP's is the unported portable NLP), the batch entries
-    (``batch_planner``, ``init_state_batch``, ``get_action_batch``,
-    ``make_ssm``) with ``env``, ``a``, ``b``, ``k_fb``, ``cost_fn``,
-    ``kern_types``, ``l_mu``, ``l_sigma`` and ``cfg``."""
+    ``planner(generator, ssm, x0, warm_mean, noise=None)`` with its
+    SafeMPC machine ``init_state`` / ``get_action`` and the shape of one
+    solve's draws ``planner_noise_shape`` (CEM only; the SQP's is the
+    unported portable NLP), the batch entries (``batch_planner``,
+    ``init_state_batch``, ``get_action_batch``), ``make_ssm``, ``env``,
+    ``a``, ``b``, ``k_fb``, ``cost_fn``, ``kern_types``, ``l_mu``,
+    ``l_sigma`` and ``cfg``."""
     dev = resolve_device(device)
     _require_ported(cfg)
     env = make_pendulum(dtype=dtype, device=dev)
@@ -203,6 +208,10 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             return cem_lane_solver(ssm, x0s, warm, generator=generator,
                                    noise=noise)
 
+        n_u = spec.n_u
+        noise_shape = ((cfg.cem_iterations, cfg.cem_samples, warm_len * n_u, 1)
+                       if cfg.cem_backend == "lanes" else
+                       (cfg.cem_iterations, cfg.cem_samples, warm_len, n_u))
         if cfg.cem_backend == "lanes":
             def planner(generator, ssm, x0, warm_mean, noise=None):
                 """Single instance through the lane CEM (B = 1)."""
@@ -248,6 +257,12 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                 "not ported yet (ROADMAP Queue 1, item 8)"
             )
 
+        noise_shape = None
+
+    init_state, get_action, _, _ = make_safempc(
+        env, mpc_cfg, planner, warm_len=warm_len, n_duals=n_duals,
+        dual_shift=dual_shift,
+    )
     init_state_batch, get_action_batch = make_safempc_batch(
         env, mpc_cfg, batch_planner, warm_len=warm_len, n_duals=n_duals,
         dual_shift=dual_shift,
@@ -275,6 +290,9 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         "k_fb": k_fb,
         "cost_fn": cost_fn,
         "planner": planner,
+        "planner_noise_shape": noise_shape,
+        "init_state": init_state,
+        "get_action": get_action,
         "batch_planner": batch_planner,
         "init_state_batch": init_state_batch,
         "get_action_batch": get_action_batch,
@@ -284,3 +302,71 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         "l_sigma": l_sigma,
         "cfg": cfg,
     }
+
+
+# --- named configurations: the JAX package's registry, entry for entry ----
+
+CONFIGS: dict[str, ExperimentConfig] = {}
+
+
+def register_config(cfg: ExperimentConfig) -> ExperimentConfig:
+    CONFIGS[cfg.name] = cfg
+    return cfg
+
+
+for _cfg in (
+    ExperimentConfig(name="pendulum_episode"),
+    ExperimentConfig(name="pendulum_episode_sqp", solver="sqp"),
+    ExperimentConfig(name="pendulum_episode_mcdropout", ssm="mc_dropout"),
+    ExperimentConfig(name="pendulum_episode_concrete",
+                     ssm="mc_dropout_concrete"),
+    ExperimentConfig(name="pendulum_episode_sparse", ssm="sparse_gp",
+                     n_inducing=32),
+    ExperimentConfig(name="pendulum_large_sparse", solver="sqp",
+                     ssm="sparse_gp", n_max=10240, n_inducing=256,
+                     c_safety=1.8, n_ep=6, n_steps=50, n_init_samples=1024,
+                     hyp_iters=60),
+    ExperimentConfig(name="pendulum_serve", task="serve", solver="sqp",
+                     sqp_outer=4, sqp_inner=3, n_steps=40, n_max=256),
+    ExperimentConfig(name="pendulum_exploration", task="exploration",
+                     objective="exploration", n_safe=3, n_steps=1),
+    ExperimentConfig(name="pendulum_exploration_static",
+                     task="exploration_static", solver="sqp", n_safe=3,
+                     n_steps=1, sqp_outer=8, sqp_inner=4),
+    ExperimentConfig(name="pendulum_batch", task="batch", batch_lanes=256,
+                     n_safe=3, n_max=128, n_steps=20, n_init_samples=24,
+                     n_ep=1, cem_samples=64, cem_elites=12, cem_iterations=4),
+    ExperimentConfig(name="pendulum_batch_sqp", task="batch",
+                     batch_backend="lanes", solver="sqp", batch_lanes=256,
+                     n_safe=3, n_max=128, n_steps=20, n_init_samples=24,
+                     n_ep=4, sqp_outer=4, sqp_inner=3),
+    ExperimentConfig(name="cartpole_episode", env="cartpole",
+                     kern_types=("rbf",), n_safe=10, n_perf=10, c_safety=2.0,
+                     cem_samples=192),
+    ExperimentConfig(name="cartpole_episode_sqp", env="cartpole",
+                     kern_types=("rbf",), solver="sqp", n_safe=10, n_perf=10,
+                     r_shared=2, c_safety=2.0),
+    ExperimentConfig(name="cartpole_risk_sqp", env="cartpole",
+                     kern_types=("rbf",), solver="sqp",
+                     objective="risk_tracking", w_sigma=5.0, n_safe=10,
+                     n_perf=10, r_shared=2, c_safety=2.0,
+                     perf_trajectory="taylor"),
+    ExperimentConfig(name="cartpole_batch_sqp", task="batch",
+                     batch_backend="lanes", env="cartpole",
+                     kern_types=("rbf",), solver="sqp", batch_lanes=128,
+                     n_safe=6, n_perf=10, r_shared=2, c_safety=2.0, n_max=128,
+                     n_steps=16, n_init_samples=40, n_ep=4, sqp_outer=4,
+                     sqp_inner=3),
+    ExperimentConfig(name="quadrotor_episode", env="quadrotor",
+                     kern_types=("rbf",), n_safe=5, n_perf=12, c_safety=1.5,
+                     cem_samples=256),
+    ExperimentConfig(name="quadrotor_batch_sqp", task="batch",
+                     batch_backend="lanes", env="quadrotor",
+                     kern_types=("rbf",), solver="sqp", batch_lanes=64,
+                     n_safe=3, n_perf=5, r_shared=1, n_max=96, c_safety=1.5,
+                     n_steps=8, n_init_samples=40, n_ep=2, log_noise=-4.5,
+                     sqp_outer=4, sqp_inner=3),
+    ExperimentConfig(name="pendulum_uncertainty", task="uncertainty",
+                     n_steps=20),
+):
+    register_config(_cfg)

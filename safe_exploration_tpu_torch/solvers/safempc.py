@@ -1,11 +1,13 @@
-"""Batched SafeMPC state machine — port of
-``safe_exploration_tpu/solvers/safempc.py::make_safempc_batch``.
+"""SafeMPC state machines — port of ``safe_exploration_tpu/solvers/safempc.py``
+(``make_safempc`` and ``make_safempc_batch``).
 
 The planner's solution is applied where it is feasible; elsewhere the
-fallback chain takes over lane by lane: the stored safe plan shifted by one
+fallback chain takes over: the stored safe plan shifted by one
 (``k_ff_{t+1} + k_fb (x - p_{t+1})``), then, once that is exhausted, the
-terminal LQR policy. Both branches are computed as data and selected with
-``torch.where``; no lane syncs with the host.
+terminal LQR policy. The single-instance machine branches on the host on
+the solve's feasibility (one read-back per step); the batched one computes
+both branches as data and selects lane by lane with ``torch.where``, with no
+read-back.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from safe_exploration_tpu_torch.reachability.onestep import (
     multistep_reachability,
 )
 
-__all__ = ["SafeMPCConfig", "SafeMPCState", "make_safempc_batch"]
+__all__ = ["SafeMPCConfig", "SafeMPCState", "make_safempc",
+           "make_safempc_batch"]
 
 
 class SafeMPCConfig(NamedTuple):
@@ -35,14 +38,124 @@ class SafeMPCConfig(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class SafeMPCState:
-    """Carried controller state, batched over B lanes."""
+    """Carried controller state; the batched machine adds a leading (B,)
+    to every field."""
 
-    k_ff_plan: torch.Tensor   # (B, T, n_u) last feasible feed-forward plan
-    p_plan: torch.Tensor      # (B, T, n_s) centers each stored control applies at
-    plan_idx: torch.Tensor    # (B,) int32 next stored stage (T = exhausted)
-    n_fail: torch.Tensor      # (B,) int32 consecutive infeasible solves
-    warm_mean: torch.Tensor   # (B, n_warm, n_u) planner warm start
-    lam: torch.Tensor         # (B, n_duals) dual warm start
+    k_ff_plan: torch.Tensor   # (T, n_u) last feasible feed-forward plan
+    p_plan: torch.Tensor      # (T, n_s) centers each stored control applies at
+    plan_idx: torch.Tensor    # () int32 next stored stage (T = exhausted)
+    n_fail: torch.Tensor      # () int32 consecutive infeasible solves
+    warm_mean: torch.Tensor   # (n_warm, n_u) planner warm start
+    lam: torch.Tensor         # (n_duals,) dual warm start
+
+
+def _lqr_feedback(env: Env, cfg: SafeMPCConfig):
+    a, b = linearize_discretize(env)
+    kw = {"dtype": a.dtype, "device": a.device}
+    k_lqr, _ = dlqr(a, b, cfg.lqr_w_x * torch.eye(env.spec.n_s, **kw),
+                    cfg.lqr_w_u * torch.eye(env.spec.n_u, **kw))
+    return a, b, -k_lqr
+
+
+def _shift_rows(warm: torch.Tensor, t_len: int) -> torch.Tensor:
+    """Receding-horizon shift of the stacked decision rows (..., n_warm,
+    n_u): the safety block and the free performance block shift each on its
+    own, duplicating its last row."""
+    k_ff = warm[..., :t_len, :]
+    k_ff = torch.cat([k_ff[..., 1:, :], k_ff[..., -1:, :]], dim=-2)
+    if warm.shape[-2] > t_len:
+        perf = warm[..., t_len:, :]
+        perf = torch.cat([perf[..., 1:, :], perf[..., -1:, :]], dim=-2)
+        return torch.cat([k_ff, perf], dim=-2)
+    return k_ff
+
+
+def make_safempc(
+    env: Env,
+    cfg: SafeMPCConfig,
+    planner: Callable,
+    warm_len: int | None = None,
+    n_duals: int = 0,
+    dual_shift: Callable | None = None,
+):
+    """Single-instance SafeMPC.
+
+    ``planner(generator, ssm, x0, warm_mean[, lam], noise=None) -> (k_ff_all,
+    feasible, violation, info)``. Returns (init_state, get_action, k_fb,
+    (a, b)):
+      * ``init_state() -> SafeMPCState``
+      * ``get_action(generator, state, ssm, x, noise=None) -> (u, new_state,
+        info)``; ``generator`` / ``noise`` go to the planner.
+    """
+    spec = env.spec
+    a, b, k_fb = _lqr_feedback(env, cfg)
+    dtype, device = a.dtype, a.device
+    n_s, n_u = spec.n_s, spec.n_u
+    t_len = cfg.n_safe
+    n_warm = t_len if warm_len is None else warm_len
+
+    def init_state() -> SafeMPCState:
+        kw = {"dtype": dtype, "device": device}
+        i32 = {"dtype": torch.int32, "device": device}
+        return SafeMPCState(
+            k_ff_plan=torch.zeros((t_len, n_u), **kw),
+            p_plan=torch.zeros((t_len, n_s), **kw),
+            plan_idx=torch.tensor(t_len, **i32),
+            n_fail=torch.tensor(0, **i32),
+            warm_mean=torch.zeros((n_warm, n_u), **kw),
+            lam=torch.zeros((n_duals,), **kw),
+        )
+
+    def get_action(generator, state: SafeMPCState, ssm, x: torch.Tensor,
+                   noise=None):
+        if n_duals > 0:
+            k_ff_new, feasible, violation, pinfo = planner(
+                generator, ssm, x, state.warm_mean, state.lam, noise=noise)
+            lam_next = pinfo["lam"]
+        else:
+            k_ff_new, feasible, violation, pinfo = planner(
+                generator, ssm, x, state.warm_mean, noise=noise)
+            lam_next = state.lam
+        warm_next = pinfo.get("warm_next", k_ff_new)
+        if bool(feasible):
+            # control t applies at center p_t (p_0 = x)
+            p_traj, _, _ = multistep_reachability(
+                ssm, x, k_ff_new, k_fb.expand(t_len, *k_fb.shape), a, b,
+                cfg.c_safety)
+            u = k_ff_new[0]
+            new_state = SafeMPCState(
+                k_ff_plan=k_ff_new,
+                p_plan=torch.cat([x[None], p_traj[:-1]], dim=0),
+                plan_idx=torch.ones_like(state.plan_idx),
+                n_fail=torch.zeros_like(state.n_fail),
+                warm_mean=_shift_rows(warm_next, t_len),
+                lam=dual_shift(lam_next) if dual_shift is not None else lam_next,
+            )
+        else:
+            idx = torch.clamp(state.plan_idx, max=t_len - 1).long().reshape(1)
+            u_stored = (state.k_ff_plan.index_select(0, idx)[0]
+                        + k_fb @ (x - state.p_plan.index_select(0, idx)[0]))
+            u_lqr = k_fb @ (x - spec.target)
+            u = torch.clamp(torch.where(state.plan_idx < t_len, u_stored,
+                                        u_lqr), spec.u_min, spec.u_max)
+            new_state = SafeMPCState(
+                k_ff_plan=state.k_ff_plan,
+                p_plan=state.p_plan,
+                plan_idx=torch.clamp(state.plan_idx + 1, max=t_len),
+                n_fail=state.n_fail + 1,
+                warm_mean=_shift_rows(state.warm_mean, t_len),
+                lam=0.5 * state.lam,
+            )
+        info = {
+            "feasible": feasible,
+            "violation": violation,
+            "n_fail": new_state.n_fail,
+            "used_fallback": torch.logical_not(feasible),
+            **pinfo,
+        }
+        return u, new_state, info
+
+    return init_state, get_action, k_fb, (a, b)
 
 
 def make_safempc_batch(
@@ -61,17 +174,11 @@ def make_safempc_batch(
         new_state, info)``
     """
     spec = env.spec
-    a, b = linearize_discretize(env)
+    a, b, k_fb = _lqr_feedback(env, cfg)
     dtype, device = a.dtype, a.device
     n_s, n_u = spec.n_s, spec.n_u
     t_len = cfg.n_safe
     n_warm = t_len if warm_len is None else warm_len
-    k_lqr, _ = dlqr(
-        a, b,
-        cfg.lqr_w_x * torch.eye(n_s, dtype=dtype, device=device),
-        cfg.lqr_w_u * torch.eye(n_u, dtype=dtype, device=device),
-    )
-    k_fb = -k_lqr
 
     def init_state_batch(batch: int) -> SafeMPCState:
         kw = {"dtype": dtype, "device": device}
@@ -84,15 +191,6 @@ def make_safempc_batch(
             warm_mean=torch.zeros((batch, n_warm, n_u), **kw),
             lam=torch.zeros((batch, n_duals), **kw),
         )
-
-    def _shift_warm(warm: torch.Tensor) -> torch.Tensor:
-        k_ff = warm[:, :t_len]
-        k_ff = torch.cat([k_ff[:, 1:], k_ff[:, -1:]], dim=1)
-        if n_warm > t_len:
-            perf = warm[:, t_len:]
-            perf = torch.cat([perf[:, 1:], perf[:, -1:]], dim=1)
-            return torch.cat([k_ff, perf], dim=1)
-        return k_ff
 
     def get_action_batch(state: SafeMPCState, ssm, xs: torch.Tensor):
         if n_duals > 0:
@@ -138,8 +236,8 @@ def make_safempc_batch(
                                  torch.clamp(state.plan_idx + 1, max=t_len)),
             n_fail=torch.where(feasible, torch.zeros_like(state.n_fail),
                                state.n_fail + 1),
-            warm_mean=torch.where(feas_t, _shift_warm(warm_next),
-                                  _shift_warm(state.warm_mean)),
+            warm_mean=torch.where(feas_t, _shift_rows(warm_next, t_len),
+                                  _shift_rows(state.warm_mean, t_len)),
             lam=torch.where(feas, shifted_lam, 0.5 * state.lam),
         )
         info = {

@@ -10,7 +10,10 @@ Tolerances: f64 at 1e-10 relative; f32 gram at 1e-5; f32 cholesky and trsm
 within 2e-4 of the f64 plain result (the gate tests/test_pallas.py uses for
 the f32 Pallas Cholesky); f32 gp_predict at 3e-5 of the f32 plain result
 (the gate of tests/test_pallas_gp_predict.py); f32 cem_score within 2e-4
-of the f64 plain result (the gate of tests/test_pallas_cem_score.py).
+of the f64 plain result (the gate of tests/test_pallas_cem_score.py);
+f32 cholesky_hbm within 3e-4 of the f64 plain result (the gate
+tests/test_pallas.py uses for the f32 HBM-tier Pallas Cholesky), f64 at
+1e-9; the GP refit at n_max 2048 on the GPU against the CPU at 1e-9.
 """
 
 import numpy as np
@@ -25,6 +28,8 @@ from safe_exploration_tpu_torch.models.convert import (  # noqa: E402
 from safe_exploration_tpu_torch.models.ssm import make_gp_ssm  # noqa: E402
 from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     cholesky_blocked,
+    cholesky_hbm,
+    cholesky_hbm_plain,
     cholesky_plain,
     gp_predict_lanes,
     gp_predict_plain,
@@ -203,3 +208,68 @@ def test_cuda_cem_score_matches_plain(n, n_lanes, dtype, cost_kind):
     for o, r in zip(out, ref):
         assert o.shape == r.shape
         assert _rel(o, r) < (1e-10 if dt == torch.float64 else 2e-4)
+
+
+def _spd(n, seed=0):
+    """(E, n, n) m m^T + n I, the test matrices of tests/test_pallas.py."""
+    m = np.random.default_rng(seed).standard_normal((E, n, n))
+    return torch.tensor(m @ np.swapaxes(m, 1, 2) + n * np.eye(n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1300, 2048])
+def test_cuda_cholesky_hbm_matches_plain(n, dtype):
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    a = _spd(n)
+    ref = cholesky_hbm_plain(a)
+    before = cholesky_hbm.launches
+    lc = cholesky_hbm(a.to(dt).cuda())
+    assert cholesky_hbm.launches == before + 1
+    assert torch.equal(torch.triu(lc, 1), torch.zeros_like(lc))
+    if dt == torch.float64:
+        assert _rel(lc, ref) < 1e-9
+    else:
+        torch.testing.assert_close(lc.double().cpu(), ref, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_cholesky_hbm_nan_on_indefinite_and_lower_only():
+    _need_cuda()
+    a = _spd(1100)
+    a[:, 700, 700] = -1.0
+    l = cholesky_hbm(a.cuda()).cpu()
+    assert torch.isfinite(l[:, :700, :700]).all()
+    assert torch.isnan(l[:, 700:, 700]).all() and torch.isnan(l[:, -1, -1]).all()
+    b = _spd(1100, seed=1)
+    upper = torch.triu(torch.ones(1100, 1100, dtype=torch.bool), 1)
+    ref = cholesky_hbm(b.cuda()).cpu()
+    b[:, upper] = float("nan")
+    assert torch.equal(cholesky_hbm(b.cuda()).cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_cuda_gp_refit_n2048_matches_cpu():
+    """The refit at n_max 2048 (the HBM tier) with 1,400 points: every
+    factor on the GPU within 1e-9 of the CPU's plain versions, in f64."""
+    _need_cuda()
+    from safe_exploration_tpu_torch.models.gp import gp_init
+
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1.0, 1.0, (1400, 3))
+    y = 0.1 * np.sin(3.0 * x[:, :2])
+
+    def refit(device):
+        return gp_init(("rbf", "rbf"), torch.tensor(x, device=device),
+                       torch.tensor(y, device=device), n_max=2048,
+                       log_noise=-3.0)
+
+    before = (cholesky_hbm.launches, cholesky_blocked.launches)
+    g, c = refit("cuda"), refit("cpu")
+    assert (cholesky_hbm.launches, cholesky_blocked.launches) == (
+        before[0] + 1, before[1])
+    for f in ("chol", "beta", "kinv"):
+        assert _rel(getattr(g, f), getattr(c, f)) < 1e-9, f
+    eye = torch.eye(2048 - 1400, dtype=torch.float64)
+    assert torch.equal(g.chol[:, 1400:, 1400:].cpu(), eye.expand(2, -1, -1))

@@ -7,7 +7,11 @@ against the JAX refit functions (``_masked_gram``, ``jnp.linalg.cholesky``,
 ``solve_triangular``) and against the Pallas kernels in interpret mode, as
 tests/test_pallas.py runs them: f64 at 1e-9 relative, f32 within 2e-4 of the
 f64 result (the gate test_pallas uses for the f32 Pallas Cholesky). The
-CUDA kernels themselves are tested on a GPU by tests/test_torch_cuda.py.
+large-matrix tier ``cholesky_hbm_plain`` is held against the HBM-tier Pallas
+kernel in interpret mode at test_pallas's sizes (n=640 in f32 within 3e-4 of
+the f64 factor, n=384 in f64 at 1e-9) and against ``jnp.linalg.cholesky`` at
+a ragged n=300. The CUDA kernels themselves are tested on a GPU by
+tests/test_torch_cuda.py.
 """
 
 import ast
@@ -28,9 +32,14 @@ from safe_exploration_tpu.ops.pallas import (  # noqa: E402
     rbf_gram_masked as pallas_gram,
     trsm_lower_blocked as pallas_trsm,
 )
+from safe_exploration_tpu.ops.pallas.cholesky_hbm import (  # noqa: E402
+    cholesky_hbm as pallas_cholesky_hbm,
+)
 from test_torch_bridge import one_torch_thread  # noqa: E402,F401
 from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     cholesky_blocked,
+    cholesky_hbm,
+    cholesky_hbm_plain,
     cholesky_plain,
     gram_plain,
     rbf_gram_masked,
@@ -157,21 +166,55 @@ def test_solve_psd_matches_jax():
         assert _rel(x[d], np.linalg.solve(a[d], b[d])) < 1e-9
 
 
+@pytest.mark.parametrize("n,dtype", [(640, "float32"), (384, "float64")])
+def test_cholesky_hbm_plain_matches_pallas_interpret(n, dtype):
+    """test_pallas's HBM-tier cases: f32 within 3e-4 of the f64 factor, f64
+    at 1e-9, against the Pallas kernel run in interpret mode."""
+    a = _spd(n)[0]
+    l64 = np.asarray(jnp.linalg.cholesky(jnp.asarray(a)))
+    l = cholesky_hbm_plain(_t(a, getattr(torch, dtype))).numpy()
+    pal = np.asarray(pallas_cholesky_hbm(
+        jnp.asarray(a, getattr(jnp, dtype)), interpret=True))
+    if dtype == "float64":
+        assert _rel(l, pal) < 1e-9 and _rel(l, l64) < 1e-9
+    else:
+        np.testing.assert_allclose(l, l64, rtol=3e-4, atol=3e-4)
+        np.testing.assert_allclose(pal, l64, rtol=3e-4, atol=3e-4)
+    np.testing.assert_array_equal(np.triu(l, 1), 0.0)
+
+
+def test_cholesky_hbm_plain_ragged_lower_only_and_nan():
+    """A ragged n=300 (block columns 64 wide) against jnp.linalg.cholesky;
+    the upper triangle is never read; a non-positive pivot gives NaN from
+    its column on, finite before it."""
+    a = _spd(300)
+    ref = np.asarray(jnp.linalg.cholesky(jnp.asarray(a)))
+    junk = a.copy()
+    junk[:, np.triu_indices(300, 1)[0], np.triu_indices(300, 1)[1]] = np.nan
+    l = cholesky_hbm_plain(_t(junk)).numpy()
+    assert _rel(l, ref) < 1e-9
+    a[:, 200, 200] = -1.0
+    bad = cholesky_hbm_plain(_t(a)).numpy()
+    assert np.isfinite(bad[:, :200, :200]).all()
+    assert np.isnan(bad[:, 200:, 200]).all() and np.isnan(bad[:, -1, -1]).all()
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors the wrappers are the plain versions and count no
     kernel launch."""
-    before = [w.launches for w in (rbf_gram_masked, cholesky_blocked,
-                                   trsm_lower)]
+    wrappers = (rbf_gram_masked, cholesky_blocked, trsm_lower, cholesky_hbm)
+    before = [w.launches for w in wrappers]
     args = [_t(a) for a in _gram_inputs(40)]
     k = rbf_gram_masked(*args)
     torch.testing.assert_close(k, gram_plain(*args), rtol=0, atol=0)
     l = cholesky_blocked(k)
     torch.testing.assert_close(l, cholesky_plain(k), rtol=0, atol=0)
+    torch.testing.assert_close(cholesky_hbm(k), cholesky_hbm_plain(k), rtol=0,
+                               atol=0)
     b = torch.ones((E, 40, 2), dtype=torch.float64)
     torch.testing.assert_close(trsm_lower(l, b, True), trsm_plain(l, b, True),
                                rtol=0, atol=0)
-    assert [w.launches for w in (rbf_gram_masked, cholesky_blocked,
-                                 trsm_lower)] == before
+    assert [w.launches for w in wrappers] == before
 
 
 # ------------------------------------------------------------ guards

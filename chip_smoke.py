@@ -210,61 +210,120 @@ def phase_kernels(seed: int) -> dict:
     if not nan_ok:
         _fail("cholesky does not give NaN on an indefinite input")
 
-    timings = {}
-    for n in (N_PATH, 512):
-        dt = torch.float32
-        sz = 4
-        args = _gram_args(rng, n, dt, "cuda")
-        k = rbf_gram_masked(*args)
-        l = cholesky_blocked(k)
-        y = torch.tensor(rng.normal(size=(E, n, 1)), dtype=dt, device="cuda")
-        eye = torch.eye(n, dtype=dt, device="cuda").expand(E, n, n).contiguous()
-        reps, preps = (50, 3) if n == N_PATH else (20, 1)
+    return {"errs": errs, "timings": _refit_kernel_times(rng)}
 
-        def trsm_refit(solve):
-            z = solve(l, y, False)
-            solve(l, z, True)
-            solve(l, eye, False)
 
-        def lib_solve(lm, b, transpose):
-            if transpose:
-                return torch.linalg.solve_triangular(lm.mT, b, upper=True)
-            return torch.linalg.solve_triangular(lm, b, upper=False)
+def _lib_solve(l, b, transpose=False):
+    """torch.linalg's triangular solve, the library yardstick of trsm."""
+    if transpose:
+        return torch.linalg.solve_triangular(l.mT, b, upper=True)
+    return torch.linalg.solve_triangular(l, b, upper=False)
 
-        in_bytes = (n * D_IN + n + 2 * E * D_IN) * sz
-        t = {
-            "gram": dict(
-                ms=_time_ms(lambda: rbf_gram_masked(*args), reps),
-                plain_ms=_time_ms(lambda: gram_plain(*args), reps),
-                library_ms=None,
-                bound=_bound_ms(in_bytes + E * n * n * sz,
-                                E * n * n * (2 * D_IN + 7), dt),
-            ),
-            "cholesky": dict(
-                ms=_time_ms(lambda: cholesky_blocked(k), reps),
-                plain_ms=_time_ms(lambda: cholesky_plain(k), preps),
-                library_ms=_time_ms(lambda: torch.linalg.cholesky_ex(k), reps),
-                bound=_bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dt),
-            ),
-            # one refit's three solves: beta forward + backward (m = 1) and
-            # L^-1 (m = n)
-            "trsm": dict(
-                ms=_time_ms(lambda: trsm_refit(trsm_lower), reps),
-                plain_ms=_time_ms(lambda: trsm_refit(trsm_plain), preps),
-                library_ms=_time_ms(lambda: trsm_refit(lib_solve), reps),
-                bound=_bound_ms(
-                    sum(_trsm_bytes(n, m, sz) for m in (1, 1, n)),
-                    sum(E * n * n * m for m in (1, 1, n)), dt),
-            ),
-        }
-        for name, r in t.items():
-            r["bound_ms"], r["bound_by"] = r.pop("bound")
-            lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            print(f"[kernels] time f32 n={n} {name}: kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, library {lib} ms, bound "
-                  f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
-        timings[n] = t
-    return {"errs": errs, "timings": timings}
+
+def _refit_solves(l, y):
+    """The refit's two solve calls through the kernels: beta = K^-1 y
+    (forward and transposed solve, m = 1) and L^-1 for K^-1."""
+    from safe_exploration_tpu_torch.ops.kernels import solve_psd, trsm_lower
+
+    n = l.shape[-1]
+    eye = torch.eye(n, dtype=l.dtype, device=l.device).expand(l.shape)
+    eye = eye.contiguous()
+    return {"beta": lambda: solve_psd(l, y),
+            "kinv": lambda: trsm_lower(l, eye)}
+
+
+def _refit_kernel_times(rng) -> dict:
+    """CUDA-event ms per call of the refit's kernels at n = 128 (the SQP
+    path), 512 (episodic run (a)) and 2048 (run (b)), e = 2, f32 and f64,
+    each beside its torch.linalg call, its device ms per CUDA kernel
+    (profiler) and its bound at the least work: beta 2 n^2 flops and L,
+    y and beta moved once; K^-1's solve n^3 / 3 flops (L^-1 is triangular)
+    and 2 n^2 words; the Cholesky n^3 / 3 flops and 2 n^2 words (the
+    blocked kernel at 128 and 512; cholesky_hbm keeps 2048). Plain versions
+    are timed at the path shape only. Keys ``<dtype>_n<n>``; ``N_PATH``
+    f32 also under the int key, as the kernels line reads it."""
+    from safe_exploration_tpu_torch.ops.kernels import (
+        cholesky_blocked,
+        cholesky_hbm,
+        cholesky_plain,
+        gram_plain,
+        rbf_gram_masked,
+        trsm_plain,
+    )
+    from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
+
+    out = {}
+    for n in (N_PATH, 512, N_HBM):
+        for dt in (torch.float32, torch.float64):
+            sz = torch.finfo(dt).bits // 8
+            args = _gram_args(rng, n, dt, "cuda")
+            k = rbf_gram_masked(*args)
+            chol = cholesky_blocked if n <= MAX_N else cholesky_hbm
+            l = chol(k)
+            y = torch.tensor(rng.normal(size=(E, n, 1)), dtype=dt,
+                             device="cuda")
+            eye = torch.eye(n, dtype=dt, device="cuda").expand(E, n, n)
+            eye = eye.contiguous()
+            solves = _refit_solves(l, y)
+            reps = {N_PATH: 50, 512: 20}.get(n, 5)
+            path = dt == torch.float32 and n == N_PATH
+            t = {
+                "beta": dict(
+                    fn=solves["beta"],
+                    library=lambda: _lib_solve(l, _lib_solve(l, y), True),
+                    plain=lambda: trsm_plain(l, trsm_plain(l, y), True),
+                    bound=_bound_ms(_trsm_bytes(n, 1, sz), E * 2 * n * n,
+                                    dt)),
+                "kinv": dict(
+                    fn=solves["kinv"], library=lambda: _lib_solve(l, eye),
+                    plain=lambda: trsm_plain(l, eye),
+                    bound=_bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dt)),
+            }
+            if n <= 512:
+                t["cholesky"] = dict(
+                    fn=lambda: cholesky_blocked(k),
+                    library=lambda: torch.linalg.cholesky_ex(k),
+                    plain=lambda: cholesky_plain(k),
+                    bound=_bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dt))
+            if path:
+                in_bytes = (n * D_IN + n + 2 * E * D_IN) * sz
+                t["gram"] = dict(
+                    fn=lambda: rbf_gram_masked(*args), library=None,
+                    plain=lambda: gram_plain(*args),
+                    bound=_bound_ms(in_bytes + E * n * n * sz,
+                                    E * n * n * (2 * D_IN + 7), dt))
+            res = {}
+            for name, c in t.items():
+                dev_ms, by_kernel = _device_ms(c["fn"])
+                r = {"ms": _time_ms(c["fn"], reps),
+                     "library_ms": (None if c["library"] is None
+                                    else _time_ms(c["library"], reps)),
+                     "plain_ms": _time_ms(c["plain"], 3) if path else None,
+                     "device_ms": dev_ms, "device_ms_by_kernel": by_kernel,
+                     "bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+                res[name] = r
+                lib = ("null" if r["library_ms"] is None
+                       else f"{r['library_ms']:.4f}")
+                plain = ("" if r["plain_ms"] is None
+                         else f", plain {r['plain_ms']:.4f} ms")
+                print(f"[kernels] time {str(dt)[6:]} n={n} {name}: kernel "
+                      f"{r['ms']:.4f} ms (device {dev_ms:.4f}: "
+                      f"{ {k2: round(v, 4) for k2, v in by_kernel.items()} })"
+                      f", library {lib} ms{plain}, bound "
+                      f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
+            out[f"{str(dt)[6:]}_n{n}"] = res
+            if path:
+                # the kernels line's trsm: one refit's solves (beta and L^-1)
+                res["trsm"] = {
+                    key: (res["beta"][key] + res["kinv"][key]
+                          if key in ("ms", "library_ms", "plain_ms",
+                                     "device_ms") else None)
+                    for key in res["beta"]}
+                res["trsm"]["bound_ms"], res["trsm"]["bound_by"] = _bound_ms(
+                    _trsm_bytes(n, 1, sz) + 2 * E * n * n * sz,
+                    E * 2 * n * n + E * n ** 3 / 3, dt)
+                out[n] = res
+    return out
 
 
 def _make_data(rng, n_data, dtype, device, exp):
@@ -847,9 +906,11 @@ def _cem_split(exp, plan, x0, batch, dev) -> dict:
         exp["batch_planner"](plan, x0, warm)
         _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    device_ms = sum(getattr(e, "self_device_time_total", 0.0)
-                    for e in events) / 1e3
+    # device-side events only: a host operator's self device time repeats
+    # its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
     # device ms per launch of the two kernels (the wrappers' CUDA-event times
     # in the kernels phase also hold their host-side argument preparation)
     per_launch = {
@@ -951,22 +1012,42 @@ def _blocked_direct(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _device_ms_by_kernel(fn, names: tuple) -> dict:
-    """Device time of one call of ``fn`` per CUDA kernel whose name contains
-    one of ``names`` (torch.profiler), averaged over 3 calls."""
+def _device_events(fn, calls: int = 3) -> list:
+    """torch.profiler's device-side events (kernels, memsets, copies; not
+    the host operators, whose self device time repeats their kernels') over
+    ``calls`` calls of ``fn`` after one warm-up call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(3):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    return [e for e in prof.key_averages() if e.device_type != cpu]
+
+
+def _device_ms(fn) -> tuple[float, dict]:
+    """Device ms of one call of ``fn``, in all and per CUDA kernel (the
+    kernel's name up to its template arguments), averaged over 3 calls."""
+    by = {}
+    for e in _device_events(fn):
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].strip().split(" ")[-1]
+        name = name.split("::")[-1] or e.key[:40]
+        by[name] = by.get(name, 0.0) + e.self_device_time_total / 3e3
+    return sum(by.values()), by
+
+
+def _device_ms_by_kernel(fn, names: tuple) -> dict:
+    """Device time of one call of ``fn`` per CUDA kernel whose name contains
+    one of ``names`` (torch.profiler), averaged over 3 calls."""
     out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
+    for e in _device_events(fn):
         for name in names:
             if name in e.key:
-                out[name] += getattr(e, "self_device_time_total", 0.0) / 3e3
+                out[name] += e.self_device_time_total / 3e3
     return out
 
 
@@ -1076,6 +1157,36 @@ def phase_hbm_kernels(seed: int) -> dict:
     return res
 
 
+def _refit_split(gp) -> dict:
+    """CUDA-event ms of one gp_refit of ``gp`` and of each of its parts on
+    the same state: gram, cholesky (blocked to n_max 1024, hbm above),
+    beta, K^-1's solve and the L^-T L^-1 matmul."""
+    from safe_exploration_tpu_torch.models.gp import gp_refit
+    from safe_exploration_tpu_torch.ops.kernels import (
+        cholesky_blocked,
+        cholesky_hbm,
+        rbf_gram_masked,
+    )
+    from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
+
+    log_ls = torch.stack([p["log_lengthscales"] for p in gp.params])
+    log_sf = torch.stack([p["log_sf"] for p in gp.params])
+    noise_var = torch.exp(2.0 * gp.log_noise)
+    args = (gp.x, gp.mask, log_ls, log_sf, noise_var)
+    k = rbf_gram_masked(*args)
+    chol = cholesky_blocked if gp.n_max <= MAX_N else cholesky_hbm
+    l = chol(k)
+    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()
+    solves = _refit_solves(l, ym)
+    linv = solves["kinv"]()
+    parts = {"gram": lambda: rbf_gram_masked(*args), "cholesky": lambda: chol(k),
+             "beta": solves["beta"], "kinv_solve": solves["kinv"],
+             "matmul": lambda: linv.transpose(-1, -2) @ linv,
+             "refit": lambda: gp_refit(gp)}
+    reps = 20 if gp.n_max <= 512 else 5
+    return {name: _time_ms(fn, reps) for name, fn in parts.items()}
+
+
 def _episode_cfg(name: str, sets: list[str]):
     from safe_exploration_tpu_torch.runtime.config import CONFIGS
     from safe_exploration_tpu_torch.runtime.main import _apply_overrides
@@ -1150,6 +1261,7 @@ def phase_episode(seed: int) -> dict:
         gp_refit(gp)
         torch.cuda.synchronize()
         refit_s = time.perf_counter() - t0
+        split = _refit_split(gp)
         series = summary["series"]
         n_refits = 2 * cfg.n_ep + 2   # build, one per fit, one per update
         want_n = [min(cfg.n_init_samples + ep * cfg.n_steps, cfg.n_max)
@@ -1163,7 +1275,7 @@ def phase_episode(seed: int) -> dict:
              "series": series, "wall_s": wall, "launches": launches,
              "refits": n_refits, "fit_s": spans["fit"],
              "calibrate_s": spans["calibrate"], "update_s": spans["update"],
-             "refit_s_final_model": refit_s,
+             "refit_s_final_model": refit_s, "refit_split_ms": split,
              "l_mu": captured["ssm"].l_mu.tolist(),
              "l_sigma": captured["ssm"].l_sigma.tolist()}
         out[tag] = r
@@ -1177,6 +1289,9 @@ def phase_episode(seed: int) -> dict:
               f"ssm_update (refit) s {[round(v, 4) for v in spans['update']]}"
               f", one gp_refit of the final model {refit_s * 1e3:.2f} ms; "
               f"l_mu {r['l_mu']}, l_sigma {r['l_sigma']}", flush=True)
+        print(f"[episode] ({tag})   refit split of the final model, CUDA-event"
+              f" ms per part: { {k: round(v, 4) for k, v in split.items()} }",
+              flush=True)
         print(f"[episode] ({tag})   launches {launches} ({n_refits} refits)",
               flush=True)
         if any(series["violations"]):

@@ -15,9 +15,15 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
   1. device   card name and power limit (nvidia-smi), CUDA and torch versions
   2. build    nvcc for every kernel source, all at once
   3. kernels  every kernel against its plain version at the main path's shapes
-              (e=2, n=128; L^-1 with m=128, beta with m=1), at n=512 and at a
-              ragged n=200, in f32 and f64; NaN on an indefinite input; CUDA-
-              event times of kernel, plain version and the torch.linalg call
+              (e=2, n=128), at n=512 and at a ragged n=200, in f32 and f64:
+              gram, cholesky (its shared-memory tier to n=224 f32 / 160 f64
+              and its blocked tier above), trsm's three entries (trsm_lower
+              at m=1, 7, n; solve_psd at m=1; tri_inv_lower, zero above the
+              diagonal); NaN from a bad pivot in each Cholesky tier; CUDA-
+              event ms, device ms per CUDA kernel (profiler) and bound at the
+              least work of beta (solve_psd), K^-1's solve (tri_inv_lower)
+              and cholesky at n=128, 512 and 2048, each beside its
+              torch.linalg call
      cem      gp_predict and cem_score against their plain versions at
               n = 64 (H 5) and 128 (H 3, pendulum_batch's shape), L = 16,384
               and a ragged 1,000, f32 and f64, with and without the
@@ -39,15 +45,18 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               the CPU (plain versions) with the draws of one CPU generator
   8. hbm      cholesky_hbm against its plain version at n = 1300, 2048 and
               4096 (e=2, f32 within 3e-4 of the f64 factor, f64 at 1e-9), NaN
-              on an indefinite input, trsm_lower at n = m = 2048; CUDA-event
-              times of cholesky_hbm, cholesky_blocked (called past its
+              on an indefinite input, trsm's entries at n = 2048
+              (tri_inv_lower, solve_psd, trsm_lower at m = 1 and n); CUDA-
+              event times of cholesky_hbm, cholesky_blocked (called past its
               wrapper's limit), cholesky_ex and the plain version at 1024 and
               2048, and cholesky_hbm's device time per kernel (profiler)
   9. episode  the episodic CLI's run_experiment on the card: (a)
               pendulum_episode (3 of its 6 episodes), (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
               launch counts zeroed just before each run and read just after;
-              per-episode series and fit / calibration / refit times
+              per-episode series and fit / calibration / refit times, and the
+              final model's refit split (gram / cholesky / beta / K^-1 solve
+              / matmul, CUDA events)
  10. episode-parity  f64, one episode of 3 steps at n_max 2048: GPU against
               CPU on one set of draws
 
@@ -159,13 +168,17 @@ def _gram_args(rng, n, dtype, device):
 
 
 def phase_kernels(seed: int) -> dict:
-    """Correctness at every shape and dtype, then times at the path shape
-    and at n=512 (f32, the path's dtype)."""
+    """Correctness at every shape and dtype (cholesky's two tiers; trsm's
+    three entries: trsm_lower at m = 1 (the vector kernel), 7 and n,
+    solve_psd at m = 1, tri_inv_lower), NaN from a bad pivot in each
+    Cholesky tier, then the refit kernels' times."""
     from safe_exploration_tpu_torch.ops.kernels import (
         cholesky_blocked,
         cholesky_plain,
         gram_plain,
         rbf_gram_masked,
+        solve_psd,
+        tri_inv_lower,
         trsm_lower,
         trsm_plain,
     )
@@ -184,29 +197,47 @@ def phase_kernels(seed: int) -> dict:
             l = cholesky_blocked(k64.to(dtype))
             l64 = cholesky_plain(k64)
             e_c = _rel(l, l64)
+            upper_zero = bool((torch.triu(l, 1) == 0).all())
             y = torch.tensor(rng.normal(size=(E, n, 1)), device="cuda")
+            b7 = torch.tensor(rng.normal(size=(E, n, 7)), device="cuda")
             eye = torch.eye(n, dtype=torch.float64, device="cuda").expand(E, n, n)
-            e_t, a_t = 0.0, 0.0
-            for b, transpose in ((y, False), (y, True), (eye.contiguous(), False)):
-                x = trsm_lower(l64.to(dtype), b.to(dtype).contiguous(), transpose)
-                xp = trsm_plain(l64, b, transpose)
-                e_t, a_t = max(e_t, _rel(x, xp)), max(a_t, _abs(x, xp))
+            eye = eye.contiguous()
+            lt = l64.to(dtype)
+            pairs = [(trsm_lower(lt, b.to(dtype), tr), trsm_plain(l64, b, tr))
+                     for b, tr in ((y, False), (y, True), (b7, False),
+                                   (b7, True), (eye, False))]
+            pairs.append((solve_psd(lt, y.to(dtype)),
+                          trsm_plain(l64, trsm_plain(l64, y), True)))
+            linv = tri_inv_lower(lt)
+            pairs.append((linv, pairs[-2][1]))
+            upper_zero &= bool((torch.triu(linv, 1) == 0).all())
+            e_t = max(_rel(x, xp) for x, xp in pairs)
+            a_t = max(_abs(x, xp) for x, xp in pairs)
             tol_g, tol_ct = (1e-10, 1e-10) if f64 else (1e-5, 2e-4)
             print(f"[kernels] {str(dtype)[6:]} e={E} n={n}: gram rel {e_g:.2e} "
-                  f"(tol {tol_g:g}), cholesky rel {e_c:.2e}, trsm rel {e_t:.2e} "
-                  f"(tol {tol_ct:g})", flush=True)
-            if not (e_g <= tol_g and e_c <= tol_ct and e_t <= tol_ct):
+                  f"(tol {tol_g:g}), cholesky rel {e_c:.2e}, trsm (trsm_lower "
+                  f"m=1/7/n, solve_psd, tri_inv_lower) rel {e_t:.2e} (tol "
+                  f"{tol_ct:g}), zeros above the diagonal {upper_zero}",
+                  flush=True)
+            if not (e_g <= tol_g and e_c <= tol_ct and e_t <= tol_ct
+                    and upper_zero):
                 _fail(f"kernel disagrees with plain at {dtype} n={n}")
             if dtype == torch.float32 and n == N_PATH:
                 errs = {"gram": _abs(k, kp), "cholesky": _abs(l, l64),
                         "trsm": a_t}
-    bad = gram_plain(*_gram_args(rng, 200, torch.float64, "cuda"))
-    bad[:, 150, 150] = -1.0
-    l_bad = cholesky_blocked(bad)
-    nan_ok = bool(torch.isnan(l_bad).any()) and bool(
-        torch.isfinite(l_bad[:, :150, :150]).all())
-    print(f"[kernels] indefinite input -> NaN from the bad pivot on: {nan_ok}",
-          flush=True)
+    # a bad pivot in each Cholesky tier (f32 to n 224, f64 to 160 in shared
+    # memory; the blocked tier above)
+    nan_ok = True
+    for dtype, n, at in ((torch.float32, 200, 150), (torch.float64, 100, 40),
+                         (torch.float64, 200, 150), (torch.float32, 512, 300)):
+        bad = gram_plain(*_gram_args(rng, n, torch.float64, "cuda"))
+        bad[:, at, at] = -1.0
+        l_bad = cholesky_blocked(bad.to(dtype))
+        nan_ok &= bool(torch.isfinite(l_bad[:, :at, :at]).all()) and bool(
+            torch.isnan(l_bad[:, at:, at]).all()) and bool(
+            torch.isnan(l_bad[:, -1, -1]).all())
+    print(f"[kernels] indefinite input -> NaN from the bad pivot on, finite "
+          f"before it, in both tiers: {nan_ok}", flush=True)
     if not nan_ok:
         _fail("cholesky does not give NaN on an indefinite input")
 
@@ -223,13 +254,13 @@ def _lib_solve(l, b, transpose=False):
 def _refit_solves(l, y):
     """The refit's two solve calls through the kernels: beta = K^-1 y
     (forward and transposed solve, m = 1) and L^-1 for K^-1."""
-    from safe_exploration_tpu_torch.ops.kernels import solve_psd, trsm_lower
+    from safe_exploration_tpu_torch.ops.kernels import (
+        solve_psd,
+        tri_inv_lower,
+    )
 
-    n = l.shape[-1]
-    eye = torch.eye(n, dtype=l.dtype, device=l.device).expand(l.shape)
-    eye = eye.contiguous()
     return {"beta": lambda: solve_psd(l, y),
-            "kinv": lambda: trsm_lower(l, eye)}
+            "kinv": lambda: tri_inv_lower(l)}
 
 
 def _refit_kernel_times(rng) -> dict:
@@ -416,10 +447,11 @@ def _refit_wrappers():
     from safe_exploration_tpu_torch.ops.kernels import (
         cholesky_blocked,
         rbf_gram_masked,
-        trsm_lower,
+        solve_psd,
+        tri_inv_lower,
     )
 
-    return (rbf_gram_masked, cholesky_blocked, trsm_lower)
+    return (rbf_gram_masked, cholesky_blocked, solve_psd, tri_inv_lower)
 
 
 def phase_path(seed: int, batch: int = 512, dev: str = "cuda") -> dict:
@@ -756,13 +788,15 @@ def _cem_exp(dtype, dev, gp_impl="auto"):
 
 def _cem_path_wrappers():
     """The kernels the CEM path runs: all but the large-matrix Cholesky
-    (its n_max 64 refits take cholesky_blocked)."""
+    (its n_max 64 refits take cholesky_blocked) and the general-m trsm
+    (the refit takes solve_psd and tri_inv_lower)."""
     from safe_exploration_tpu_torch.ops.kernels import (
         KERNEL_WRAPPERS,
         cholesky_hbm,
+        trsm_lower,
     )
 
-    return [w for w in KERNEL_WRAPPERS if w is not cholesky_hbm]
+    return [w for w in KERNEL_WRAPPERS if w not in (cholesky_hbm, trsm_lower)]
 
 
 def phase_cem_path(seed: int, batch: int = B_CEM, dev: str = "cuda") -> dict:
@@ -1056,12 +1090,15 @@ def phase_hbm_kernels(seed: int) -> dict:
     4096 with e = 2 in f32 (within 3e-4 of the f64 plain factor) and f64
     (1e-9); NaN on an indefinite input; CUDA-event times of the kernel, its
     plain version, cholesky_ex and cholesky_blocked (called directly) at
-    1024 and 2048; trsm_lower against its plain version at the refit's K^-1
-    shape n = m = 2048."""
+    1024 and 2048; trsm's entries against their plain versions at run
+    (b)'s refit shape n = 2048: tri_inv_lower (K^-1), solve_psd (beta, m =
+    1) and trsm_lower at m = 1 and m = n."""
     from safe_exploration_tpu_torch.ops.kernels import (
         cholesky_blocked,
         cholesky_hbm,
         cholesky_hbm_plain,
+        solve_psd,
+        tri_inv_lower,
         trsm_lower,
         trsm_plain,
     )
@@ -1102,19 +1139,33 @@ def phase_hbm_kernels(seed: int) -> dict:
     if not nan_ok:
         _fail("cholesky_hbm does not give NaN on an indefinite input")
 
-    # K^-1's solve at n = m = 2048, the shape every run-(b) refit gives trsm
+    # trsm's entries at the shape every run-(b) refit gives them
     l64 = cholesky_hbm_plain(_spd_cuda(N_HBM, seed + 1))
     eye = torch.eye(N_HBM, dtype=torch.float64, device="cuda").expand(
         E, N_HBM, N_HBM).contiguous()
+    y = torch.randn((E, N_HBM, 1), dtype=torch.float64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
     x_ref = trsm_plain(l64, eye)
+    z_ref = trsm_plain(l64, y)
+    refs = {"tri_inv_lower": x_ref, "trsm_lower_eye": x_ref,
+            "solve_psd": trsm_plain(l64, z_ref, True), "trsm_lower_m1": z_ref,
+            "trsm_lower_m1_t": trsm_plain(l64, y, True)}
     e_t = {}
     for dtype, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
-        e_t[str(dtype)[6:]] = _rel(trsm_lower(l64.to(dtype), eye.to(dtype)),
-                                   x_ref)
-        if e_t[str(dtype)[6:]] > tol:
-            _fail(f"trsm_lower disagrees with plain at {dtype} n=m={N_HBM}")
-    print(f"[hbm] trsm_lower n=m={N_HBM} vs plain (f64): rel {e_t} (tol f32 "
-          f"2e-4, f64 1e-10)", flush=True)
+        lt, yt = l64.to(dtype), y.to(dtype)
+        linv = tri_inv_lower(lt)
+        outs = {"tri_inv_lower": linv, "trsm_lower_eye": trsm_lower(
+                    lt, eye.to(dtype)), "solve_psd": solve_psd(lt, yt),
+                "trsm_lower_m1": trsm_lower(lt, yt),
+                "trsm_lower_m1_t": trsm_lower(lt, yt, True)}
+        errs_d = {k: _rel(v, refs[k]) for k, v in outs.items()}
+        upper_zero = bool((torch.triu(linv, 1) == 0).all())
+        e_t[str(dtype)[6:]] = errs_d
+        if max(errs_d.values()) > tol or not upper_zero:
+            _fail(f"trsm entries disagree with plain at {dtype} n={N_HBM}: "
+                  f"{errs_d}, L^-1 zero above the diagonal {upper_zero}")
+    print(f"[hbm] trsm entries at n={N_HBM} vs plain (f64): rel {e_t} (tol "
+          f"f32 2e-4, f64 1e-10)", flush=True)
     res["trsm_2048_rel"] = e_t
 
     # crossover: cholesky_blocked (direct) against cholesky_hbm, with the
@@ -1150,8 +1201,8 @@ def phase_hbm_kernels(seed: int) -> dict:
     a = _spd_cuda(N_HBM, seed + 3).float()
     l = cholesky_hbm(a)
     t_trsm = _time_ms(lambda: trsm_lower(l, eye.float()), 5)
-    print(f"[hbm] time f32 trsm_lower n=m={N_HBM} (K^-1's solve): "
-          f"{t_trsm:.3f} ms", flush=True)
+    print(f"[hbm] time f32 trsm_lower n=m={N_HBM} (general m, L^-1 against "
+          f"the identity): {t_trsm:.3f} ms", flush=True)
     res["times"] = times
     res["trsm_2048_ms"] = t_trsm
     return res
@@ -1303,8 +1354,9 @@ def phase_episode(seed: int) -> dict:
         if launches[big] != n_refits or launches[small] != 0:
             _fail(f"run ({tag}): {big} launched {launches[big]} times and "
                   f"{small} {launches[small]} in {n_refits} refits")
-        if launches["rbf_gram_masked"] != n_refits or \
-                launches["trsm_lower"] != 3 * n_refits:
+        if any(launches[w] != n_refits for w in (
+                "rbf_gram_masked", "solve_psd", "tri_inv_lower")) or \
+                launches["trsm_lower"]:
             _fail(f"run ({tag}): refit kernels launched {launches}")
     return out
 
@@ -1366,23 +1418,24 @@ def phase_episode_parity(seed: int) -> dict:
     return res
 
 
-SOURCES = {
-    "rbf_gram_masked": ("safe_exploration_tpu_torch/csrc/gram.cu",
-                        "safe_exploration_tpu/ops/pallas/gram.py:41"),
-    "cholesky_blocked": ("safe_exploration_tpu_torch/csrc/cholesky.cu",
-                         "safe_exploration_tpu/ops/pallas/cholesky.py:110"),
-    "trsm_lower": ("safe_exploration_tpu_torch/csrc/trsm.cu",
-                   "safe_exploration_tpu/ops/pallas/trsm.py:39"),
-    "gp_predict_lanes": ("safe_exploration_tpu_torch/csrc/gp_predict.cu",
-                         "safe_exploration_tpu/ops/pallas/gp_predict.py:46"),
-    "tube_score_lanes": ("safe_exploration_tpu_torch/csrc/cem_score.cu",
-                         "safe_exploration_tpu/ops/pallas/cem_score.py:50"),
-    "cholesky_hbm": ("safe_exploration_tpu_torch/csrc/cholesky_hbm.cu",
-                     "safe_exploration_tpu/ops/pallas/cholesky_hbm.py:52"),
-}
-SHORT = {"rbf_gram_masked": "gram", "cholesky_blocked": "cholesky",
-         "trsm_lower": "trsm", "gp_predict_lanes": "gp_predict",
-         "tube_score_lanes": "cem_score", "cholesky_hbm": "cholesky_hbm"}
+# the kernels line: per Pallas kernel its name, CUDA source, the Pallas
+# kernel it replaces and the wrappers whose launches count for it (trsm's
+# three entries replace _trsm_kernel together)
+KERNELS = (
+    ("gram", "safe_exploration_tpu_torch/csrc/gram.cu",
+     "safe_exploration_tpu/ops/pallas/gram.py:41", ("rbf_gram_masked",)),
+    ("cholesky", "safe_exploration_tpu_torch/csrc/cholesky.cu",
+     "safe_exploration_tpu/ops/pallas/cholesky.py:110", ("cholesky_blocked",)),
+    ("trsm", "safe_exploration_tpu_torch/csrc/trsm.cu",
+     "safe_exploration_tpu/ops/pallas/trsm.py:39",
+     ("trsm_lower", "solve_psd", "tri_inv_lower")),
+    ("gp_predict", "safe_exploration_tpu_torch/csrc/gp_predict.cu",
+     "safe_exploration_tpu/ops/pallas/gp_predict.py:46", ("gp_predict_lanes",)),
+    ("cem_score", "safe_exploration_tpu_torch/csrc/cem_score.cu",
+     "safe_exploration_tpu/ops/pallas/cem_score.py:50", ("tube_score_lanes",)),
+    ("cholesky_hbm", "safe_exploration_tpu_torch/csrc/cholesky_hbm.cu",
+     "safe_exploration_tpu/ops/pallas/cholesky_hbm.py:52", ("cholesky_hbm",)),
+)
 
 
 def main() -> int:
@@ -1434,17 +1487,20 @@ def main() -> int:
     for short in cem_kern["errs"]:
         path_launches[short] = cem["launches"]
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        short = SHORT[name]
+    for short, source, replaces, wrappers in KERNELS:
         r = times[short]
-        launches = path_launches.get(short, path["launches"])[name]
-        kernels.append({
+        counts = path_launches.get(short, path["launches"])
+        entry = {
             "name": short, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(counts.get(w, 0) for w in wrappers),
             "max_abs_err": errs[short], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+        if len(wrappers) > 1:
+            entry["entries"] = list(wrappers)
+        kernels.append(entry)
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels,
               "kernel_times": {str(n): v for n, v in kern["timings"].items()},

@@ -1,162 +1,318 @@
-// Blocked right-looking lower Cholesky factorization, batched over matrices.
+// Blocked lower Cholesky factorization, batched over matrices.
 //
 // Replaces the Pallas kernel safe_exploration_tpu/ops/pallas/cholesky.py
 // (_chol_kernel with upper_chol_rows_ref / upper_tri_inv_rows_ref, reached
 // through cholesky_blocked). Same contract: A (e, n, n) SPD -> L (e, n, n)
-// lower with L L^T = A, only the lower triangle of A is read, and a
-// non-positive pivot yields NaN (it does not raise) from that column on, so
-// the GP refit's downstream finiteness checks catch a broken factor.
+// lower with L L^T = A and zeros above the diagonal, only the lower triangle
+// of A is read, and a non-positive pivot yields NaN (it does not raise) from
+// that column on, so the GP refit's downstream finiteness checks catch a
+// broken factor.
 //
-// Algorithm, per 32-wide panel k (host loop, one launch per step, every
-// launch batched over the e matrices):
-//   1. potrf_diag:  factor the 32x32 diagonal block in shared memory
-//                   (unblocked right-looking, one CTA per matrix);
-//   2. trsm_panel:  L_ik = A_ik L_kk^-T for the rows below, one thread per
-//                   row, L_kk and 128 rows staged in shared memory;
-//   3. syrk_update: A_ij -= L_ik L_jk^T on the trailing lower triangle,
-//                   32x32 output tiles (upper tiles exit at once).
+// Two tiers in one entry:
+//   shared-memory tier (n <= 224 in f32, 160 in f64; the refit's n = 128):
+//     one launch, one CTA per matrix, the whole lower triangle in dynamic
+//     shared memory, factored right-looking in 16-wide sub-blocks
+//     (factor_smem): one warp factors the 16 x 16 diagonal sub-block in
+//     registers (a row per lane, columns exchanged by shuffles, no block
+//     barrier), one thread per row solves the rows below against it, and the
+//     trailing triangle takes a rank-16 update in 4 x 4 register tiles read
+//     from a transposed copy of the panel; three barriers per 16 columns.
+//   blocked tier (larger n; the refit's n = 512): right-looking over 64-wide
+//     panels, two launches per panel: chol_panel factors the 64 x 64
+//     diagonal block (factor_smem, redundantly in every CTA) and solves one
+//     64-row chunk of the strip below per CTA, reading A itself for the first
+//     panel (no copy pass) and writing zeros right of the diagonal block;
+//     chol_update subtracts the panel's rank-64 product from the trailing
+//     lower triangle in 64 x 64 register-tiled products (gemm_tile.cuh).
 //
-// What bounds it on an H100: neither bytes nor flops. n^3/3 flops
-// (0.7 MFLOP at n=128, 45 MFLOP at n=512) and 2 n^2 words are microseconds
-// of work, while the factorization is a chain of 3 n/32 dependent launches
-// whose early steps occupy one SM per matrix: latency of the dependent
-// chain is the bound. What the design does about it: it keeps every step
-// small and batched over the output dims (one chain for all e matrices,
-// not e chains), keeps the diagonal work in shared memory, and lets the
-// O(n^3) part (syrk_update) spread over as many CTAs as the trailing matrix
-// has tiles. Fusing the chain into fewer launches is later work.
+// What bounds it on an H100: neither bytes nor flops. n^3 / 3 flops
+// (0.7 MFLOP at n = 128, 45 MFLOP at n = 512) and 2 n^2 words are
+// microseconds of work; the factorization is a chain of n dependent pivots.
+// What the design does about it: below 225 (160) columns the chain never
+// leaves one SM and pays 3 barriers per 16 pivots instead of 3 launches per
+// 32 (11 launches at n = 128 before); above, 2 launches per 64 columns
+// instead of 3 per 32 plus a copy (15 at n = 512, 47 before), and the O(n^3)
+// update runs at a register-tiled product's rate over every trailing tile.
+// FMA on the CUDA cores in the matrices' own type (f32 or f64; no TF32, no
+// library call).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gemm_tile.cuh"
+
 namespace {
 
-constexpr int NB = 32;     // panel width
-constexpr int PR = 128;    // panel rows per CTA in trsm_panel
-constexpr int TILE = 32;   // syrk output tile edge
-constexpr int ROWS = 8;    // syrk thread rows
+constexpr int SUB = 16;             // sub-block width of factor_smem
+constexpr int P = TILE;             // panel width of the blocked tier
+constexpr int LDP = P + 1;          // padded row stride of the diagonal block
+constexpr int SMEM_THREADS = 512;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float sqrt_(float v) { return sqrtf(v); }
 __device__ __forceinline__ double sqrt_(double v) { return sqrt(v); }
 
+// Most columns the shared-memory tier holds: the triangle (n x (n + 1) or
+// n x (n + 2)) and the 16 x n panel copy in the SM's 227 KB.
 template <typename T>
-__global__ void copy_lower(const T* __restrict__ a, T* __restrict__ l, int n,
-                           long long total) {
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int j = (int)(idx % n);
-    const int i = (int)((idx / n) % n);
-    l[idx] = j <= i ? a[idx] : T(0);
+constexpr int smem_max_n() { return sizeof(T) == 8 ? 160 : 224; }
+
+__host__ __device__ inline int odd_ld(int n) { return n + 1 + (n & 1); }
+__host__ __device__ inline int pt_ld(int n) { return (n + 3) / 4 * 4; }
+
+// Factors the lower triangle of s (nn x nn, row stride ld, shared memory)
+// in place into L (the upper triangle is neither read nor written); pt is a
+// 16 x ptld shared scratch. Needs blockDim.x >= max(32, nn - 16).
+template <typename T>
+__device__ void factor_smem(T* s, int ld, int nn, T* pt, int ptld) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  for (int c0 = 0; c0 < nn; c0 += SUB) {
+    const int kb = min(SUB, nn - c0);
+    // 1. warp 0: the diagonal sub-block, a row per lane; lanes past kb carry
+    //    an identity row
+    if (tid < 32) {
+      const int r = tid;
+      T row[SUB];
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) {
+        row[j] = (r < kb && j <= r) ? s[(c0 + r) * ld + c0 + j]
+                                    : (r == j ? T(1) : T(0));
+      }
+#pragma unroll
+      for (int k = 0; k < SUB; ++k) {
+        const T v = __shfl_sync(FULL, row[k], k);
+        const T d = v > T(0) ? sqrt_(v) : T(NAN);
+        if (r == k) {
+          row[k] = d;
+        } else if (r > k) {
+          row[k] /= d;
+        }
+#pragma unroll
+        for (int j = k + 1; j < SUB; ++j) {
+          const T ljk = __shfl_sync(FULL, row[k], j);
+          if (r >= j) row[j] -= row[k] * ljk;
+        }
+      }
+      if (r < kb) {
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          if (j <= r) s[(c0 + r) * ld + c0 + j] = row[j];
+        }
+      }
+    }
+    __syncthreads();
+    const int t = nn - c0 - kb;  // rows below the sub-block (kb == SUB if t)
+    if (t <= 0) break;
+    // 2. one thread per row below: L[i, c0:c0+16] = S[i, c0:c0+16] L_sub^-T,
+    //    also into the transposed panel copy pt (zero-padded to 4 rows)
+    if (tid < t) {
+      const int i = c0 + SUB + tid;
+      T x[SUB];
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) x[j] = s[i * ld + c0 + j];
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) {
+        x[j] /= s[(c0 + j) * ld + c0 + j];
+#pragma unroll
+        for (int q = j + 1; q < SUB; ++q) x[q] -= x[j] * s[(c0 + q) * ld + c0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) {
+        s[i * ld + c0 + j] = x[j];
+        pt[j * ptld + tid] = x[j];
+      }
+    } else if (tid < (t + 3) / 4 * 4) {
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) pt[j * ptld + tid] = T(0);
+    }
+    __syncthreads();
+    // 3. rank-16 update of the trailing lower triangle, 4 x 4 tiles (I, J)
+    //    with J <= I, enumerated row-major over the tile triangle
+    const int nt = (t + 3) / 4;
+    const int ntiles = nt * (nt + 1) / 2;
+    const int o = c0 + SUB;
+    for (int k = tid; k < ntiles; k += nthr) {
+      int ti = (int)((sqrtf(8.0f * (float)k + 1.0f) - 1.0f) * 0.5f);
+      while (ti * (ti + 1) / 2 > k) --ti;
+      while ((ti + 1) * (ti + 2) / 2 <= k) ++ti;
+      const int tj = k - ti * (ti + 1) / 2;
+      T acc[4][4] = {};
+#pragma unroll
+      for (int p = 0; p < SUB; ++p) {
+        T a[4], b[4];
+        lds4(a, pt + p * ptld + 4 * ti);
+        lds4(b, pt + p * ptld + 4 * tj);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) acc[q][w] += a[q] * b[w];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 4 * ti + q;
+        if (i >= t) continue;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int j = 4 * tj + w;
+          if (j <= i) s[(o + i) * ld + o + j] -= acc[q][w];
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
+// The shared-memory tier: one CTA factors one matrix.
 template <typename T>
-__global__ void __launch_bounds__(NB * NB)
-potrf_diag(T* __restrict__ l, int n, int k, int kb) {
-  __shared__ T s[NB][NB + 1];
-  T* le = l + (size_t)blockIdx.x * n * n;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  s[ty][tx] = (ty < kb && tx < kb) ? le[(size_t)(k + ty) * n + k + tx] : T(0);
+__global__ void __launch_bounds__(SMEM_THREADS)
+chol_smem(const T* __restrict__ a_all, T* __restrict__ l_all, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s = reinterpret_cast<T*>(smem_raw);
+  const int ld = odd_ld(n);
+  T* pt = s + ((size_t)n * ld + 3) / 4 * 4;  // 16-byte aligned
+  const T* a = a_all + (size_t)blockIdx.x * n * n;
+  T* l = l_all + (size_t)blockIdx.x * n * n;
+  for (int idx = threadIdx.x; idx < n * n; idx += SMEM_THREADS) {
+    const int i = idx / n, j = idx % n;
+    if (j <= i) s[i * ld + j] = a[idx];
+  }
   __syncthreads();
-  for (int j = 0; j < kb; ++j) {
-    if (tx == 0 && ty == 0) {
-      const T v = s[j][j];
-      s[j][j] = v > T(0) ? sqrt_(v) : T(NAN);
-    }
-    __syncthreads();
-    if (tx == 0 && ty > j && ty < kb) s[ty][j] = s[ty][j] / s[j][j];
-    __syncthreads();
-    if (ty > j && ty < kb && tx > j && tx <= ty) {
-      s[ty][tx] -= s[ty][j] * s[tx][j];
-    }
-    __syncthreads();
+  factor_smem<T>(s, ld, n, pt, pt_ld(n));
+  for (int idx = threadIdx.x; idx < n * n; idx += SMEM_THREADS) {
+    const int i = idx / n, j = idx % n;
+    l[idx] = j <= i ? s[i * ld + j] : T(0);
   }
-  if (ty < kb && tx <= ty) le[(size_t)(k + ty) * n + k + tx] = s[ty][tx];
 }
 
+__host__ inline size_t smem_tier_bytes(int n, size_t sz) {
+  return (((size_t)n * odd_ld(n) + 3) / 4 * 4 + (size_t)SUB * pt_ld(n)) * sz;
+}
+
+// The blocked tier's panel at column k0: CTA 0 writes the factored diagonal
+// block (and zeros right of it), CTA x >= 1 the strip rows
+// [k0 + 64 x, k0 + 64 x + 64) solved against it. src is A for the first
+// panel and L (updated in place) after.
 template <typename T>
-__global__ void __launch_bounds__(PR)
-trsm_panel(T* __restrict__ l, int n, int k, int kb) {
-  __shared__ T lkk[NB][NB + 1];
-  __shared__ T xs[PR][NB + 1];
-  T* le = l + (size_t)blockIdx.y * n * n;
+__global__ void __launch_bounds__(TILE_THREADS)
+chol_panel(const T* src_all, T* l_all, int n, int k0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T (*s)[LDP] = reinterpret_cast<T (*)[LDP]>(smem_raw);
+  T (*xs)[LDP] = s + P;
+  T* pt = reinterpret_cast<T*>(xs + P);  // SUB x P, 16-byte aligned
+  const T* src = src_all + (size_t)blockIdx.y * n * n;
+  T* l = l_all + (size_t)blockIdx.y * n * n;
   const int tid = threadIdx.x;
-  const int r0 = k + kb + blockIdx.x * PR;
-  for (int idx = tid; idx < NB * NB; idx += PR) {
-    const int a = idx / NB, b = idx % NB;
-    lkk[a][b] = (a < kb && b < kb) ? le[(size_t)(k + a) * n + k + b] : T(0);
-  }
-  for (int idx = tid; idx < PR * NB; idx += PR) {
-    const int rr = idx / NB, c = idx % NB;
-    const int r = r0 + rr;
-    xs[rr][c] = (r < n && c < kb) ? le[(size_t)r * n + k + c] : T(0);
-  }
-  __syncthreads();
-  if (r0 + tid < n) {
-    for (int c = 0; c < kb; ++c) {
-      T v = xs[tid][c];
-      for (int p = 0; p < c; ++p) v -= xs[tid][p] * lkk[c][p];
-      xs[tid][c] = v / lkk[c][c];
+  const int kb = min(P, n - k0);
+  const int r0 = k0 + P * blockIdx.x;  // this CTA's rows (strip if x >= 1)
+  for (int idx = tid; idx < P * P; idx += TILE_THREADS) {
+    const int i = idx / P, j = idx % P;
+    if (i < kb && j <= i) s[i][j] = src[(size_t)(k0 + i) * n + k0 + j];
+    if (blockIdx.x > 0 && r0 + i < n) {
+      xs[i][j] = src[(size_t)(r0 + i) * n + k0 + j];  // kb == P here
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < PR * NB; idx += PR) {
-    const int rr = idx / NB, c = idx % NB;
-    const int r = r0 + rr;
-    if (r < n && c < kb) le[(size_t)r * n + k + c] = xs[rr][c];
+  factor_smem<T>(&s[0][0], LDP, kb, pt, P);
+  if (blockIdx.x == 0) {
+    for (int idx = tid; idx < P * P; idx += TILE_THREADS) {
+      const int i = idx / P, j = idx % P;
+      if (i < kb && j < kb) {
+        l[(size_t)(k0 + i) * n + k0 + j] = j <= i ? s[i][j] : T(0);
+      }
+    }
+    const int right = n - k0 - kb;
+    for (int idx = tid; idx < kb * right; idx += TILE_THREADS) {
+      l[(size_t)(k0 + idx / right) * n + k0 + kb + idx % right] = T(0);
+    }
+    return;
+  }
+  // one row per thread of the first two warps: x = S_i L_kk^-T, column by
+  // column so that each step's updates are independent
+  if (tid < P && r0 + tid < n) {
+    T x[P];
+#pragma unroll
+    for (int c = 0; c < P; ++c) x[c] = xs[tid][c];
+#pragma unroll
+    for (int c = 0; c < P; ++c) {
+      x[c] /= s[c][c];
+#pragma unroll
+      for (int q = c + 1; q < P; ++q) x[q] -= x[c] * s[q][c];
+    }
+#pragma unroll
+    for (int c = 0; c < P; ++c) xs[tid][c] = x[c];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < P * P; idx += TILE_THREADS) {
+    const int i = idx / P, j = idx % P;
+    if (r0 + i < n) l[(size_t)(r0 + i) * n + k0 + j] = xs[i][j];
   }
 }
 
+// The trailing update after the panel at k0: for each 64 x 64 tile of the
+// lower triangle of [k0 + 64, n)^2, L_ij = S_ij - L_i,panel L_j,panel^T
+// (elements above the diagonal untouched). src as for chol_panel; an
+// element is read and written by the same thread, so src may be l.
 template <typename T>
-__global__ void __launch_bounds__(TILE * ROWS)
-syrk_update(T* __restrict__ l, int n, int k, int kb) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (bj > bi) return;  // tile strictly above the diagonal: nothing to update
-  __shared__ T li[TILE][NB + 1];
-  __shared__ T lj[TILE][NB + 1];
-  T* le = l + (size_t)blockIdx.z * n * n;
-  const int t0 = k + kb;
-  const int i0 = t0 + bi * TILE, j0 = t0 + bj * TILE;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TILE + tx;
-  for (int idx = tid; idx < TILE * NB; idx += TILE * ROWS) {
-    const int r = idx / NB, c = idx % NB;
-    li[r][c] = (i0 + r < n && c < kb) ? le[(size_t)(i0 + r) * n + k + c] : T(0);
-    lj[r][c] = (j0 + r < n && c < kb) ? le[(size_t)(j0 + r) * n + k + c] : T(0);
-  }
-  __syncthreads();
-  const int j = j0 + tx;
-  for (int r = ty; r < TILE; r += ROWS) {
-    const int i = i0 + r;
-    if (i < n && j < n && j <= i) {
-      T acc = T(0);
-      for (int p = 0; p < kb; ++p) acc += li[r][p] * lj[tx][p];
-      le[(size_t)i * n + j] -= acc;
+__global__ void __launch_bounds__(TILE_THREADS)
+chol_update(const T* src_all, T* l_all, int n, int k0) {
+  __shared__ TileSmem<T> sm;
+  const int t0 = k0 + P;
+  const int tiles = (n - t0 + TILE - 1) / TILE;
+  const int bi = blockIdx.x / tiles, bj = blockIdx.x % tiles;
+  if (bj > bi) return;
+  const T* src = src_all + (size_t)blockIdx.y * n * n;
+  T* l = l_all + (size_t)blockIdx.y * n * n;
+  const int i0 = t0 + TILE * bi, j0 = t0 + TILE * bj;
+  T acc[4][4] = {};
+  gemm_tile<T, false, true>(acc, sm, l + (size_t)i0 * n + k0, n, n - i0,
+                            l + (size_t)j0 * n + k0, n, n - j0, 0, P);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = i0 + 4 * ty + q;
+    if (i >= n) continue;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const int j = j0 + 4 * tx + w;
+      if (j <= i) {
+        const size_t at = (size_t)i * n + j;
+        l[at] = src[at] - acc[q][w];
+      }
     }
   }
 }
 
 template <typename T>
 int run(const T* a, T* l, int e, int n, cudaStream_t s) {
-  const long long total = (long long)e * n * n;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  copy_lower<T><<<(int)blocks, threads, 0, s>>>(a, l, n, total);
-  for (int k = 0; k < n; k += NB) {
-    const int kb = n - k < NB ? n - k : NB;
-    potrf_diag<T><<<e, dim3(NB, NB), 0, s>>>(l, n, k, kb);
-    const int rest = n - k - kb;
-    if (rest > 0) {
-      trsm_panel<T><<<dim3((rest + PR - 1) / PR, e), PR, 0, s>>>(l, n, k, kb);
-      const int tiles = (rest + TILE - 1) / TILE;
-      syrk_update<T><<<dim3(tiles, tiles, e), dim3(TILE, ROWS), 0, s>>>(
-          l, n, k, kb);
+  if (n <= smem_max_n<T>()) {
+    const size_t bytes = smem_tier_bytes(n, sizeof(T));
+    const cudaError_t err = cudaFuncSetAttribute(
+        chol_smem<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    chol_smem<T><<<e, SMEM_THREADS, bytes, s>>>(a, l, n);
+    return (int)cudaGetLastError();
+  }
+  const size_t pbytes = (2 * P * LDP + SUB * P) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_panel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)pbytes);
+  if (err != cudaSuccess) return (int)err;
+  for (int k0 = 0; k0 < n; k0 += P) {
+    const T* src = k0 == 0 ? a : l;
+    const int kb = n - k0 < P ? n - k0 : P;
+    const int strips = (n - k0 - kb + P - 1) / P;
+    chol_panel<T><<<dim3(1 + strips, e), TILE_THREADS, pbytes, s>>>(src, l, n,
+                                                                    k0);
+    if (strips > 0) {
+      chol_update<T><<<dim3(strips * strips, e), TILE_THREADS, 0, s>>>(
+          src, l, n, k0);
     }
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // namespace

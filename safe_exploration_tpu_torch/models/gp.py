@@ -5,7 +5,7 @@ buffer with a validity mask. Masked rows/cols of the Gram matrix are the
 identity (the masked-identity trick of the JAX package), so the Cholesky is
 defined for any mask and beta = K^-1 (m * y) is exactly zero on padding.
 
-The refit (Gram -> Cholesky -> beta and K^-1) runs through the hand-written
+The refit (Gram -> Cholesky -> beta and L^-1) runs through the hand-written
 CUDA kernels of :mod:`safe_exploration_tpu_torch.ops.kernels` on a CUDA
 device and through their plain PyTorch versions on the CPU: the Cholesky is
 ``cholesky_blocked`` up to its ``MAX_N`` (1024) and ``cholesky_hbm`` above,
@@ -31,7 +31,8 @@ from safe_exploration_tpu_torch.ops.kernels import (
     cholesky_blocked,
     cholesky_hbm,
     rbf_gram_masked,
-    trsm_lower,
+    solve_psd,
+    tri_inv_lower,
 )
 from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
 
@@ -86,17 +87,16 @@ def _masked_gram(kern_type: str, params: dict, x: torch.Tensor,
 
 def _kinv_from_chol(l: torch.Tensor) -> torch.Tensor:
     """Explicit K^-1 = L^-T L^-1 from the lower factor(s) (..., n, n)."""
-    n = l.shape[-1]
-    eye = torch.eye(n, dtype=l.dtype, device=l.device).expand(l.shape)
-    linv = trsm_lower(l, eye.contiguous())
+    linv = tri_inv_lower(l)
     return linv.transpose(-1, -2) @ linv
 
 
 def gp_refit(gp: GP) -> GP:
     """Recompute the posterior factors (chol, beta, kinv) for the current data
     and hyperparameters: one batched Gram, one batched Cholesky (the blocked
-    kernel up to n_max 1024, the left-looking one above) and three batched
-    triangular solves over all output dims."""
+    kernel up to n_max 1024, the left-looking one above), one PSD solve for
+    beta and one triangular inverse for K^-1, each batched over all output
+    dims."""
     if gp.precision == "ff":
         raise NotImplementedError(
             "precision='ff' (float-float refits) is not ported: on the H100 it "
@@ -113,8 +113,7 @@ def gp_refit(gp: GP) -> GP:
     k = rbf_gram_masked(gp.x, gp.mask, log_ls, log_sf, noise_var)
     l = cholesky_blocked(k) if gp.n_max <= MAX_N else cholesky_hbm(k)
     ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()  # (e, n, 1)
-    z = trsm_lower(l, ym)
-    beta = trsm_lower(l, z, transpose=True).squeeze(-1)
+    beta = solve_psd(l, ym).squeeze(-1)
     return gp.replace(chol=l, beta=beta, kinv=_kinv_from_chol(l))
 
 

@@ -3,7 +3,8 @@
   gram.py        masked identity-padded RBF Gram   (csrc/gram.cu)
   cholesky.py    blocked lower Cholesky            (csrc/cholesky.cu)
   cholesky_hbm.py  left-looking Cholesky, n > 1024 (csrc/cholesky_hbm.cu)
-  trsm.py        blocked triangular solves, PSD solve (csrc/trsm.cu)
+  trsm.py        triangular solves, PSD solve, triangular inverse
+                 (csrc/trsm.cu)
   gp_predict.py  fused lane GP posterior (+ mean Jacobian) (csrc/gp_predict.cu)
   cem_score.py   whole-tube constrained-CEM score  (csrc/cem_score.cu)
 
@@ -36,16 +37,21 @@ from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
 from safe_exploration_tpu_torch.ops.kernels.gram import gram_plain, rbf_gram_masked
 from safe_exploration_tpu_torch.ops.kernels.trsm import (
     solve_psd,
+    solve_psd_plain,
+    tri_inv_lower,
+    tri_inv_plain,
     trsm_lower,
     trsm_plain,
 )
 
-KERNEL_WRAPPERS = (rbf_gram_masked, cholesky_blocked, trsm_lower,
-                   gp_predict_lanes, tube_score_lanes, cholesky_hbm)
+KERNEL_WRAPPERS = (rbf_gram_masked, cholesky_blocked, trsm_lower, solve_psd,
+                   tri_inv_lower, gp_predict_lanes, tube_score_lanes,
+                   cholesky_hbm)
 
 __all__ = [
     "KERNEL_WRAPPERS", "cem_score_supported", "cholesky_blocked",
     "cholesky_hbm", "cholesky_hbm_plain", "cholesky_plain", "gp_pallas_supported", "gp_predict_lanes",
     "gp_predict_plain", "gram_plain", "rbf_gram_masked", "solve_psd",
-    "trsm_lower", "trsm_plain", "tube_score_lanes", "tube_score_plain",
+    "solve_psd_plain", "tri_inv_lower", "tri_inv_plain", "trsm_lower",
+    "trsm_plain", "tube_score_lanes", "tube_score_plain",
 ]

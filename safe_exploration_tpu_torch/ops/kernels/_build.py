@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -89,7 +90,11 @@ def build(names=SOURCES) -> dict[str, Path]:
 
 def load(name: str, entry: str, argtypes: tuple):
     """The C entry point ``entry`` of ``lib<name>``, built and loaded on the
-    first call; it returns the ``cudaGetLastError()`` code as an int."""
+    first call and kept; it returns the ``cudaGetLastError()`` code as an
+    int."""
+    fn = _FNS.get((name, entry))
+    if fn is not None:
+        return fn
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -98,4 +103,5 @@ def load(name: str, entry: str, argtypes: tuple):
     fn = getattr(lib, entry)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
+    _FNS[(name, entry)] = fn
     return fn

@@ -6,8 +6,9 @@ the JAX package, so on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: f64 at 1e-10 relative; f32 gram at 1e-5; f32 cholesky and trsm
-within 2e-4 of the f64 plain result (the gate tests/test_pallas.py uses for
+Tolerances: f64 at 1e-10 relative; f32 gram at 1e-5; f32 cholesky and
+trsm's three entries (trsm_lower, solve_psd, tri_inv_lower) within 2e-4 of
+the f64 plain result (the gate tests/test_pallas.py uses for
 the f32 Pallas Cholesky); f32 gp_predict at 3e-5 of the f32 plain result
 (the gate of tests/test_pallas_gp_predict.py); f32 cem_score within 2e-4
 of the f64 plain result (the gate of tests/test_pallas_cem_score.py);
@@ -36,6 +37,9 @@ from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     gram_plain,
     rbf_gram_masked,
     solve_psd,
+    solve_psd_plain,
+    tri_inv_lower,
+    tri_inv_plain,
     trsm_lower,
     trsm_plain,
     tube_score_lanes,
@@ -110,6 +114,17 @@ def test_cuda_wrappers_count_launches_and_reject_bad_input():
         trsm_lower(torch.eye(8, device="cuda"), torch.ones(9, 2, device="cuda"))
     with pytest.raises(ValueError):
         cholesky_blocked(torch.eye(8, device="cuda")[:, ::2])
+    eye = torch.eye(8, device="cuda").expand(2, 8, 8).contiguous()
+    for fn in (solve_psd, tri_inv_lower):
+        before = fn.launches
+        fn(eye, eye[..., :1].contiguous()) if fn is solve_psd else fn(eye)
+        assert fn.launches == before + 1
+    with pytest.raises(ValueError):
+        solve_psd(eye, torch.ones(2, 9, 1, device="cuda"))
+    with pytest.raises(ValueError):
+        tri_inv_lower(torch.ones(2, 8, 9, device="cuda"))
+    with pytest.raises(TypeError):
+        tri_inv_lower(eye.half())
 
 
 def _ssm_arrays(n, seed=0):
@@ -273,3 +288,87 @@ def test_cuda_gp_refit_n2048_matches_cpu():
         assert _rel(getattr(g, f), getattr(c, f)) < 1e-9, f
     eye = torch.eye(2048 - 1400, dtype=torch.float64)
     assert torch.equal(g.chol[:, 1400:, 1400:].cpu(), eye.expand(2, -1, -1))
+
+
+def _chol64(n, seed=0, pad=0):
+    """(E, n, n) f64 lower factors of the test matrices on the card; the last
+    ``pad`` rows and columns identity, as the refit's masked padding."""
+    a = _spd(n, seed)
+    if pad:
+        a[:, n - pad:, :] = 0.0
+        a[:, :, n - pad:] = 0.0
+        a[:, n - pad:, n - pad:] = torch.eye(pad, dtype=torch.float64)
+    return cholesky_plain(a.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 31, 33, 128, 200, 512, 2048])
+def test_cuda_trsm_entries_match_plain(n, dtype):
+    """trsm_lower at m = 1 (the vector kernel), 7 and n, both transposes;
+    solve_psd at m = 1 (one launch) and 7; tri_inv_lower zero above the
+    diagonal; each against its plain version in f64 on the card."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-10 if dt == torch.float64 else 2e-4
+    l64 = _chol64(n)
+    lt = l64.to(dt)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    for m in sorted({1, 7, n}):
+        b = torch.randn((E, n, m), dtype=torch.float64, device="cuda",
+                        generator=g)
+        for transpose in (False, True):
+            x = trsm_lower(lt, b.to(dt), transpose)
+            assert _rel(x, trsm_plain(l64, b, transpose)) < tol, (m, transpose)
+        if m < n or m == 1:
+            x = solve_psd(lt, b.to(dt))
+            assert _rel(x, solve_psd_plain(l64, b)) < tol, m
+    linv = tri_inv_lower(lt)
+    assert _rel(linv, tri_inv_plain(l64)) < tol
+    assert torch.equal(torch.triu(linv, 1), torch.zeros_like(linv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pad", [(200, 57), (2048, 648)])
+def test_cuda_tri_inv_identity_on_padded_rows(n, pad):
+    """Identity-padded rows and columns of L stay exactly identity in L^-1
+    (f32 and f64), as the refit's masked padding needs."""
+    _need_cuda()
+    l64 = _chol64(n, pad=pad)
+    eye = torch.eye(pad, dtype=torch.float64, device="cuda").expand(E, -1, -1)
+    for dt in (torch.float32, torch.float64):
+        linv = tri_inv_lower(l64.to(dt)).double()
+        assert torch.equal(linv[:, n - pad:, n - pad:], eye)
+        assert not linv[:, n - pad:, :n - pad].any()
+        assert not linv[:, :n - pad, n - pad:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 17, 128, 160, 224, 225, 512, 1024])
+def test_cuda_cholesky_tiers_match_plain(n, dtype):
+    """Both tiers of cholesky_blocked (shared memory up to n = 224 in f32,
+    160 in f64; blocked above) and the tier edges, against the plain
+    column loop in f64; zeros above the diagonal; one launch counted."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    a = _spd(n, seed=3).cuda()
+    before = cholesky_blocked.launches
+    l = cholesky_blocked(a.to(dt))
+    assert cholesky_blocked.launches == before + 1
+    assert _rel(l, cholesky_plain(a)) < (1e-10 if dt == torch.float64 else 2e-4)
+    assert torch.equal(torch.triu(l, 1), torch.zeros_like(l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,at", [("float32", 200, 150),
+                                        ("float64", 150, 100),
+                                        ("float32", 512, 300),
+                                        ("float64", 512, 70)])
+def test_cuda_cholesky_nan_from_bad_pivot_in_each_tier(dtype, n, at):
+    _need_cuda()
+    a = _spd(n, seed=4)
+    a[:, at, at] = -1.0
+    l = cholesky_blocked(a.to(getattr(torch, dtype)).cuda()).cpu()
+    assert torch.isfinite(l[:, :at, :at]).all()
+    assert torch.isnan(l[:, at:, at]).all() and torch.isnan(l[:, -1, -1]).all()

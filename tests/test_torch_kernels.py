@@ -30,6 +30,7 @@ from safe_exploration_tpu.models.gp import _masked_gram  # noqa: E402
 from safe_exploration_tpu.ops.pallas import (  # noqa: E402
     cholesky_blocked as pallas_cholesky,
     rbf_gram_masked as pallas_gram,
+    solve_psd_blocked as pallas_solve_psd,
     trsm_lower_blocked as pallas_trsm,
 )
 from safe_exploration_tpu.ops.pallas.cholesky_hbm import (  # noqa: E402
@@ -44,6 +45,9 @@ from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     gram_plain,
     rbf_gram_masked,
     solve_psd,
+    solve_psd_plain,
+    tri_inv_lower,
+    tri_inv_plain,
     trsm_lower,
     trsm_plain,
 )
@@ -166,6 +170,43 @@ def test_solve_psd_matches_jax():
         assert _rel(x[d], np.linalg.solve(a[d], b[d])) < 1e-9
 
 
+@pytest.mark.parametrize("n", [64, 130])
+def test_tri_inv_plain_matches_jax_and_pallas(n):
+    """L^-1 (the refit's K^-1 factor) against solve_triangular(L, I) and the
+    Pallas trsm in interpret mode at 1e-12 in f64, f32 within 2e-4 of f64;
+    exactly zero above the diagonal."""
+    l = np.asarray(jnp.linalg.cholesky(jnp.asarray(_spd(n))))
+    x = tri_inv_plain(_t(l)).numpy()
+    eye = np.eye(n)
+    for d in range(E):
+        ref = jax.scipy.linalg.solve_triangular(l[d], eye, lower=True)
+        assert _rel(x[d], ref) < 1e-12
+        pal = pallas_trsm(jnp.asarray(l[d]), jnp.asarray(eye), interpret=True)
+        assert _rel(x[d], pal) < 1e-12
+    np.testing.assert_array_equal(np.triu(x, 1), 0.0)
+    x32 = tri_inv_plain(_t(l, torch.float32)).numpy()
+    assert _rel(x32, x) < 2e-4
+
+
+@pytest.mark.parametrize("n", [64, 130])
+def test_solve_psd_plain_matches_jax_and_pallas(n):
+    """(L L^T) x = b for the refit's m = 1 against two solve_triangular calls
+    and the Pallas solve_psd in interpret mode at 1e-12 in f64, f32 within
+    2e-4 of f64."""
+    l = np.asarray(jnp.linalg.cholesky(jnp.asarray(_spd(n))))
+    b = np.random.default_rng(5).standard_normal((E, n, 1))
+    x = solve_psd_plain(_t(l), _t(b)).numpy()
+    for d in range(E):
+        z = jax.scipy.linalg.solve_triangular(l[d], b[d], lower=True)
+        ref = jax.scipy.linalg.solve_triangular(l[d].T, z, lower=False)
+        assert _rel(x[d], ref) < 1e-12
+        pal = pallas_solve_psd(jnp.asarray(l[d]), jnp.asarray(b[d]),
+                               interpret=True)
+        assert _rel(x[d], pal) < 1e-12
+    x32 = solve_psd_plain(_t(l, torch.float32), _t(b, torch.float32)).numpy()
+    assert _rel(x32, x) < 2e-4
+
+
 @pytest.mark.parametrize("n,dtype", [(640, "float32"), (384, "float64")])
 def test_cholesky_hbm_plain_matches_pallas_interpret(n, dtype):
     """test_pallas's HBM-tier cases: f32 within 3e-4 of the f64 factor, f64
@@ -202,7 +243,8 @@ def test_cholesky_hbm_plain_ragged_lower_only_and_nan():
 def test_wrappers_take_plain_versions_on_cpu():
     """On CPU tensors the wrappers are the plain versions and count no
     kernel launch."""
-    wrappers = (rbf_gram_masked, cholesky_blocked, trsm_lower, cholesky_hbm)
+    wrappers = (rbf_gram_masked, cholesky_blocked, trsm_lower, solve_psd,
+                tri_inv_lower, cholesky_hbm)
     before = [w.launches for w in wrappers]
     args = [_t(a) for a in _gram_inputs(40)]
     k = rbf_gram_masked(*args)
@@ -214,6 +256,10 @@ def test_wrappers_take_plain_versions_on_cpu():
     b = torch.ones((E, 40, 2), dtype=torch.float64)
     torch.testing.assert_close(trsm_lower(l, b, True), trsm_plain(l, b, True),
                                rtol=0, atol=0)
+    torch.testing.assert_close(solve_psd(l, b), solve_psd_plain(l, b), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(tri_inv_lower(l), tri_inv_plain(l), rtol=0,
+                               atol=0)
     assert [w.launches for w in wrappers] == before
 
 

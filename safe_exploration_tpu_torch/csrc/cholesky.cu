@@ -61,10 +61,11 @@ __host__ __device__ inline int odd_ld(int n) { return n + 1 + (n & 1); }
 __host__ __device__ inline int pt_ld(int n) { return (n + 3) / 4 * 4; }
 
 // Factors the lower triangle of s (nn x nn, row stride ld, shared memory)
-// in place into L (the upper triangle is neither read nor written); pt is a
-// 16 x ptld shared scratch. Needs blockDim.x >= max(32, nn - 16).
+// in place into L (the upper triangle is neither read nor written) and
+// writes the reciprocal of L's diagonal into rd (nn); pt is a 16 x ptld
+// shared scratch. Needs blockDim.x >= max(32, nn - 16).
 template <typename T>
-__device__ void factor_smem(T* s, int ld, int nn, T* pt, int ptld) {
+__device__ void factor_smem(T* s, int ld, int nn, T* pt, int ptld, T* rd) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   for (int c0 = 0; c0 < nn; c0 += SUB) {
     const int kb = min(SUB, nn - c0);
@@ -82,10 +83,12 @@ __device__ void factor_smem(T* s, int ld, int nn, T* pt, int ptld) {
       for (int k = 0; k < SUB; ++k) {
         const T v = __shfl_sync(FULL, row[k], k);
         const T d = v > T(0) ? sqrt_(v) : T(NAN);
+        const T inv = T(1) / d;
         if (r == k) {
           row[k] = d;
+          if (k < kb) rd[c0 + k] = inv;
         } else if (r > k) {
-          row[k] /= d;
+          row[k] *= inv;
         }
 #pragma unroll
         for (int j = k + 1; j < SUB; ++j) {
@@ -104,7 +107,8 @@ __device__ void factor_smem(T* s, int ld, int nn, T* pt, int ptld) {
     const int t = nn - c0 - kb;  // rows below the sub-block (kb == SUB if t)
     if (t <= 0) break;
     // 2. one thread per row below: L[i, c0:c0+16] = S[i, c0:c0+16] L_sub^-T,
-    //    also into the transposed panel copy pt (zero-padded to 4 rows)
+    //    also into the transposed panel copy pt (zero-padded to 4 rows); the
+    //    reciprocals keep divisions off the row's chain
     if (tid < t) {
       const int i = c0 + SUB + tid;
       T x[SUB];
@@ -112,7 +116,7 @@ __device__ void factor_smem(T* s, int ld, int nn, T* pt, int ptld) {
       for (int j = 0; j < SUB; ++j) x[j] = s[i * ld + c0 + j];
 #pragma unroll
       for (int j = 0; j < SUB; ++j) {
-        x[j] /= s[(c0 + j) * ld + c0 + j];
+        x[j] *= rd[c0 + j];
 #pragma unroll
         for (int q = j + 1; q < SUB; ++q) x[q] -= x[j] * s[(c0 + q) * ld + c0 + j];
       }
@@ -171,6 +175,7 @@ chol_smem(const T* __restrict__ a_all, T* __restrict__ l_all, int n) {
   T* s = reinterpret_cast<T*>(smem_raw);
   const int ld = odd_ld(n);
   T* pt = s + ((size_t)n * ld + 3) / 4 * 4;  // 16-byte aligned
+  T* rd = pt + SUB * pt_ld(n);
   const T* a = a_all + (size_t)blockIdx.x * n * n;
   T* l = l_all + (size_t)blockIdx.x * n * n;
   for (int idx = threadIdx.x; idx < n * n; idx += SMEM_THREADS) {
@@ -178,7 +183,7 @@ chol_smem(const T* __restrict__ a_all, T* __restrict__ l_all, int n) {
     if (j <= i) s[i * ld + j] = a[idx];
   }
   __syncthreads();
-  factor_smem<T>(s, ld, n, pt, pt_ld(n));
+  factor_smem<T>(s, ld, n, pt, pt_ld(n), rd);
   for (int idx = threadIdx.x; idx < n * n; idx += SMEM_THREADS) {
     const int i = idx / n, j = idx % n;
     l[idx] = j <= i ? s[i * ld + j] : T(0);
@@ -186,7 +191,8 @@ chol_smem(const T* __restrict__ a_all, T* __restrict__ l_all, int n) {
 }
 
 __host__ inline size_t smem_tier_bytes(int n, size_t sz) {
-  return (((size_t)n * odd_ld(n) + 3) / 4 * 4 + (size_t)SUB * pt_ld(n)) * sz;
+  return (((size_t)n * odd_ld(n) + 3) / 4 * 4 + (size_t)SUB * pt_ld(n) + n) *
+         sz;
 }
 
 // The blocked tier's panel at column k0: CTA 0 writes the factored diagonal
@@ -200,6 +206,7 @@ chol_panel(const T* src_all, T* l_all, int n, int k0) {
   T (*s)[LDP] = reinterpret_cast<T (*)[LDP]>(smem_raw);
   T (*xs)[LDP] = s + P;
   T* pt = reinterpret_cast<T*>(xs + P);  // SUB x P, 16-byte aligned
+  T* rd = pt + SUB * P;                  // P reciprocals of the diagonal
   const T* src = src_all + (size_t)blockIdx.y * n * n;
   T* l = l_all + (size_t)blockIdx.y * n * n;
   const int tid = threadIdx.x;
@@ -213,7 +220,7 @@ chol_panel(const T* src_all, T* l_all, int n, int k0) {
     }
   }
   __syncthreads();
-  factor_smem<T>(&s[0][0], LDP, kb, pt, P);
+  factor_smem<T>(&s[0][0], LDP, kb, pt, P, rd);
   if (blockIdx.x == 0) {
     for (int idx = tid; idx < P * P; idx += TILE_THREADS) {
       const int i = idx / P, j = idx % P;
@@ -235,7 +242,7 @@ chol_panel(const T* src_all, T* l_all, int n, int k0) {
     for (int c = 0; c < P; ++c) x[c] = xs[tid][c];
 #pragma unroll
     for (int c = 0; c < P; ++c) {
-      x[c] /= s[c][c];
+      x[c] *= rd[c];
 #pragma unroll
       for (int q = c + 1; q < P; ++q) x[q] -= x[c] * s[q][c];
     }
@@ -294,7 +301,7 @@ int run(const T* a, T* l, int e, int n, cudaStream_t s) {
     chol_smem<T><<<e, SMEM_THREADS, bytes, s>>>(a, l, n);
     return (int)cudaGetLastError();
   }
-  const size_t pbytes = (2 * P * LDP + SUB * P) * sizeof(T);
+  const size_t pbytes = (2 * P * LDP + SUB * P + P) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
       chol_panel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)pbytes);

@@ -54,14 +54,16 @@ constexpr int LDB = NB + 1;   // padded stride of square blocks in shared memory
 constexpr int INV_THREADS = 128;
 constexpr int VEC_MAX_N = 4096;  // the vector kernel's shared memory limit
 constexpr int PARTS = 16;        // partial sums per output of the vector solve
+constexpr int PRE = 4;           // owned blocks whose updates load a step ahead
 
 // Inverts the 64 x 64 lower diagonal blocks of L (a ragged last block is
 // padded with the identity). Block k of matrix m goes to
 // dst + m * dst_mat + k * dst_blk with row stride dst_ld: the whole padded
 // block with full_out, else its valid part (upper triangle zero).
 // Warps 0 and 1 invert the two 32 x 32 diagonal sub-blocks by substitution,
-// a column per lane in registers (no barrier); then the block below them is
-// -inv(C) (B inv(A)).
+// a column per lane in registers (no barrier; the diagonal's reciprocals
+// are taken first, so no division is on the chain); then the block below
+// them is -inv(C) (B inv(A)), 8 outputs per thread.
 template <typename T>
 __global__ void __launch_bounds__(INV_THREADS)
 inv_diag(const T* __restrict__ l_all, T* __restrict__ dst_all, int n,
@@ -69,6 +71,7 @@ inv_diag(const T* __restrict__ l_all, T* __restrict__ dst_all, int n,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T (*ls)[LDB] = reinterpret_cast<T (*)[LDB]>(smem_raw);
   T (*xs)[LDB] = ls + NB;
+  T* rd = &xs[NB][0];  // NB reciprocals of the diagonal
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * NB;
   const int bs = min(NB, n - b0);
@@ -80,6 +83,8 @@ inv_diag(const T* __restrict__ l_all, T* __restrict__ dst_all, int n,
     if (i < bs && j < bs) v = j <= i ? l[(size_t)(b0 + i) * n + b0 + j] : T(0);
     ls[i][j] = v;
   }
+  // the diagonal's reciprocals, off the substitution's dependent chain
+  if (tid < NB) rd[tid] = T(1) / ls[tid][tid];
   __syncthreads();
   const int warp = tid / 32, lane = tid % 32;
   if (warp < 2) {
@@ -94,26 +99,38 @@ inv_diag(const T* __restrict__ l_all, T* __restrict__ dst_all, int n,
         s1 -= ls[o + r][o + k + 1] * x[k + 1];
       }
       if (r & 1) s0 -= ls[o + r][o + r - 1] * x[r - 1];
-      x[r] = r < lane ? T(0) : (s0 + s1) / ls[o + r][o + r];
+      x[r] = r < lane ? T(0) : (s0 + s1) * rd[o + r];
     }
 #pragma unroll
     for (int r = 0; r < 32; ++r) xs[o + r][o + lane] = x[r];
   }
   __syncthreads();
-  // B inv(A) into the free upper-right quarter of ls
-  for (int idx = tid; idx < 32 * 32; idx += INV_THREADS) {
-    const int i = idx / 32, j = idx % 32;
-    T s = T(0);
-    for (int k = j; k < 32; ++k) s += ls[32 + i][k] * xs[k][j];
-    ls[i][32 + j] = s;
+  // B inv(A) into the free upper-right quarter of ls, then -inv(C) of it:
+  // thread (row i, columns jq + 4 w); the inverses are zero above their
+  // diagonals, so the sums run over all 32 terms
+  const int i = tid / 4, jq = tid % 4;
+  T acc[8] = {};
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const T b = ls[32 + i][k];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) acc[w] += b * xs[k][jq + 4 * w];
   }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) ls[i][32 + jq + 4 * w] = acc[w];
   __syncthreads();
-  for (int idx = tid; idx < 32 * 32; idx += INV_THREADS) {
-    const int i = idx / 32, j = idx % 32;
-    T s = T(0);
-    for (int k = 0; k <= i; ++k) s += xs[32 + i][32 + k] * ls[k][32 + j];
-    xs[32 + i][j] = -s;
-    xs[i][32 + j] = T(0);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) acc[w] = T(0);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    const T c = xs[32 + i][32 + k];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) acc[w] += c * ls[k][32 + jq + 4 * w];
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) {
+    xs[32 + i][jq + 4 * w] = -acc[w];
+    xs[i][32 + jq + 4 * w] = T(0);
   }
   __syncthreads();
   const int lim = full_out ? NB : bs;
@@ -427,38 +444,69 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
     };
 
     // the contribution of the finished block cur to the partial sums of
-    // every owned block at least two steps after it
-    auto stream = [&](int cur) {
-      const T* xc = xs + cur * NB;
-      for (int slot = 0; slot < own; ++slot) {
-        const int blk = slot * G + rank;
-        if (blk >= nb || (tr ? blk > cur - 2 : blk < cur + 2)) continue;
-        T* pb = part + (size_t)slot * NB * PARTS;
-        if (!tr) {
-          // rows of blk, columns of cur (cur < blk: a full block)
-          const int k = tid % PARTS;
+    // every owned block at least two steps after it. The L values of the
+    // first PRE owned blocks are loaded one step ahead (load_stream), so
+    // their latency passes while the CTA waits at the cluster barrier.
+    auto eligible = [&](int slot, int cur) {
+      const int blk = slot * G + rank;
+      return slot < own && blk < nb && (tr ? blk <= cur - 2 : blk >= cur + 2);
+    };
+    // forward: element v of a thread is L[blk rows tid/16 + 16 (v/4),
+    // cur columns tid%16 + 16 (v%4)]; transposed: L[cur rows
+    // 16 (tid/64) + v, blk column tid%64]
+    auto l_at = [&](int blk, int cur, int v) -> const T* {
+      const int row = tr ? cur * NB + 16 * (tid / NB) + v
+                         : blk * NB + tid / PARTS + 16 * (v / 4);
+      const int col = tr ? blk * NB + tid % NB
+                         : cur * NB + tid % PARTS + 16 * (v % 4);
+      return row < n ? l + (size_t)row * n + col : nullptr;
+    };
+    T pre[PRE][16];
+    auto load_stream = [&](int cur) {
 #pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const int o = tid / PARTS + 16 * p;
-            const int row = blk * NB + o;
-            if (row >= n) continue;
-            const T* lr = l + (size_t)row * n + cur * NB;
-            T s = T(0);
+      for (int u = 0; u < PRE; ++u) {
+        const bool ok = eligible(u, cur);
 #pragma unroll
-            for (int t = 0; t < 4; ++t) s += lr[k + 16 * t] * xc[k + 16 * t];
-            pb[o * PARTS + k] += s;
-          }
-        } else {
-          // rows of cur (maybe ragged), columns of blk (a full block)
-          const int c = tid % NB, g4 = tid / NB;
-          T s = T(0);
-#pragma unroll
-          for (int t = 0; t < 16; ++t) {
-            const int row = cur * NB + 16 * g4 + t;
-            if (row < n) s += l[(size_t)row * n + blk * NB + c] * xc[16 * g4 + t];
-          }
-          pb[c * PARTS + g4] += s;
+        for (int v = 0; v < 16; ++v) {
+          const T* at = ok ? l_at(u * G + rank, cur, v) : nullptr;
+          pre[u][v] = at ? *at : T(0);
         }
+      }
+    };
+    auto add = [&](int slot, int cur, const T (&lv)[16]) {
+      const T* xc = xs + cur * NB;
+      T* pb = part + (size_t)slot * NB * PARTS;
+      if (!tr) {
+        const int k = tid % PARTS;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          T sum = T(0);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) sum += lv[4 * p + t] * xc[k + 16 * t];
+          pb[(tid / PARTS + 16 * p) * PARTS + k] += sum;
+        }
+      } else {
+        const int c = tid % NB, g4 = tid / NB;
+        T sum = T(0);
+#pragma unroll
+        for (int t = 0; t < 16; ++t) sum += lv[t] * xc[16 * g4 + t];
+        pb[c * PARTS + g4] += sum;
+      }
+    };
+    auto stream = [&](int cur) {
+#pragma unroll
+      for (int u = 0; u < PRE; ++u) {
+        if (eligible(u, cur)) add(u, cur, pre[u]);
+      }
+      for (int slot = PRE; slot < own; ++slot) {  // n > 4 G 64 only
+        if (!eligible(slot, cur)) continue;
+        T lv[16];
+#pragma unroll
+        for (int v = 0; v < 16; ++v) {
+          const T* at = l_at(slot * G + rank, cur, v);
+          lv[v] = at ? *at : T(0);
+        }
+        add(slot, cur, lv);
       }
     };
 
@@ -471,6 +519,7 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
     __syncthreads();
     cluster_arrive();
     if (nb > 1 && owner(seq(1)) == rank) prefetch(seq(1), seq(0));
+    if (nb > 1) load_stream(seq(0));
     for (int s = 0; s + 1 < nb; ++s) {
       cluster_wait();
       const int cur = seq(s), nxt = seq(s + 1);
@@ -483,6 +532,7 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
       cluster_arrive();
       if (s + 2 < nb && owner(seq(s + 2)) == rank) prefetch(seq(s + 2), nxt);
       stream(cur);
+      if (s + 2 < nb) load_stream(nxt);
     }
     cluster_wait();
   }
@@ -500,7 +550,7 @@ template <typename T>
 int launch_inv_diag(const T* l, T* dst, int e, int n, long long dst_mat,
                     long long dst_blk, int dst_ld, int full_out,
                     cudaStream_t s) {
-  const size_t smem = 2 * NB * LDB * sizeof(T);
+  const size_t smem = (2 * NB * LDB + NB) * sizeof(T);
   const int err = set_smem((const void*)inv_diag<T>, smem);
   if (err) return err;
   inv_diag<T><<<dim3((n + NB - 1) / NB, e), INV_THREADS, smem, s>>>(

@@ -51,7 +51,7 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               wrapper's limit), cholesky_ex and the plain version at 1024 and
               2048, and cholesky_hbm's device time per kernel (profiler)
   9. episode  the episodic CLI's run_experiment on the card: (a)
-              pendulum_episode (3 of its 6 episodes), (b) the same with
+              pendulum_episode (2 of its 6 episodes), (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
               launch counts zeroed just before each run and read just after;
               per-episode series and fit / calibration / refit times, and the
@@ -267,7 +267,7 @@ def _refit_kernel_times(rng) -> dict:
     """CUDA-event ms per call of the refit's kernels at n = 128 (the SQP
     path), 512 (episodic run (a)) and 2048 (run (b)), e = 2, f32 and f64,
     each beside its torch.linalg call, its device ms per CUDA kernel
-    (profiler) and its bound at the least work: beta 2 n^2 flops and L,
+    (profiler, f32 only) and its bound at the least work: beta 2 n^2 flops and L,
     y and beta moved once; K^-1's solve n^3 / 3 flops (L^-1 is triangular)
     and 2 n^2 words; the Cholesky n^3 / 3 flops and 2 n^2 words (the
     blocked kernel at 128 and 512; cholesky_hbm keeps 2048). Plain versions
@@ -325,7 +325,9 @@ def _refit_kernel_times(rng) -> dict:
                                     E * n * n * (2 * D_IN + 7), dt))
             res = {}
             for name, c in t.items():
-                dev_ms, by_kernel = _device_ms(c["fn"])
+                # the profiler's sessions cost seconds: f32 (the paths' type)
+                dev_ms, by_kernel = (_device_ms(c["fn"]) if dt == torch.float32
+                                     else (None, {}))
                 r = {"ms": _time_ms(c["fn"], reps),
                      "library_ms": (None if c["library"] is None
                                     else _time_ms(c["library"], reps)),
@@ -337,10 +339,10 @@ def _refit_kernel_times(rng) -> dict:
                        else f"{r['library_ms']:.4f}")
                 plain = ("" if r["plain_ms"] is None
                          else f", plain {r['plain_ms']:.4f} ms")
+                dev = ("" if dev_ms is None else f" (device {dev_ms:.4f}: "
+                       f"{ {k2: round(v, 4) for k2, v in by_kernel.items()} })")
                 print(f"[kernels] time {str(dt)[6:]} n={n} {name}: kernel "
-                      f"{r['ms']:.4f} ms (device {dev_ms:.4f}: "
-                      f"{ {k2: round(v, 4) for k2, v in by_kernel.items()} })"
-                      f", library {lib} ms{plain}, bound "
+                      f"{r['ms']:.4f} ms{dev}, library {lib} ms{plain}, bound "
                       f"{r['bound_ms']:.6f} ms ({r['bound_by']})", flush=True)
             out[f"{str(dt)[6:]}_n{n}"] = res
             if path:
@@ -1245,15 +1247,15 @@ def _episode_cfg(name: str, sets: list[str]):
     return _apply_overrides(CONFIGS[name], sets)
 
 
-# (a) runs 3 of the registered 6 episodes to keep the script near 5 min;
+# (a) runs 2 of the registered 6 episodes to keep the script near 5 min;
 # (b) runs its whole schedule
-RUN_A = ["n_ep=3"]
+RUN_A = ["n_ep=2"]
 RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60"]
 
 
 def phase_episode(seed: int) -> dict:
     """run_experiment on the card, f32: (a) pendulum_episode as registered
-    but for 3 of its 6 episodes (n_max 512: every refit on
+    but for 2 of its 6 episodes (n_max 512: every refit on
     cholesky_blocked), (b) the same at BASELINE
     config 4's data scale on the exact GP (n_max 2048, 1,024 initial
     points, 60 hyperparameter steps: every refit on cholesky_hbm). Counts

@@ -54,7 +54,6 @@ constexpr int LDB = NB + 1;   // padded stride of square blocks in shared memory
 constexpr int INV_THREADS = 128;
 constexpr int VEC_MAX_N = 4096;  // the vector kernel's shared memory limit
 constexpr int PARTS = 16;        // partial sums per output of the vector solve
-constexpr int PRE = 4;           // owned blocks whose updates load a step ahead
 
 // Inverts the 64 x 64 lower diagonal blocks of L (a ragged last block is
 // padded with the identity). Block k of matrix m goes to
@@ -83,6 +82,7 @@ inv_diag(const T* __restrict__ l_all, T* __restrict__ dst_all, int n,
     if (i < bs && j < bs) v = j <= i ? l[(size_t)(b0 + i) * n + b0 + j] : T(0);
     ls[i][j] = v;
   }
+  __syncthreads();
   // the diagonal's reciprocals, off the substitution's dependent chain
   if (tid < NB) rd[tid] = T(1) / ls[tid][tid];
   __syncthreads();
@@ -444,69 +444,38 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
     };
 
     // the contribution of the finished block cur to the partial sums of
-    // every owned block at least two steps after it. The L values of the
-    // first PRE owned blocks are loaded one step ahead (load_stream), so
-    // their latency passes while the CTA waits at the cluster barrier.
-    auto eligible = [&](int slot, int cur) {
-      const int blk = slot * G + rank;
-      return slot < own && blk < nb && (tr ? blk <= cur - 2 : blk >= cur + 2);
-    };
-    // forward: element v of a thread is L[blk rows tid/16 + 16 (v/4),
-    // cur columns tid%16 + 16 (v%4)]; transposed: L[cur rows
-    // 16 (tid/64) + v, blk column tid%64]
-    auto l_at = [&](int blk, int cur, int v) -> const T* {
-      const int row = tr ? cur * NB + 16 * (tid / NB) + v
-                         : blk * NB + tid / PARTS + 16 * (v / 4);
-      const int col = tr ? blk * NB + tid % NB
-                         : cur * NB + tid % PARTS + 16 * (v % 4);
-      return row < n ? l + (size_t)row * n + col : nullptr;
-    };
-    T pre[PRE][16];
-    auto load_stream = [&](int cur) {
-#pragma unroll
-      for (int u = 0; u < PRE; ++u) {
-        const bool ok = eligible(u, cur);
-#pragma unroll
-        for (int v = 0; v < 16; ++v) {
-          const T* at = ok ? l_at(u * G + rank, cur, v) : nullptr;
-          pre[u][v] = at ? *at : T(0);
-        }
-      }
-    };
-    auto add = [&](int slot, int cur, const T (&lv)[16]) {
-      const T* xc = xs + cur * NB;
-      T* pb = part + (size_t)slot * NB * PARTS;
-      if (!tr) {
-        const int k = tid % PARTS;
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          T sum = T(0);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) sum += lv[4 * p + t] * xc[k + 16 * t];
-          pb[(tid / PARTS + 16 * p) * PARTS + k] += sum;
-        }
-      } else {
-        const int c = tid % NB, g4 = tid / NB;
-        T sum = T(0);
-#pragma unroll
-        for (int t = 0; t < 16; ++t) sum += lv[t] * xc[16 * g4 + t];
-        pb[c * PARTS + g4] += sum;
-      }
-    };
+    // every owned block at least two steps after it
     auto stream = [&](int cur) {
+      const T* xc = xs + cur * NB;
+      for (int slot = 0; slot < own; ++slot) {
+        const int blk = slot * G + rank;
+        if (blk >= nb || (tr ? blk > cur - 2 : blk < cur + 2)) continue;
+        T* pb = part + (size_t)slot * NB * PARTS;
+        if (!tr) {
+          // rows of blk, columns of cur (cur < blk: a full block)
+          const int k = tid % PARTS;
 #pragma unroll
-      for (int u = 0; u < PRE; ++u) {
-        if (eligible(u, cur)) add(u, cur, pre[u]);
-      }
-      for (int slot = PRE; slot < own; ++slot) {  // n > 4 G 64 only
-        if (!eligible(slot, cur)) continue;
-        T lv[16];
+          for (int p = 0; p < 4; ++p) {
+            const int o = tid / PARTS + 16 * p;
+            const int row = blk * NB + o;
+            if (row >= n) continue;
+            const T* lr = l + (size_t)row * n + cur * NB;
+            T s = T(0);
 #pragma unroll
-        for (int v = 0; v < 16; ++v) {
-          const T* at = l_at(slot * G + rank, cur, v);
-          lv[v] = at ? *at : T(0);
+            for (int t = 0; t < 4; ++t) s += lr[k + 16 * t] * xc[k + 16 * t];
+            pb[o * PARTS + k] += s;
+          }
+        } else {
+          // rows of cur (maybe ragged), columns of blk (a full block)
+          const int c = tid % NB, g4 = tid / NB;
+          T s = T(0);
+#pragma unroll
+          for (int t = 0; t < 16; ++t) {
+            const int row = cur * NB + 16 * g4 + t;
+            if (row < n) s += l[(size_t)row * n + blk * NB + c] * xc[16 * g4 + t];
+          }
+          pb[c * PARTS + g4] += s;
         }
-        add(slot, cur, lv);
       }
     };
 
@@ -519,7 +488,6 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
     __syncthreads();
     cluster_arrive();
     if (nb > 1 && owner(seq(1)) == rank) prefetch(seq(1), seq(0));
-    if (nb > 1) load_stream(seq(0));
     for (int s = 0; s + 1 < nb; ++s) {
       cluster_wait();
       const int cur = seq(s), nxt = seq(s + 1);
@@ -532,7 +500,6 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
       cluster_arrive();
       if (s + 2 < nb && owner(seq(s + 2)) == rank) prefetch(seq(s + 2), nxt);
       stream(cur);
-      if (s + 2 < nb) load_stream(nxt);
     }
     cluster_wait();
   }

@@ -1048,43 +1048,28 @@ def _blocked_direct(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _device_events(fn, calls: int = 3) -> list:
-    """torch.profiler's device-side events (kernels, memsets, copies; not
-    the host operators, whose self device time repeats their kernels') over
-    ``calls`` calls of ``fn`` after one warm-up call."""
+def _device_ms(fn) -> tuple[float, dict]:
+    """Device ms of one call of ``fn``, in all and per CUDA kernel (the
+    kernel's name up to its template arguments), averaged over 3 calls
+    after a warm-up, from torch.profiler's device-side events (not the host
+    operators, whose self device time repeats their kernels')."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    cpu = torch.autograd.DeviceType.CPU
-    return [e for e in prof.key_averages() if e.device_type != cpu]
-
-
-def _device_ms(fn) -> tuple[float, dict]:
-    """Device ms of one call of ``fn``, in all and per CUDA kernel (the
-    kernel's name up to its template arguments), averaged over 3 calls."""
     by = {}
-    for e in _device_events(fn):
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
         name = e.key.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].split("<")[0].strip().split(" ")[-1]
         name = name.split("::")[-1] or e.key[:40]
         by[name] = by.get(name, 0.0) + e.self_device_time_total / 3e3
     return sum(by.values()), by
-
-
-def _device_ms_by_kernel(fn, names: tuple) -> dict:
-    """Device time of one call of ``fn`` per CUDA kernel whose name contains
-    one of ``names`` (torch.profiler), averaged over 3 calls."""
-    out = dict.fromkeys(names, 0.0)
-    for e in _device_events(fn):
-        for name in names:
-            if name in e.key:
-                out[name] += e.self_device_time_total / 3e3
-    return out
 
 
 def phase_hbm_kernels(seed: int) -> dict:
@@ -1183,12 +1168,9 @@ def phase_hbm_kernels(seed: int) -> dict:
                  "library_ms": _time_ms(lambda: torch.linalg.cholesky_ex(a),
                                         10),
                  "plain_ms": _time_ms(lambda: cholesky_hbm_plain(a), 1),
-                 "hbm_device_ms_by_kernel": _device_ms_by_kernel(
-                     lambda: cholesky_hbm(a),
-                     ("update_partial", "reduce_column", "factor_diag",
-                      "solve_strip", "emset")),
                  "bound_ms": bound[0], "bound_by": bound[1]}
-            t["hbm_device_ms"] = sum(t["hbm_device_ms_by_kernel"].values())
+            t["hbm_device_ms"], t["hbm_device_ms_by_kernel"] = _device_ms(
+                lambda: cholesky_hbm(a))
             if n == 1024:
                 t["blocked_wrapper_ms"] = _time_ms(lambda: cholesky_blocked(a),
                                                    10)

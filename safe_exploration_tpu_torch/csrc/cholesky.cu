@@ -290,21 +290,25 @@ chol_update(const T* src_all, T* l_all, int n, int k0) {
   }
 }
 
+// Dynamic shared memory above the default 48 KB needs the kernel's
+// attribute raised first (a host call, so only then).
+cudaError_t set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 template <typename T>
 int run(const T* a, T* l, int e, int n, cudaStream_t s) {
   if (n <= smem_max_n<T>()) {
     const size_t bytes = smem_tier_bytes(n, sizeof(T));
-    const cudaError_t err = cudaFuncSetAttribute(
-        chol_smem<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+    const cudaError_t err = set_smem((const void*)chol_smem<T>, bytes);
     if (err != cudaSuccess) return (int)err;
     chol_smem<T><<<e, SMEM_THREADS, bytes, s>>>(a, l, n);
     return (int)cudaGetLastError();
   }
   const size_t pbytes = (2 * P * LDP + SUB * P + P) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_panel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)pbytes);
+  cudaError_t err = set_smem((const void*)chol_panel<T>, pbytes);
   if (err != cudaSuccess) return (int)err;
   for (int k0 = 0; k0 < n; k0 += P) {
     const T* src = k0 == 0 ? a : l;

@@ -30,12 +30,13 @@
 // (L is 16.8 MB per matrix at n = 2048, 5 us at 3.35 TB/s) and, in practice,
 // by its chain of n / 64 dependent steps per direction. What the designs do
 // about it: the inverse has no chain longer than log2(n / 64) levels; the
-// vector solve keeps the chain on chip — the cluster's CTAs (up to 8 SMs per
-// matrix) own interleaved row blocks, the block that finishes next is
+// vector solve keeps the chain on chip — the cluster's CTAs (up to 16 SMs
+// per matrix) own interleaved row blocks, the block that finishes next is
 // updated first and its L tile and inv(L_ii) are prefetched (cp.async)
-// while the others stream their updates, each finished block is stored
-// into every CTA's shared memory (distributed shared memory) and the step
-// ends in a split cluster barrier (arrive, then wait), not a launch. FMA on
+// while the others stream their updates with 16-byte loads, each finished
+// block is stored into every CTA's shared memory (distributed shared
+// memory) and the step ends in a split cluster barrier (arrive, then wait),
+// not a launch. FMA on
 // the CUDA cores in the matrices' own type (f32 or f64; no TF32, no library
 // call).
 
@@ -54,6 +55,7 @@ constexpr int LDB = NB + 1;   // padded stride of square blocks in shared memory
 constexpr int INV_THREADS = 128;
 constexpr int VEC_MAX_N = 4096;  // the vector kernel's shared memory limit
 constexpr int PARTS = 16;        // partial sums per output of the vector solve
+constexpr int PSTRIDE = PARTS + 1;  // their padded stride in shared memory
 
 // Inverts the 64 x 64 lower diagonal blocks of L (a ragged last block is
 // padded with the identity). Block k of matrix m goes to
@@ -283,6 +285,24 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// v = p[0 .. 3], as one 16-byte load (two for f64) when vec
+template <typename T>
+__device__ __forceinline__ void load4(T (&v)[4], const T* p, bool vec) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      const double2 a = *reinterpret_cast<const double2*>(p);
+      const double2 b = *reinterpret_cast<const double2*>(p + 2);
+      v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) v[w] = p[w];
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -302,7 +322,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __host__ __device__ inline size_t vec_smem_elems(int n, int g) {
   const int nb = (n + NB - 1) / NB;
   const int own = (nb + g - 1) / g;
-  return (size_t)nb * NB + (size_t)own * NB * (1 + PARTS) + 2 * NB * LDB +
+  return (size_t)nb * NB + (size_t)own * NB * (1 + PSTRIDE) + 2 * NB * LDB +
          5 * NB;
 }
 
@@ -332,8 +352,8 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);          // nb * NB: the solution
   T* rs = xs + nb * NB;                            // own * NB: base values
-  T* part = rs + own * NB;                         // own * NB * PARTS
-  T (*tile)[LDB] = reinterpret_cast<T (*)[LDB]>(part + own * NB * PARTS);
+  T* part = rs + own * NB;                         // own * NB * PSTRIDE
+  T (*tile)[LDB] = reinterpret_cast<T (*)[LDB]>(part + own * NB * PSTRIDE);
   T (*dinv)[LDB] = tile + NB;
   T (*red)[NB] = reinterpret_cast<T (*)[NB]>(dinv + NB);  // 4 x NB
   T* rv = red[4];                                          // NB
@@ -356,7 +376,7 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
       if (blk < nb && row < n) v = (tr && (mode & 1)) ? xs[row] : b[row];
       rs[idx] = v;
     }
-    for (int idx = tid; idx < own * NB * PARTS; idx += THREADS) {
+    for (int idx = tid; idx < own * NB * PSTRIDE; idx += THREADS) {
       part[idx] = T(0);
     }
     __syncthreads();
@@ -381,12 +401,12 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
     // stores it into every CTA's x and, in the last direction, the output
     auto finish = [&](int blk, int cur) {
       const int slot = blk / G;
-      T* pb = part + (size_t)slot * NB * PARTS;
+      T* pb = part + (size_t)slot * NB * PSTRIDE;
       if (!tr) {
         const int o = tid / 4, q = tid % 4;
         T v = T(0);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) v += pb[o * PARTS + 4 * q + k];
+        for (int k = 0; k < 4; ++k) v += pb[o * PSTRIDE + 4 * q + k];
         if (cur >= 0) {
 #pragma unroll
           for (int t = 0; t < 16; ++t) {
@@ -411,7 +431,9 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
         }
       } else {
         const int c = tid % NB, g4 = tid / NB;
-        T v = pb[c * PARTS + g4];
+        T v = T(0);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v += pb[c * PSTRIDE + 4 * g4 + k];
         if (cur >= 0) {
 #pragma unroll
           for (int t = 0; t < 16; ++t) {
@@ -444,37 +466,45 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
     };
 
     // the contribution of the finished block cur to the partial sums of
-    // every owned block at least two steps after it
+    // every owned block at least two steps after it; a thread reads 4
+    // consecutive elements of a row (one vector load when rows are 16-byte
+    // aligned), 16 threads a 64-wide row
+    const bool vec = (n * sizeof(T)) % 16 == 0;
     auto stream = [&](int cur) {
       const T* xc = xs + cur * NB;
+      const int k = tid % PARTS;  // columns 4 k .. 4 k + 3 of the tile
       for (int slot = 0; slot < own; ++slot) {
         const int blk = slot * G + rank;
         if (blk >= nb || (tr ? blk > cur - 2 : blk < cur + 2)) continue;
-        T* pb = part + (size_t)slot * NB * PARTS;
+        T* pb = part + (size_t)slot * NB * PSTRIDE;
         if (!tr) {
-          // rows of blk, columns of cur (cur < blk: a full block)
-          const int k = tid % PARTS;
+          // rows of blk (maybe ragged), columns of cur (a full block)
 #pragma unroll
           for (int p = 0; p < 4; ++p) {
             const int o = tid / PARTS + 16 * p;
             const int row = blk * NB + o;
             if (row >= n) continue;
-            const T* lr = l + (size_t)row * n + cur * NB;
-            T s = T(0);
-#pragma unroll
-            for (int t = 0; t < 4; ++t) s += lr[k + 16 * t] * xc[k + 16 * t];
-            pb[o * PARTS + k] += s;
+            T v[4];
+            load4(v, l + (size_t)row * n + cur * NB + 4 * k, vec);
+            pb[o * PSTRIDE + k] += (v[0] * xc[4 * k] + v[1] * xc[4 * k + 1]) +
+                                   (v[2] * xc[4 * k + 2] + v[3] * xc[4 * k + 3]);
           }
         } else {
-          // rows of cur (maybe ragged), columns of blk (a full block)
-          const int c = tid % NB, g4 = tid / NB;
-          T s = T(0);
+          // rows 4 rg .. 4 rg + 3 of cur (maybe ragged), columns of blk
+          const int rg = tid / PARTS;
+          T sum[4] = {};
 #pragma unroll
-          for (int t = 0; t < 16; ++t) {
-            const int row = cur * NB + 16 * g4 + t;
-            if (row < n) s += l[(size_t)row * n + blk * NB + c] * xc[16 * g4 + t];
+          for (int t = 0; t < 4; ++t) {
+            const int row = cur * NB + 4 * rg + t;
+            if (row >= n) continue;
+            T v[4];
+            load4(v, l + (size_t)row * n + blk * NB + 4 * k, vec);
+            const T xr = xc[4 * rg + t];
+#pragma unroll
+            for (int w = 0; w < 4; ++w) sum[w] += v[w] * xr;
           }
-          pb[c * PARTS + g4] += s;
+#pragma unroll
+          for (int w = 0; w < 4; ++w) pb[(4 * k + w) * PSTRIDE + rg] += sum[w];
         }
       }
     };
@@ -505,9 +535,15 @@ solve_vec(const T* __restrict__ l_all, const T* __restrict__ d_all,
   }
 }
 
-int grid_g(int n) { return n <= 256 ? 1 : n <= 512 ? 2 : n <= 1024 ? 4 : 8; }
+// CTAs per cluster of the vector solve: its streamed updates are bound by
+// how many loads the cluster's SMs keep in flight, so above 256 rows the
+// cluster takes 8 CTAs and above 512 the non-portable 16.
+int grid_g(int n) { return n <= 256 ? 1 : n <= 512 ? 8 : 16; }
 
+// Dynamic shared memory above the default 48 KB needs the kernel's
+// attribute raised first (a host call, so only then).
 int set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
@@ -540,6 +576,12 @@ int launch_vec(const T* l, const T* d, const T* b, T* x, int e, int n,
   const size_t smem = vec_smem_elems(n, g) * sizeof(T);
   int err = set_smem((const void*)solve_vec<T>, smem);
   if (err) return err;
+  if (g > 8) {  // 16 CTAs per cluster is beyond the portable 8
+    err = (int)cudaFuncSetAttribute(
+        (const void*)solve_vec<T>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(g, e);
   cfg.blockDim = dim3(THREADS);

@@ -17,6 +17,8 @@ it (:func:`solve_psd_plain`, :func:`tri_inv_plain`).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from safe_exploration_tpu_torch.ops.kernels import _build
@@ -81,9 +83,14 @@ def _shapes(name: str, l: torch.Tensor, b: torch.Tensor | None):
     return l.numel() // (n * n), n, m
 
 
+@functools.cache
+def _kernel_block() -> int:
+    return _build.load("trsm", "trsm_block", ())()
+
+
 def _diag_workspace(l: torch.Tensor, e: int, n: int) -> torch.Tensor:
     """Room for the inverses of the 64 x 64 diagonal blocks."""
-    if _build.load("trsm", "trsm_block", ())() != BLOCK:
+    if _kernel_block() != BLOCK:
         raise RuntimeError("trsm: csrc/trsm.cu has another block edge than "
                            "BLOCK")
     nb = -(-n // BLOCK)

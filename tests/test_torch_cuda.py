@@ -115,10 +115,11 @@ def test_cuda_wrappers_count_launches_and_reject_bad_input():
     with pytest.raises(ValueError):
         cholesky_blocked(torch.eye(8, device="cuda")[:, ::2])
     eye = torch.eye(8, device="cuda").expand(2, 8, 8).contiguous()
-    for fn in (solve_psd, tri_inv_lower):
-        before = fn.launches
-        fn(eye, eye[..., :1].contiguous()) if fn is solve_psd else fn(eye)
-        assert fn.launches == before + 1
+    before = (solve_psd.launches, tri_inv_lower.launches)
+    solve_psd(eye, eye[..., :1].contiguous())
+    tri_inv_lower(eye)
+    assert (solve_psd.launches, tri_inv_lower.launches) == (before[0] + 1,
+                                                            before[1] + 1)
     with pytest.raises(ValueError):
         solve_psd(eye, torch.ones(2, 9, 1, device="cuda"))
     with pytest.raises(ValueError):

@@ -325,7 +325,7 @@ def _refit_kernel_times(rng) -> dict:
                                     E * n * n * (2 * D_IN + 7), dt))
             res = {}
             for name, c in t.items():
-                # the profiler's sessions cost seconds: f32 (the paths' type)
+                # each profiler run costs seconds: f32 only (the paths' type)
                 dev_ms, by_kernel = (_device_ms(c["fn"]) if dt == torch.float32
                                      else (None, {}))
                 r = {"ms": _time_ms(c["fn"], reps),

@@ -153,8 +153,15 @@ def phase_build() -> None:
 
 
 def _trsm_bytes(n: int, m: int, sz: int) -> int:
-    """L read once, B read once, X written once, for the E matrices."""
-    return E * (n * n + 2 * n * m) * sz
+    """L's lower triangle read once, B read once, X written once, for the E
+    matrices."""
+    return E * (n * (n + 1) // 2 + 2 * n * m) * sz
+
+
+def _square_from_tri_bytes(n: int, sz: int) -> int:
+    """A lower triangle read once and an n x n result written once, for the
+    E matrices: the least traffic of the Cholesky and of L^-1."""
+    return E * (n * (n + 1) // 2 + n * n) * sz
 
 
 def _gram_args(rng, n, dtype, device):
@@ -267,21 +274,21 @@ def _refit_kernel_times(rng) -> dict:
     """CUDA-event ms per call of the refit's kernels at n = 128 (the SQP
     path), 512 (episodic run (a)) and 2048 (run (b)), e = 2, f32 and f64,
     each beside its torch.linalg call, its device ms per CUDA kernel
-    (profiler, f32 only) and its bound at the least work: beta 2 n^2 flops and L,
-    y and beta moved once; K^-1's solve n^3 / 3 flops (L^-1 is triangular)
-    and 2 n^2 words; the Cholesky n^3 / 3 flops and 2 n^2 words (the
-    blocked kernel at 128 and 512; cholesky_hbm keeps 2048). Plain versions
-    are timed at the path shape only. Keys ``<dtype>_n<n>``; ``N_PATH``
-    f32 also under the int key, as the kernels line reads it."""
+    (profiler, f32 only) and its bound at the least work: beta 2 n^2 flops
+    and L's triangle, y and beta moved once; K^-1's solve n^3 / 3 flops
+    (L^-1 is triangular) and the triangle read, n^2 words written; the
+    Cholesky the same (the blocked kernel at 128 and 512; cholesky_hbm
+    keeps 2048). Plain versions are timed at the path shape only. Keys
+    ``<dtype>_n<n>``; ``N_PATH`` f32 also under the int key, as the kernels
+    line reads it."""
+    from safe_exploration_tpu_torch.models.gp import refit_cholesky
     from safe_exploration_tpu_torch.ops.kernels import (
         cholesky_blocked,
-        cholesky_hbm,
         cholesky_plain,
         gram_plain,
         rbf_gram_masked,
         trsm_plain,
     )
-    from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
 
     out = {}
     for n in (N_PATH, 512, N_HBM):
@@ -289,8 +296,7 @@ def _refit_kernel_times(rng) -> dict:
             sz = torch.finfo(dt).bits // 8
             args = _gram_args(rng, n, dt, "cuda")
             k = rbf_gram_masked(*args)
-            chol = cholesky_blocked if n <= MAX_N else cholesky_hbm
-            l = chol(k)
+            l = refit_cholesky(n)(k)
             y = torch.tensor(rng.normal(size=(E, n, 1)), dtype=dt,
                              device="cuda")
             eye = torch.eye(n, dtype=dt, device="cuda").expand(E, n, n)
@@ -308,14 +314,16 @@ def _refit_kernel_times(rng) -> dict:
                 "kinv": dict(
                     fn=solves["kinv"], library=lambda: _lib_solve(l, eye),
                     plain=lambda: trsm_plain(l, eye),
-                    bound=_bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dt)),
+                    bound=_bound_ms(_square_from_tri_bytes(n, sz),
+                                    E * n ** 3 / 3, dt)),
             }
             if n <= 512:
                 t["cholesky"] = dict(
                     fn=lambda: cholesky_blocked(k),
                     library=lambda: torch.linalg.cholesky_ex(k),
                     plain=lambda: cholesky_plain(k),
-                    bound=_bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dt))
+                    bound=_bound_ms(_square_from_tri_bytes(n, sz),
+                                    E * n ** 3 / 3, dt))
             if path:
                 in_bytes = (n * D_IN + n + 2 * E * D_IN) * sz
                 t["gram"] = dict(
@@ -353,7 +361,7 @@ def _refit_kernel_times(rng) -> dict:
                                      "device_ms") else None)
                     for key in res["beta"]}
                 res["trsm"]["bound_ms"], res["trsm"]["bound_by"] = _bound_ms(
-                    _trsm_bytes(n, 1, sz) + 2 * E * n * n * sz,
+                    _trsm_bytes(n, 1, sz) + E * n * n * sz,  # L read once
                     E * 2 * n * n + E * n ** 3 / 3, dt)
                 out[n] = res
     return out
@@ -1162,7 +1170,8 @@ def phase_hbm_kernels(seed: int) -> dict:
         for dtype in (torch.float32, torch.float64):
             a = _spd_cuda(n, seed + 2).to(dtype)
             sz = a.element_size()
-            bound = _bound_ms(2 * E * n * n * sz, E * n ** 3 / 3, dtype)
+            bound = _bound_ms(_square_from_tri_bytes(n, sz), E * n ** 3 / 3,
+                              dtype)
             t = {"hbm_ms": _time_ms(lambda: cholesky_hbm(a), 10),
                  "blocked_ms": _time_ms(lambda: _blocked_direct(a), 10),
                  "library_ms": _time_ms(lambda: torch.linalg.cholesky_ex(a),
@@ -1194,24 +1203,15 @@ def phase_hbm_kernels(seed: int) -> dict:
 
 def _refit_split(gp) -> dict:
     """CUDA-event ms of one gp_refit of ``gp`` and of each of its parts on
-    the same state: gram, cholesky (blocked to n_max 1024, hbm above),
-    beta, K^-1's solve and the L^-T L^-1 matmul."""
-    from safe_exploration_tpu_torch.models.gp import gp_refit
-    from safe_exploration_tpu_torch.ops.kernels import (
-        cholesky_blocked,
-        cholesky_hbm,
-        rbf_gram_masked,
-    )
-    from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
+    the same state, with the refit's own inputs and Cholesky choice
+    (``refit_inputs``): gram, cholesky, beta, K^-1's solve and the L^-T
+    L^-1 matmul."""
+    from safe_exploration_tpu_torch.models.gp import gp_refit, refit_inputs
+    from safe_exploration_tpu_torch.ops.kernels import rbf_gram_masked
 
-    log_ls = torch.stack([p["log_lengthscales"] for p in gp.params])
-    log_sf = torch.stack([p["log_sf"] for p in gp.params])
-    noise_var = torch.exp(2.0 * gp.log_noise)
-    args = (gp.x, gp.mask, log_ls, log_sf, noise_var)
+    args, chol, ym = refit_inputs(gp)
     k = rbf_gram_masked(*args)
-    chol = cholesky_blocked if gp.n_max <= MAX_N else cholesky_hbm
     l = chol(k)
-    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()
     solves = _refit_solves(l, ym)
     linv = solves["kinv"]()
     parts = {"gram": lambda: rbf_gram_masked(*args), "cholesky": lambda: chol(k),

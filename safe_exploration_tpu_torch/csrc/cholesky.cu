@@ -21,14 +21,17 @@
 //     panels, two launches per panel: chol_panel factors the 64 x 64
 //     diagonal block (factor_smem, redundantly in every CTA) and solves one
 //     64-row chunk of the strip below per CTA, reading A itself for the first
-//     panel (no copy pass) and writing zeros right of the diagonal block;
-//     chol_update subtracts the panel's rank-64 product from the trailing
-//     lower triangle in 64 x 64 register-tiled products (gemm_tile.cuh).
+//     panel (no copy pass); its CTA 0 writes the previous panel's diagonal
+//     block with zeros right of it, so that no CTA overwrites a block that
+//     another CTA of its launch reads; chol_update subtracts the panel's
+//     rank-64 product from the trailing lower triangle in 64 x 64
+//     register-tiled products (gemm_tile.cuh).
 //
 // What bounds it on an H100: neither bytes nor flops. n^3 / 3 flops
-// (0.7 MFLOP at n = 128, 45 MFLOP at n = 512) and 2 n^2 words are
-// microseconds of work; the factorization is a chain of n dependent pivots.
-// What the design does about it: below 225 (160) columns the chain never
+// (0.7 MFLOP at n = 128, 45 MFLOP at n = 512) and n (n + 1) / 2 + n^2
+// words (the triangle read, the factor written) are microseconds of work;
+// the factorization is a chain of n dependent pivots. What the design
+// does about it: below 225 (160) columns the chain never
 // leaves one SM and pays 3 barriers per 16 pivots instead of 3 launches per
 // 32 (11 launches at n = 128 before); above, 2 launches per 64 columns
 // instead of 3 per 32 plus a copy (15 at n = 512, 47 before), and the O(n^3)
@@ -195,42 +198,50 @@ __host__ inline size_t smem_tier_bytes(int n, size_t sz) {
          sz;
 }
 
-// The blocked tier's panel at column k0: CTA 0 writes the factored diagonal
-// block (and zeros right of it), CTA x >= 1 the strip rows
-// [k0 + 64 x, k0 + 64 x + 64) solved against it. src is A for the first
-// panel and L (updated in place) after.
+// The blocked tier's panel at column k0. CTA x >= 1 factors the 64 x 64
+// diagonal block itself and solves the strip rows [k0 + 64 x, + 64)
+// against it (in the last panel, which has no strip, CTA 1 writes the
+// factored block instead). CTA 0 writes the block of the panel before,
+// factored again, with zeros right of it: that block still stands
+// unfactored where the launch before read it, and no CTA of this launch
+// reads it, so no CTA writes what another CTA of its launch reads (CTAs of
+// one grid run in no fixed order). A block stands in A for the first panel
+// and in L (updated in place) after.
 template <typename T>
 __global__ void __launch_bounds__(TILE_THREADS)
-chol_panel(const T* src_all, T* l_all, int n, int k0) {
+chol_panel(const T* a_all, T* l_all, int n, int k0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T (*s)[LDP] = reinterpret_cast<T (*)[LDP]>(smem_raw);
   T (*xs)[LDP] = s + P;
   T* pt = reinterpret_cast<T*>(xs + P);  // SUB x P, 16-byte aligned
   T* rd = pt + SUB * P;                  // P reciprocals of the diagonal
-  const T* src = src_all + (size_t)blockIdx.y * n * n;
+  const int d0 = blockIdx.x == 0 ? k0 - P : k0;  // the block this CTA factors
+  if (d0 < 0) return;
+  const bool strip = blockIdx.x > 0 && k0 + P < n;
+  const T* src = (d0 == 0 ? a_all : l_all) + (size_t)blockIdx.y * n * n;
   T* l = l_all + (size_t)blockIdx.y * n * n;
   const int tid = threadIdx.x;
-  const int kb = min(P, n - k0);
-  const int r0 = k0 + P * blockIdx.x;  // this CTA's rows (strip if x >= 1)
+  const int kb = min(P, n - d0);
+  const int r0 = k0 + P * blockIdx.x;  // this CTA's strip rows
   for (int idx = tid; idx < P * P; idx += TILE_THREADS) {
     const int i = idx / P, j = idx % P;
-    if (i < kb && j <= i) s[i][j] = src[(size_t)(k0 + i) * n + k0 + j];
-    if (blockIdx.x > 0 && r0 + i < n) {
+    if (i < kb && j <= i) s[i][j] = src[(size_t)(d0 + i) * n + d0 + j];
+    if (strip && r0 + i < n) {
       xs[i][j] = src[(size_t)(r0 + i) * n + k0 + j];  // kb == P here
     }
   }
   __syncthreads();
   factor_smem<T>(&s[0][0], LDP, kb, pt, P, rd);
-  if (blockIdx.x == 0) {
+  if (!strip) {
     for (int idx = tid; idx < P * P; idx += TILE_THREADS) {
       const int i = idx / P, j = idx % P;
       if (i < kb && j < kb) {
-        l[(size_t)(k0 + i) * n + k0 + j] = j <= i ? s[i][j] : T(0);
+        l[(size_t)(d0 + i) * n + d0 + j] = j <= i ? s[i][j] : T(0);
       }
     }
-    const int right = n - k0 - kb;
+    const int right = n - d0 - kb;
     for (int idx = tid; idx < kb * right; idx += TILE_THREADS) {
-      l[(size_t)(k0 + idx / right) * n + k0 + kb + idx % right] = T(0);
+      l[(size_t)(d0 + idx / right) * n + d0 + kb + idx % right] = T(0);
     }
     return;
   }
@@ -258,7 +269,8 @@ chol_panel(const T* src_all, T* l_all, int n, int k0) {
 
 // The trailing update after the panel at k0: for each 64 x 64 tile of the
 // lower triangle of [k0 + 64, n)^2, L_ij = S_ij - L_i,panel L_j,panel^T
-// (elements above the diagonal untouched). src as for chol_panel; an
+// (elements above the diagonal untouched). src is A for the first panel
+// and L after; an
 // element is read and written by the same thread, so src may be l.
 template <typename T>
 __global__ void __launch_bounds__(TILE_THREADS)
@@ -308,20 +320,19 @@ int run(const T* a, T* l, int e, int n, cudaStream_t s) {
     return (int)cudaGetLastError();
   }
   const size_t pbytes = (2 * P * LDP + SUB * P + P) * sizeof(T);
-  cudaError_t err = set_smem((const void*)chol_panel<T>, pbytes);
+  const cudaError_t err = set_smem((const void*)chol_panel<T>, pbytes);
   if (err != cudaSuccess) return (int)err;
   for (int k0 = 0; k0 < n; k0 += P) {
-    const T* src = k0 == 0 ? a : l;
     const int kb = n - k0 < P ? n - k0 : P;
     const int strips = (n - k0 - kb + P - 1) / P;
-    chol_panel<T><<<dim3(1 + strips, e), TILE_THREADS, pbytes, s>>>(src, l, n,
-                                                                    k0);
+    chol_panel<T><<<dim3(1 + (strips > 0 ? strips : 1), e), TILE_THREADS,
+                     pbytes, s>>>(a, l, n, k0);
     if (strips > 0) {
       chol_update<T><<<dim3(strips * strips, e), TILE_THREADS, 0, s>>>(
-          src, l, n, k0);
+          k0 == 0 ? a : l, l, n, k0);
     }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return (int)launched;
   }
   return 0;
 }

@@ -27,8 +27,10 @@
 // What bounds them on an H100: K^-1's inverse is n^3 / 3 flops per matrix
 // (5.7 GFLOP for e = 2 at n = 2048: 0.085 ms at the f32 peak), bound by
 // operations; beta is two triangular matrix-vector chains, bound by bytes
-// (L is 16.8 MB per matrix at n = 2048, 5 us at 3.35 TB/s) and, in practice,
-// by its chain of n / 64 dependent steps per direction. What the designs do
+// (L's lower triangle, 8.4 MB per matrix in f32 at n = 2048, read once from
+// HBM: 2.5 us at 3.35 TB/s; the second direction's read can hit the 50 MB
+// L2) and, in practice, by its chain of n / 64 dependent steps per
+// direction. What the designs do
 // about it: the inverse has no chain longer than log2(n / 64) levels; the
 // vector solve keeps the chain on chip — the cluster's CTAs (up to 16 SMs
 // per matrix) own interleaved row blocks, the block that finishes next is
@@ -50,6 +52,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NB = TILE;      // diagonal block, row block and GEMM tile edge
+                              // (BLOCK in ops/kernels/trsm.py)
 constexpr int THREADS = TILE_THREADS;
 constexpr int LDB = NB + 1;   // padded stride of square blocks in shared memory
 constexpr int INV_THREADS = 128;
@@ -651,9 +654,6 @@ bool bad_shape(int e, int n, int m) {
 }
 
 }  // namespace
-
-// The diagonal-block edge; the wrapper sizes the workspaces with it.
-extern "C" int trsm_block() { return NB; }
 
 // l (e, n, n) lower, b (e, n, m), x (e, n, m) output (must not alias b),
 // d a workspace of e * ceil(n / 64) * 64 * 64 elements.

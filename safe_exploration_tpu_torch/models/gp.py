@@ -38,7 +38,7 @@ from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
 
 __all__ = ["GP", "gp_init", "gp_refit", "gp_update_data",
            "gp_shrink_to_bucket", "gp_nll", "gp_fit", "gp_predict",
-           "gp_predict_mean_jac"]
+           "gp_predict_mean_jac", "refit_cholesky", "refit_inputs"]
 
 _JITTER = 1e-6
 
@@ -91,6 +91,23 @@ def _kinv_from_chol(l: torch.Tensor) -> torch.Tensor:
     return linv.transpose(-1, -2) @ linv
 
 
+def refit_cholesky(n_max: int):
+    """The refit's Cholesky for an ``n_max`` buffer: ``cholesky_blocked`` up
+    to its ``MAX_N``, ``cholesky_hbm`` above."""
+    return cholesky_blocked if n_max <= MAX_N else cholesky_hbm
+
+
+def refit_inputs(gp: GP):
+    """What :func:`gp_refit` hands its kernels: the batched Gram's arguments,
+    the Cholesky (:func:`refit_cholesky`) and the masked targets (e, n, 1)."""
+    log_ls = torch.stack([p["log_lengthscales"] for p in gp.params])
+    log_sf = torch.stack([p["log_sf"] for p in gp.params])
+    noise_var = torch.exp(2.0 * gp.log_noise)
+    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()
+    return ((gp.x, gp.mask, log_ls, log_sf, noise_var),
+            refit_cholesky(gp.n_max), ym)
+
+
 def gp_refit(gp: GP) -> GP:
     """Recompute the posterior factors (chol, beta, kinv) for the current data
     and hyperparameters: one batched Gram, one batched Cholesky (the blocked
@@ -107,12 +124,8 @@ def gp_refit(gp: GP) -> GP:
             f"kern_types={gp.kern_types}: the port's refit covers the all-RBF "
             "menu (ROADMAP Queue 1, item 3)"
         )
-    log_ls = torch.stack([p["log_lengthscales"] for p in gp.params])
-    log_sf = torch.stack([p["log_sf"] for p in gp.params])
-    noise_var = torch.exp(2.0 * gp.log_noise)
-    k = rbf_gram_masked(gp.x, gp.mask, log_ls, log_sf, noise_var)
-    l = cholesky_blocked(k) if gp.n_max <= MAX_N else cholesky_hbm(k)
-    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()  # (e, n, 1)
+    gram_args, cholesky, ym = refit_inputs(gp)
+    l = cholesky(rbf_gram_masked(*gram_args))
     beta = solve_psd(l, ym).squeeze(-1)
     return gp.replace(chol=l, beta=beta, kinv=_kinv_from_chol(l))
 

@@ -3,11 +3,11 @@
 Replaces ``safe_exploration_tpu/ops/pallas/cholesky.py::cholesky_blocked``.
 Batched over leading dims: one launch with each matrix in one SM's shared
 memory up to n = 224 in f32 (160 in f64), two launches per 64 columns for
-all matrices above. A
-non-positive pivot gives NaN from that column on and does not raise — the
-semantics of the Pallas kernel and of ``jnp.linalg.cholesky``, which
-``torch.linalg.cholesky`` (raises) does not share; :func:`cholesky_plain`
-is therefore a textbook column loop, not a library call.
+all matrices above. A non-positive pivot gives NaN from that column on
+and does not raise — the semantics of the Pallas kernel and of
+``jnp.linalg.cholesky``, which ``torch.linalg.cholesky`` (raises) does not
+share; :func:`cholesky_plain` is therefore a textbook column loop, not a
+library call.
 """
 
 from __future__ import annotations

@@ -17,8 +17,6 @@ it (:func:`solve_psd_plain`, :func:`tri_inv_plain`).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from safe_exploration_tpu_torch.ops.kernels import _build
@@ -32,10 +30,12 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
     stream_ptr,
 )
 
-__all__ = ["BLOCK", "solve_psd", "solve_psd_plain", "tri_inv_lower",
+__all__ = ["solve_psd", "solve_psd_plain", "tri_inv_lower",
            "tri_inv_plain", "trsm_lower", "trsm_plain"]
 
-BLOCK = 64   # diagonal-block edge (the kernel reports it too)
+# the diagonal-block edge, NB in csrc/trsm.cu: the inverses' workspace holds
+# one BLOCK x BLOCK block per row block of each matrix
+BLOCK = 64
 
 
 def trsm_plain(l: torch.Tensor, b: torch.Tensor, transpose: bool = False
@@ -83,16 +83,8 @@ def _shapes(name: str, l: torch.Tensor, b: torch.Tensor | None):
     return l.numel() // (n * n), n, m
 
 
-@functools.cache
-def _kernel_block() -> int:
-    return _build.load("trsm", "trsm_block", ())()
-
-
 def _diag_workspace(l: torch.Tensor, e: int, n: int) -> torch.Tensor:
     """Room for the inverses of the 64 x 64 diagonal blocks."""
-    if _kernel_block() != BLOCK:
-        raise RuntimeError("trsm: csrc/trsm.cu has another block edge than "
-                           "BLOCK")
     nb = -(-n // BLOCK)
     return torch.empty((e * nb * BLOCK * BLOCK,), dtype=l.dtype,
                        device=l.device)

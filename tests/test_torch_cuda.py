@@ -362,6 +362,26 @@ def test_cuda_cholesky_tiers_match_plain(n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cuda_cholesky_blocked_tier_over_several_waves(dtype):
+    """64 matrices of n = 1024 at once: the blocked tier's strip launches
+    take several waves of CTAs, so a CTA that read what another CTA of its
+    launch wrote would show here; every 16th and the last matrix against
+    the plain column loop in f64."""
+    _need_cuda()
+    n = 1024
+    g = torch.Generator(device="cuda").manual_seed(n)
+    m = torch.randn((64, n, n), dtype=torch.float64, device="cuda",
+                    generator=g)
+    a = m @ m.mT + n * torch.eye(n, dtype=torch.float64, device="cuda")
+    l = cholesky_blocked(a.to(getattr(torch, dtype)))
+    pick = [0, 16, 32, 48, 63]
+    tol = 1e-10 if dtype == "float64" else 2e-4
+    assert _rel(l[pick], cholesky_plain(a[pick])) < tol
+    assert torch.equal(torch.triu(l, 1), torch.zeros_like(l))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n,at", [("float32", 200, 150),
                                         ("float64", 150, 100),
                                         ("float32", 512, 300),

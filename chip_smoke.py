@@ -28,7 +28,9 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               n = 64 (H 5) and 128 (H 3, pendulum_batch's shape), L = 16,384
               and a ragged 1,000, f32 and f64, with and without the
               Jacobian, z_scale on and off, tracking and exploration;
-              CUDA-event times of kernel and plain version
+              CUDA-event times of kernel and plain version; cem_score's
+              call with a prepared object (as the CEM path calls it) and
+              without (prepare and score), and its device time (profiler)
   4. path     build_experiment at the headline budget, a GP refit, two batched
               get_action_batch calls around a plant step and an ssm_update
               (a second refit); launch counts are zeroed just before and read
@@ -48,8 +50,9 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               on an indefinite input, trsm's entries at n = 2048
               (tri_inv_lower, solve_psd, trsm_lower at m = 1 and n); CUDA-
               event times of cholesky_hbm, cholesky_blocked (called past its
-              wrapper's limit), cholesky_ex and the plain version at 1024 and
-              2048, and cholesky_hbm's device time per kernel (profiler)
+              wrapper's limit), cholesky_ex and the plain version at 1024,
+              2048 and 4096, and cholesky_hbm's device time per kernel
+              (profiler)
   9. episode  the episodic CLI's run_experiment on the card: (a)
               pendulum_episode (2 of its 6 episodes), (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
@@ -664,8 +667,10 @@ def phase_cem_kernels(seed: int) -> dict:
     from safe_exploration_tpu_torch.ops.kernels import (
         gp_predict_lanes,
         gp_predict_plain,
+        prepare_tube_score,
         tube_score_lanes,
         tube_score_plain,
+        tube_score_prepared,
     )
 
     rng = np.random.default_rng(seed + 10)
@@ -762,7 +767,10 @@ def phase_cem_kernels(seed: int) -> dict:
     u = 0.4 * rng.standard_normal((H_CEM, L)).astype(np.float32)
     x0 = (rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]]).astype(np.float32)
     args = score_args(arr, u, x0, dt, "tracking")
-    out = tube_score_lanes(*args)
+    # the path's call: the model prepared once per solve (prepare_tube_score),
+    # then scored; tube_score_lanes prepares on every call
+    prep = prepare_tube_score(args[0], *args[3:])
+    out = tube_score_prepared(prep, *args[1:3])
     ref = tube_score_plain(*score_args(up64(arr), u, x0, torch.float64,
                                        "tracking"))
     abs_err["cem_score"] = max(_abs(o, r) for o, r in zip(out, ref))
@@ -772,14 +780,26 @@ def phase_cem_kernels(seed: int) -> dict:
     n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2
                     + (H_CEM + 2) * L + 2 * L)
     timings["cem_score"] = dict(
-        ms=_time_ms(lambda: tube_score_lanes(*args), 20),
+        ms=_time_ms(lambda: tube_score_prepared(prep, *args[1:3]), 20),
+        unprepared_ms=_time_ms(lambda: tube_score_lanes(*args), 20),
+        prepare_ms=_time_ms(lambda: prepare_tube_score(args[0], *args[3:]),
+                            20),
         plain_ms=_time_ms(lambda: tube_score_plain(*args), 3),
         library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
+    (timings["cem_score"]["device_ms"],
+     timings["cem_score"]["device_ms_by_kernel"]) = _device_ms(
+        lambda: tube_score_prepared(prep, *args[1:3]))
     for name, r in timings.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
+        extra = ""
+        if "device_ms" in r:
+            extra = (f" (device {r['device_ms']:.4f}: "
+                     f"{ {k: round(v, 4) for k, v in r['device_ms_by_kernel'].items()} }"
+                     f"; without a prepared object {r['unprepared_ms']:.4f} ms"
+                     f", the prepare alone {r['prepare_ms']:.4f} ms)")
         print(f"[cem-kernels] time f32 n={N_CEM} {name}: kernel {r['ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f} ms, library null (no one PyTorch "
-              f"call computes it), bound {r['bound_ms']:.6f} ms "
+              f"ms{extra}, plain {r['plain_ms']:.4f} ms, library null (no one "
+              f"PyTorch call computes it), bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
     return {"worst_rel_f32": worst, "errs": abs_err, "timings": timings}
 
@@ -1085,7 +1105,7 @@ def phase_hbm_kernels(seed: int) -> dict:
     4096 with e = 2 in f32 (within 3e-4 of the f64 plain factor) and f64
     (1e-9); NaN on an indefinite input; CUDA-event times of the kernel, its
     plain version, cholesky_ex and cholesky_blocked (called directly) at
-    1024 and 2048; trsm's entries against their plain versions at run
+    1024, 2048 and 4096; trsm's entries against their plain versions at run
     (b)'s refit shape n = 2048: tri_inv_lower (K^-1), solve_psd (beta, m =
     1) and trsm_lower at m = 1 and m = n."""
     from safe_exploration_tpu_torch.ops.kernels import (
@@ -1166,7 +1186,7 @@ def phase_hbm_kernels(seed: int) -> dict:
     # crossover: cholesky_blocked (direct) against cholesky_hbm, with the
     # plain version and cholesky_ex beside them
     times = {}
-    for n in (1024, N_HBM):
+    for n in (1024, N_HBM, 4096):
         for dtype in (torch.float32, torch.float64):
             a = _spd_cuda(n, seed + 2).to(dtype)
             sz = a.element_size()
@@ -1416,7 +1436,8 @@ KERNELS = (
     ("gp_predict", "safe_exploration_tpu_torch/csrc/gp_predict.cu",
      "safe_exploration_tpu/ops/pallas/gp_predict.py:46", ("gp_predict_lanes",)),
     ("cem_score", "safe_exploration_tpu_torch/csrc/cem_score.cu",
-     "safe_exploration_tpu/ops/pallas/cem_score.py:50", ("tube_score_lanes",)),
+     "safe_exploration_tpu/ops/pallas/cem_score.py:50",
+     ("tube_score_prepared",)),
     ("cholesky_hbm", "safe_exploration_tpu_torch/csrc/cholesky_hbm.cu",
      "safe_exploration_tpu/ops/pallas/cholesky_hbm.py:52", ("cholesky_hbm",)),
 )

@@ -2,7 +2,7 @@
 
   gram.py        masked identity-padded RBF Gram   (csrc/gram.cu)
   cholesky.py    blocked lower Cholesky            (csrc/cholesky.cu)
-  cholesky_hbm.py  left-looking Cholesky, n > 1024 (csrc/cholesky_hbm.cu)
+  cholesky_hbm.py  right-looking Cholesky, n > 1024 (csrc/cholesky_hbm.cu)
   trsm.py        triangular solves, PSD solve, triangular inverse
                  (csrc/trsm.cu)
   gp_predict.py  fused lane GP posterior (+ mean Jacobian) (csrc/gp_predict.cu)
@@ -18,8 +18,10 @@ its launches in a ``launches`` attribute.
 
 from safe_exploration_tpu_torch.ops.kernels.cem_score import (
     cem_score_supported,
+    prepare_tube_score,
     tube_score_lanes,
     tube_score_plain,
+    tube_score_prepared,
 )
 from safe_exploration_tpu_torch.ops.kernels.cholesky import (
     cholesky_blocked,
@@ -45,13 +47,14 @@ from safe_exploration_tpu_torch.ops.kernels.trsm import (
 )
 
 KERNEL_WRAPPERS = (rbf_gram_masked, cholesky_blocked, trsm_lower, solve_psd,
-                   tri_inv_lower, gp_predict_lanes, tube_score_lanes,
+                   tri_inv_lower, gp_predict_lanes, tube_score_prepared,
                    cholesky_hbm)
 
 __all__ = [
     "KERNEL_WRAPPERS", "cem_score_supported", "cholesky_blocked",
     "cholesky_hbm", "cholesky_hbm_plain", "cholesky_plain", "gp_pallas_supported", "gp_predict_lanes",
-    "gp_predict_plain", "gram_plain", "rbf_gram_masked", "solve_psd",
-    "solve_psd_plain", "tri_inv_lower", "tri_inv_plain", "trsm_lower",
-    "trsm_plain", "tube_score_lanes", "tube_score_plain",
+    "gp_predict_plain", "gram_plain", "prepare_tube_score", "rbf_gram_masked",
+    "solve_psd", "solve_psd_plain", "tri_inv_lower", "tri_inv_plain",
+    "trsm_lower", "trsm_plain", "tube_score_lanes", "tube_score_plain",
+    "tube_score_prepared",
 ]

@@ -8,16 +8,21 @@ the stage and terminal polytope margins summed into ``viol``, and the
 tracking or exploration cost — in one launch. It equals
 ``sqp_lanes._rollout_y_lanes`` + ``_dist_lanes`` + ``_cost_lanes``.
 
-The GP runs in raw input coordinates: ``z_scale`` is folded into the
-support rows and the lengthscales, so the Jacobian needs no chain rule.
-:func:`tube_score_plain` is that chain itself, in its plain lane form; the
-wrapper takes it for tensors on the CPU and launches the kernel for tensors
-on a CUDA device.
+Two steps: :func:`prepare_tube_score` makes the model and the constants
+ready once (the masked, transposed posterior weights and the constant
+block on the device), :func:`tube_score_prepared` scores lanes with them;
+a CEM solve prepares once and scores every iteration, and
+:func:`tube_score_lanes` does both in one call. The GP runs in raw input
+coordinates: ``z_scale`` is folded into the support rows and the
+lengthscales, so the Jacobian needs no chain rule. :func:`tube_score_plain`
+is that chain itself, in its plain lane form; the wrapper takes it for
+tensors on the CPU and launches the kernel for tensors on a CUDA device.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,10 +41,12 @@ from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
     posterior_hyper,
 )
 
-__all__ = ["cem_score_supported", "tube_score_lanes", "tube_score_plain"]
+__all__ = ["LanePosterior", "TubeScorePrep", "cem_score_supported",
+           "prepare_posterior", "prepare_tube_score", "tube_score_lanes",
+           "tube_score_plain", "tube_score_prepared"]
 
 _DBL = ctypes.c_double
-_ARGTYPES = (VP,) * 8 + (INT,) * 6 + (_DBL, INT, _DBL, _DBL, _DBL, _DBL, INT,
+_ARGTYPES = (VP,) * 9 + (INT,) * 6 + (_DBL, INT, _DBL, _DBL, _DBL, _DBL, INT,
                                       VP)
 _COSTS = ("tracking", "exploration")
 
@@ -52,38 +59,106 @@ def cem_score_supported(ssm, n_s: int, cost_kind: str, n_perf: int) -> bool:
             and cost_kind in _COSTS)
 
 
-def _prepare(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
-             cost_kind, cost_args, like):
-    """Masked weights, raw-coordinate support rows and hyperparameters, and
-    the constants of the tube, as tensors of ``like``'s dtype and device."""
+class LanePosterior(NamedTuple):
+    """A GP posterior made ready for the lane kernels, once per model: the
+    support rows in raw coordinates ``x`` (n, d) and divided by each output
+    dim's lengthscales ``x_il`` (e, n, d), the masked weights ``w_mean``
+    (e, n) and ``w_var_t`` (e, n, n) (K^-1 masked and transposed, so a row of
+    the kernel's product tile is contiguous), and ``hyper`` = (inv_ls,
+    inv_ls^2 (e, d), sf2, floor (e,)) of :func:`posterior_hyper`. cem_score
+    takes it; gp_predict is to take it too."""
+
+    x: torch.Tensor
+    x_il: torch.Tensor
+    w_mean: torch.Tensor
+    w_var_t: torch.Tensor
+    hyper: tuple
+
+
+class TubeScorePrep(NamedTuple):
+    """What :func:`tube_score_prepared` needs besides the lanes: the
+    arguments of :func:`tube_score_lanes` (the plain version's input), and
+    for a model on a CUDA device the kernel's inputs — the posterior and the
+    constant block ``cst`` on the device."""
+
+    args: tuple
+    post: LanePosterior | None
+    cst: torch.Tensor | None
+
+
+def prepare_posterior(ssm, dtype=None) -> LanePosterior:
+    """:class:`LanePosterior` of a GP-SSM on its device (``z_scale`` folded
+    into the rows and lengthscales), in ``dtype`` (default the model's)."""
     gp = ssm.gp
-    kw = {"dtype": like.dtype, "device": like.device}
-
-    def t(v):
-        return torch.as_tensor(v, **kw)
-
+    kw = {"dtype": dtype or gp.x.dtype, "device": gp.x.device}
     mask = gp.mask
     inv_ls = torch.exp(-torch.stack([p["log_lengthscales"] for p in gp.params]))
     x = gp.x
     if ssm.z_scale is not None:
         inv_ls = inv_ls / ssm.z_scale[None, :]
         x = x * ssm.z_scale[None, :]
-    hyper = posterior_hyper(inv_ls,
-                            torch.stack([p["log_sf"] for p in gp.params]))
-    target = (cost_args["target"] if cost_kind == "tracking"
-              else torch.zeros(2))
-    return {
-        "x": x.to(**kw).contiguous(),
-        "w_mean": (gp.beta * mask[None]).to(**kw).contiguous(),
-        "w_var": (gp.kinv * (mask[None, :, None] * mask[None, None, :])
-                  ).to(**kw).contiguous(),
-        "hyper": [h.to(**kw) for h in hyper],
-        "noise": torch.exp(2.0 * gp.log_noise).to(**kw),
-        "a": t(a), "b": t(b), "k_fb": t(k_fb), "bmat": t(bmat),
-        "l_mu": ssm.l_mu.to(**kw), "l_sigma": ssm.l_sigma.to(**kw),
-        "target": t(target),
-        "h_obs": (t(h_mat_obs), t(h_obs)), "h_safe": (t(h_mat_safe), t(h_safe)),
-    }
+    hyper = tuple(h.to(**kw).contiguous() for h in posterior_hyper(
+        inv_ls, torch.stack([p["log_sf"] for p in gp.params])))
+    x = x.to(**kw).contiguous()
+    w_var = gp.kinv * (mask[None, :, None] * mask[None, None, :])
+    return LanePosterior(
+        x=x, x_il=(x[None] * hyper[0][:, None, :]).contiguous(),
+        w_mean=(gp.beta * mask[None]).to(**kw).contiguous(),
+        w_var_t=w_var.transpose(-1, -2).to(**kw).contiguous(), hyper=hyper)
+
+
+def _flat_values(v) -> list:
+    """A nested list (or scalar) of constants as a flat list of floats."""
+    if isinstance(v, (list, tuple)):
+        return [x for item in v for x in _flat_values(item)]
+    return [float(v)]
+
+
+def _constant_block(parts, kw) -> list:
+    """1-D tensors of ``kw`` for the constants ``parts`` in order: a tensor
+    is moved as it is, and every list goes in one host-to-device copy."""
+    host = [_flat_values(v) for v in parts if not isinstance(v, torch.Tensor)]
+    flat = torch.tensor([x for vals in host for x in vals], **kw)
+    out, at, k = [], 0, 0
+    for v in parts:
+        if isinstance(v, torch.Tensor):
+            out.append(v.to(**kw).reshape(-1))
+        else:
+            out.append(flat[at:at + len(host[k])])
+            at, k = at + len(host[k]), k + 1
+    return out
+
+
+def prepare_tube_score(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe,
+                       h_safe, c_safety: float, t_len: int, cost_kind: str,
+                       cost_args: dict) -> TubeScorePrep:
+    """Everything of a :func:`tube_score_lanes` call but the lanes, once per
+    model and constants (a CEM solve prepares once and scores every
+    iteration). For a model on a CUDA device: the posterior of
+    :func:`prepare_posterior` and the constant block (see ``Cst`` in
+    cem_score.cu), the plant's constants given as lists in one
+    host-to-device copy, those given as tensors and the model's own on the
+    device. For a model on the CPU only the arguments
+    are kept (the plain version takes them)."""
+    args = (ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
+            c_safety, t_len, cost_kind, cost_args)
+    prepare_tube_score.calls += 1
+    if not on_cuda(ssm.gp.x):
+        return TubeScorePrep(args, None, None)
+    post = prepare_posterior(ssm)
+    kw = {"dtype": post.x.dtype, "device": post.x.device}
+    target = cost_args["target"] if cost_kind == "tracking" else [0.0, 0.0]
+    inv_ls, inv_ls2, sf2, floor = post.hyper
+    cst = torch.cat([*_constant_block((a, b, k_fb, bmat, target, h_mat_obs,
+                                       h_obs, h_mat_safe, h_safe), kw),
+                     ssm.l_mu.to(**kw),
+                     ssm.l_sigma.to(**kw),
+                     torch.exp(2.0 * ssm.gp.log_noise).to(**kw), sf2, floor,
+                     inv_ls.reshape(-1), inv_ls2.reshape(-1)])
+    return TubeScorePrep(args, post, cst)
+
+
+prepare_tube_score.calls = 0
 
 
 def _weights(cost_args):
@@ -123,43 +198,51 @@ def tube_score_plain(ssm, u_flat, x0_cols, k_fb, a, b, bmat, h_mat_obs, h_obs,
                                  len(k_fb)), viol
 
 
-def tube_score_lanes(ssm, u_flat: torch.Tensor, x0_cols: torch.Tensor, k_fb,
-                     a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
-                     c_safety: float, t_len: int, cost_kind: str,
-                     cost_args: dict):
-    """CEM score over L lanes: u_flat (t_len n_u, L) controls, x0_cols
-    (2, L) initial states -> (cost (L,), viol (L,)); one launch on CUDA.
-    The constants (k_fb, a, b, bmat = S^T S of the Lipschitz lift, the
-    polytopes) may be tensors or nested lists."""
+def tube_score_prepared(prep: TubeScorePrep, u_flat: torch.Tensor,
+                        x0_cols: torch.Tensor):
+    """CEM score over L lanes from a :func:`prepare_tube_score` result:
+    u_flat (t_len n_u, L) controls, x0_cols (2, L) initial states -> (cost
+    (L,), viol (L,)); one launch on CUDA, the plain version on the CPU."""
+    ssm, k_fb, *_, h_obs, _, h_safe, c_safety, t_len, cost_kind, cost_args = (
+        prep.args)
     if not on_cuda(u_flat, x0_cols, ssm.gp.x):
-        return tube_score_plain(ssm, u_flat, x0_cols, k_fb, a, b, bmat,
-                                h_mat_obs, h_obs, h_mat_safe, h_safe,
-                                c_safety, t_len, cost_kind, cost_args)
+        return tube_score_plain(ssm, u_flat, x0_cols, *prep.args[1:])
     _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind)
-    pr = _prepare(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
-                  cost_kind, cost_args, u_flat)
-    cst = torch.cat([v.reshape(-1) for v in (
-        pr["a"], pr["b"], pr["k_fb"], pr["bmat"], pr["l_mu"], pr["l_sigma"],
-        pr["noise"], pr["hyper"][2], pr["hyper"][3], pr["hyper"][0],
-        pr["hyper"][1], pr["target"], *pr["h_obs"], *pr["h_safe"])])
+    post = prep.post
     u_flat, x0_cols = u_flat.contiguous(), x0_cols.contiguous()
-    check("tube_score_lanes", pr["x"], pr["w_mean"], pr["w_var"], cst, u_flat,
-          x0_cols)
-    n, n_u, L = pr["x"].shape[0], pr["b"].shape[1], u_flat.shape[1]
+    check("tube_score_prepared", post.x, post.x_il, post.w_mean,
+          post.w_var_t, prep.cst, u_flat, x0_cols)
+    (n, d), L = post.x.shape, u_flat.shape[1]
     cost = torch.empty((L,), dtype=u_flat.dtype, device=u_flat.device)
     viol = torch.empty_like(cost)
     w_x, w_u, w_t, scale = _weights(cost_args)
     fn = _build.load("cem_score", "cem_score_lanes", _ARGTYPES)
     with torch.cuda.device(u_flat.device):
-        code = fn(pr["x"].data_ptr(), pr["w_mean"].data_ptr(),
-                  pr["w_var"].data_ptr(), cst.data_ptr(), u_flat.data_ptr(),
-                  x0_cols.data_ptr(), cost.data_ptr(), viol.data_ptr(), n, n_u,
-                  L, t_len, pr["h_obs"][1].shape[0], pr["h_safe"][1].shape[0],
-                  float(c_safety), int(cost_kind == "exploration"), w_x, w_u,
-                  w_t, scale, is_f64(u_flat), stream_ptr(u_flat))
-    raise_on_error("tube_score_lanes", code)
-    tube_score_lanes.launches += 1
+        code = fn(post.x.data_ptr(), post.x_il.data_ptr(),
+                  post.w_mean.data_ptr(), post.w_var_t.data_ptr(),
+                  prep.cst.data_ptr(), u_flat.data_ptr(), x0_cols.data_ptr(),
+                  cost.data_ptr(), viol.data_ptr(), n, d - 2, L, t_len,
+                  len(h_obs), len(h_safe), float(c_safety),
+                  int(cost_kind == "exploration"), w_x, w_u, w_t, scale,
+                  is_f64(u_flat), stream_ptr(u_flat))
+    raise_on_error("tube_score_prepared", code)
+    tube_score_prepared.launches += 1
     return cost, viol
 
 
-tube_score_lanes.launches = 0
+tube_score_prepared.launches = 0
+
+
+def tube_score_lanes(ssm, u_flat: torch.Tensor, x0_cols: torch.Tensor, k_fb,
+                     a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
+                     c_safety: float, t_len: int, cost_kind: str,
+                     cost_args: dict):
+    """CEM score over L lanes: u_flat (t_len n_u, L) controls, x0_cols
+    (2, L) initial states -> (cost (L,), viol (L,)); :func:`
+    prepare_tube_score`, then :func:`tube_score_prepared` (one launch on
+    CUDA). The constants (k_fb, a, b, bmat = S^T S of the Lipschitz lift,
+    the polytopes) may be tensors or nested lists."""
+    return tube_score_prepared(
+        prepare_tube_score(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs,
+                           h_mat_safe, h_safe, c_safety, t_len, cost_kind,
+                           cost_args), u_flat, x0_cols)

@@ -38,7 +38,8 @@ import torch
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.ops.kernels import (
     cem_score_supported,
-    tube_score_lanes,
+    prepare_tube_score,
+    tube_score_prepared,
 )
 from safe_exploration_tpu_torch.solvers.cem import (
     CemConfig,
@@ -138,10 +139,12 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     x0_wide = x0s.T.repeat(1, m)
     score_b = make_score(x0s.T)
     if fused:
+        # the model and constants made ready once, scored every iteration
+        prep = prepare_tube_score(ssm, *consts[:3], consts[3], *polys,
+                                  c_safety, t_len, cost_kind, lane_cost_args)
+
         def scores_wide(u_wide):
-            c, v = tube_score_lanes(ssm, u_wide, x0_wide, k_fb, a, b, bmat,
-                                    h_mat_obs, h_obs, h_mat_safe, h_safe,
-                                    c_safety, t_len, cost_kind, cost_args)
+            c, v = tube_score_prepared(prep, u_wide, x0_wide)
             return c + cfg.penalty * v
     else:
         score_wide = make_score(x0_wide)

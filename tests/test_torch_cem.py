@@ -12,7 +12,8 @@ plain versions against the JAX package, on the CPU.
   * ``cem_plan_lanes`` and the ``planner`` of ``build_experiment`` (portable
     and lane backends) fed JAX's own draws (``jax.random.split`` then
     ``jax.random.normal`` per iteration, as the JAX planners draw them) in
-    f64: the same feasible flags, and k_ff, cost and violation at 1e-8;
+    f64: the same feasible flags, and k_ff, cost and violation at 1e-8; the
+    fused scorer prepared once per solve;
   * two closed-loop ``get_action_batch`` steps of ``build_experiment(solver=
     "cem")`` against JAX's in f64: the same flags and u at 1e-8.
 
@@ -56,8 +57,10 @@ from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     cem_score_supported,
     gp_predict_lanes,
     gp_predict_plain,
+    prepare_tube_score,
     tube_score_lanes,
     tube_score_plain,
+    tube_score_prepared,
 )
 from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
     ExperimentConfig,
@@ -260,7 +263,7 @@ def test_cpu_wrappers_take_plain_versions(models, plant):
     """On CPU tensors the two CEM wrappers are their plain versions and
     count no launch."""
     _, tssm = models("f64", True)
-    before = (gp_predict_lanes.launches, tube_score_lanes.launches)
+    before = (gp_predict_lanes.launches, tube_score_prepared.launches)
     u, x0 = _lanes(9, 3, 5)
     a = _port_score(tssm, plant, u, x0, 3, "tracking", torch.float64,
                     tube_score_lanes)
@@ -268,7 +271,7 @@ def test_cpu_wrappers_take_plain_versions(models, plant):
                     tube_score_plain)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert (gp_predict_lanes.launches, tube_score_lanes.launches) == before
+    assert (gp_predict_lanes.launches, tube_score_prepared.launches) == before
 
 
 def _jax_draws(key, n_it, shape, dtype=jnp.float64):
@@ -307,10 +310,13 @@ def test_cem_plan_lanes_matches_jax_with_its_draws(models, plant, cost_kind,
                              cost_kind, jcost, JaxCemConfig(**cfg),
                              warm=jnp.asarray(warm))
     tcost = {"target": _t(plant["target"])} if cost_kind == "tracking" else {}
+    prepared = prepare_tube_score.calls
     out = cem_plan_lanes(None, tssm, _t(x0s), *(_t(v) for v in args), 2.0,
                          cost_kind, tcost, CemConfig(**cfg, gp_impl=gp_impl),
                          warm=_t(warm),
                          noise=_t(_jax_draws(key, 3, (8, 3, B))))
+    # the fused scorer prepares the model once per solve
+    assert prepare_tube_score.calls == prepared + (gp_impl == "auto")
     _assert_plans(out, ref)
     assert np.asarray(ref[1]).any() and not np.asarray(ref[1]).all()
     np.testing.assert_allclose(out[3]["p_traj"].numpy(),

@@ -11,10 +11,14 @@ trsm's three entries (trsm_lower, solve_psd, tri_inv_lower) within 2e-4 of
 the f64 plain result (the gate tests/test_pallas.py uses for
 the f32 Pallas Cholesky); f32 gp_predict at 3e-5 of the f32 plain result
 (the gate of tests/test_pallas_gp_predict.py); f32 cem_score within 2e-4
-of the f64 plain result (the gate of tests/test_pallas_cem_score.py);
+of the f64 plain result (the gate of tests/test_pallas_cem_score.py), at
+the ragged lane counts within twice the plain version's own f32 error (on
+the card or the CPU) on the same inputs where that is larger;
 f32 cholesky_hbm within 3e-4 of the f64 plain result (the gate
 tests/test_pallas.py uses for the f32 HBM-tier Pallas Cholesky), f64 at
-1e-9; the GP refit at n_max 2048 on the GPU against the CPU at 1e-9.
+1e-9 (at 1e-9 of ``torch.linalg.cholesky`` for the 64-matrix batch, whose
+plain factor would take minutes); the GP refit at n_max 2048 on the GPU
+against the CPU at 1e-9.
 """
 
 import numpy as np
@@ -35,6 +39,7 @@ from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     gp_predict_lanes,
     gp_predict_plain,
     gram_plain,
+    prepare_tube_score,
     rbf_gram_masked,
     solve_psd,
     solve_psd_plain,
@@ -44,6 +49,7 @@ from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     trsm_plain,
     tube_score_lanes,
     tube_score_plain,
+    tube_score_prepared,
 )
 
 E = 2   # output dims, as on the refit path
@@ -216,14 +222,121 @@ def test_cuda_cem_score_matches_plain(n, n_lanes, dtype, cost_kind):
                   torch.tensor(x0, dtype=dtype, device=device), *consts,
                   *polys, 2.0, 5, cost_kind, args)
 
-    before = tube_score_lanes.launches
+    before = tube_score_prepared.launches
     out = run(tube_score_lanes, "cuda", dt)
-    assert tube_score_lanes.launches == before + 1
+    assert tube_score_prepared.launches == before + 1
     ref = run(tube_score_plain, "cpu", torch.float64)
     assert (ref[1] > 0).any() and (ref[1] == 0).any()
     for o, r in zip(out, ref):
         assert o.shape == r.shape
         assert _rel(o, r) < (1e-10 if dt == torch.float64 else 2e-4)
+
+
+def _round32(arr):
+    """The model's float arrays rounded to f32, as f64 values."""
+    def rnd(v):
+        if isinstance(v, np.ndarray) and v.dtype.kind == "f":
+            return v.astype(np.float32).astype(np.float64)
+        return v
+
+    return {**{k: rnd(v) for k, v in arr.items()},
+            "params": [{k: rnd(v) for k, v in p.items()}
+                       for p in arr["params"]]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_lanes,dtype", [
+    (64, 16385, "float32"), (64, 33, "float64"), (66, 33, "float32"),
+    (200, 16385, "float64"), (200, 33, "float32"), (512, 16385, "float32"),
+    (512, 33, "float64"), (1024, 33, "float32")])
+def test_cuda_cem_score_ragged_lanes_resident_and_streamed(n, n_lanes, dtype):
+    """Ragged lane counts (one past a block of 64 lanes, and 33) with W
+    resident in shared memory (n = 64; n = 66 with its rows padded to 68)
+    and streamed (n = 200, 512, 1024;
+    blocks of 32 lanes at 512 in f64 and 1024 in f32), both costs, against
+    the plain version in f64 on the card, from the same inputs (an f32
+    kernel's rounded to f32, as chip_smoke holds it); every fourth lane
+    starts at rest and every second is slow, so some lanes keep the
+    constraints."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    arr = _ssm_arrays(n, seed=1)
+    consts, polys, target = _plant()
+    rng = np.random.default_rng(n + n_lanes)
+    u = 0.4 * rng.standard_normal((5, n_lanes))
+    x0 = rng.uniform(-1.0, 1.0, (2, n_lanes)) * np.array([[0.15], [0.4]])
+    u[:, ::2] *= 0.1
+    x0[:, ::2] *= 0.1
+    u[:, ::4] = 0.0
+    x0[:, ::4] = 0.0
+    ref_arr = arr
+    if dt == torch.float32:
+        ref_arr, u, x0 = _round32(arr), *(v.astype(np.float32) for v in (u, x0))
+    for cost_kind in ("tracking", "exploration"):
+        args = {"target": target} if cost_kind == "tracking" else {}
+
+        def run(fn, arrays, dtype, device="cuda"):
+            ssm = gpssm_from_numpy(arrays, ("rbf", "rbf"), device=device,
+                                   dtype=dtype)
+            t = {"dtype": dtype, "device": device}
+            return fn(ssm, torch.tensor(u, **t), torch.tensor(x0, **t),
+                      *consts, *polys, 2.0, 5, cost_kind, args)
+
+        out = run(tube_score_lanes, arr, dt)
+        ref = run(tube_score_plain, ref_arr, torch.float64)
+        assert (ref[1] > 0).any() and (ref[1] == 0).any()
+        # f32: 2e-4, or where the plain version in f32 misses that itself on
+        # these inputs (sqrt(sf2 - quad) loses digits to the cancellation in
+        # any order of the sums: 2.3e-4 on the CPU at n = 200, L = 33), twice
+        # its worse error on the card and on the CPU
+        plain32 = ([run(tube_score_plain, arr, dt, dev) for dev in
+                    ("cuda", "cpu")] if dt == torch.float32 else [])
+        for k, (o, r) in enumerate(zip(out, ref)):
+            assert o.shape == r.shape == (n_lanes,)
+            err = _rel(o, r)
+            tol = 1e-10 if dt == torch.float64 else max(
+                [2e-4] + [2 * _rel(p[k], r) for p in plain32])
+            assert err < tol, (cost_kind, err, tol)
+
+
+@pytest.mark.cuda
+def test_cuda_cem_plan_lanes_prepares_once_per_solve(monkeypatch):
+    """The lane CEM on the card prepares the scorer once per solve and
+    launches it once per iteration; its plan equals that of a solve that
+    prepares anew for every scoring call."""
+    _need_cuda()
+    from safe_exploration_tpu_torch.runtime.config import (
+        ExperimentConfig,
+        build_experiment,
+    )
+    from safe_exploration_tpu_torch.solvers import cem_lanes
+
+    exp = build_experiment(ExperimentConfig(
+        solver="cem", n_safe=5, n_max=64, cem_samples=64, cem_elites=12,
+        cem_iterations=4), dtype=torch.float32, device="cuda")
+    ssm = gpssm_from_numpy(_ssm_arrays(64, seed=3), ("rbf", "rbf"),
+                           device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    x0s = torch.tensor(rng.uniform(-1.0, 1.0, (32, 2)) * [0.15, 0.4],
+                       dtype=torch.float32, device="cuda")
+    warm = torch.zeros((32, 5, 1), dtype=torch.float32, device="cuda")
+    noise = torch.tensor(rng.standard_normal((4, 64, 5, 32)),
+                         dtype=torch.float32, device="cuda")
+    before = (prepare_tube_score.calls, tube_score_prepared.launches)
+    once = exp["batch_planner"](ssm, x0s, warm, noise=noise)
+    assert (prepare_tube_score.calls, tube_score_prepared.launches) == (
+        before[0] + 1, before[1] + 4)
+
+    def per_call(prep, u_flat, x0_cols):
+        ssm_, *rest = prep.args
+        return tube_score_lanes(ssm_, u_flat, x0_cols, *rest)
+
+    monkeypatch.setattr(cem_lanes, "tube_score_prepared", per_call)
+    again = exp["batch_planner"](ssm, x0s, warm, noise=noise)
+    for a, b in zip(once[:3], again[:3]):
+        assert torch.equal(a, b)
+    for key in ("cost", "warm_next", "p_traj"):
+        assert torch.equal(once[3][key], again[3][key])
 
 
 def _spd(n, seed=0):
@@ -263,6 +376,65 @@ def test_cuda_cholesky_hbm_nan_on_indefinite_and_lower_only():
     ref = cholesky_hbm(b.cuda()).cpu()
     b[:, upper] = float("nan")
     assert torch.equal(cholesky_hbm(b.cuda()).cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(1025, "float64"), (4096, "float32")])
+def test_cuda_cholesky_hbm_edges_match_plain(n, dtype):
+    """One column past the blocked tier's limit (a last panel of one column)
+    and the largest n of chip_smoke's [hbm] phase, against the plain
+    version's f64 factor on the card."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    m = torch.randn((E, n, n), dtype=torch.float64, device="cuda", generator=g)
+    a = m @ m.mT + n * torch.eye(n, dtype=torch.float64, device="cuda")
+    ref = cholesky_hbm_plain(a)
+    lc = cholesky_hbm(a.to(dt))
+    assert torch.equal(torch.triu(lc, 1), torch.zeros_like(lc))
+    if dt == torch.float64:
+        assert _rel(lc, ref) < 1e-9
+    else:
+        torch.testing.assert_close(lc.double(), ref, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_cholesky_hbm_over_several_waves():
+    """64 matrices of n = 1088 in f64 (~600 MB) at once: every launch of
+    the panel chain takes several waves of CTAs, so a CTA that read what
+    another CTA of its launch wrote would show here; held against
+    torch.linalg.cholesky of the same matrices (a reference of this test
+    only), every matrix."""
+    _need_cuda()
+    n, batch = 1088, 64
+    g = torch.Generator(device="cuda").manual_seed(n)
+    a = torch.empty((batch, n, n), dtype=torch.float64, device="cuda")
+    for i in range(0, batch, 16):
+        m = torch.randn((16, n, n), dtype=torch.float64, device="cuda",
+                        generator=g)
+        a[i:i + 16] = m @ m.mT + n * torch.eye(n, dtype=torch.float64,
+                                              device="cuda")
+        del m
+    l = cholesky_hbm(a)
+    ref = torch.linalg.cholesky(a)
+    assert _rel(l, ref) < 1e-9
+    assert torch.equal(torch.triu(l, 1), torch.zeros_like(l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("at", [703, 704])
+def test_cuda_cholesky_hbm_nan_across_a_panel_boundary(at, dtype):
+    """A bad pivot in the last column of a panel (703) and in the first of
+    the next (704): NaN from its column on, through every later launch;
+    finite before it."""
+    _need_cuda()
+    a = _spd(1100, seed=2)
+    a[:, at, at] = -1.0
+    l = cholesky_hbm(a.to(getattr(torch, dtype)).cuda()).cpu()
+    assert torch.isfinite(l[:, :at, :at]).all()
+    assert torch.isnan(l[:, at:, at]).all() and torch.isnan(l[:, -1, -1]).all()
+    assert torch.isnan(l[:, at + 64:, at + 64]).all()
 
 
 @pytest.mark.cuda

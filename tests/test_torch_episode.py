@@ -314,17 +314,26 @@ SLICE_SET = ["n_ep=2", "n_steps=4", "n_max=64", "hyp_iters=20",
              "cem_iterations=2"]
 
 
-def test_run_experiment_matches_jax_with_its_draws():
+def test_run_experiment_matches_jax_with_its_draws(monkeypatch):
     """The whole slice: initial data, fit + Lipschitz calibration, two
     episodes of get_action / env_step on the bucketed model, an ssm_update
     and a fit after each, against the JAX runner (what its run_experiment
     runs, with the key of cfg.seed). Episode 1 falls back on every step,
     episode 2 is feasible on every step. The port's run_experiment gives
-    the series, its run_episodic the final model (l_mu is not compared:
-    see test_lipschitz_estimates_match_jax)."""
+    the series, the run_episodic it calls the final model (l_mu is not
+    compared: see test_lipschitz_estimates_match_jax)."""
     from safe_exploration_tpu.runtime.episode import (
         run_episodic as jax_run_episodic,
     )
+    from safe_exploration_tpu_torch.runtime import episode as tep
+
+    runs = []
+
+    def recorded(*args, **kwargs):
+        runs.append(run_episodic(*args, **kwargs))
+        return runs[-1]
+
+    monkeypatch.setattr(tep, "run_episodic", recorded)
 
     cfg = _apply_overrides(CONFIGS["pendulum_episode"], SLICE_SET)
     jexp = jax_build(dataclasses.replace(
@@ -347,12 +356,7 @@ def test_run_experiment_matches_jax_with_its_draws():
     assert rs["violations"] == [0, 0] and rs["n_data"] == [40, 44]
     for k in ("model_error", "mean_cost"):
         np.testing.assert_allclose(series[k], rs[k], rtol=1e-6, atol=0)
-    texp = build_experiment(cfg, dtype=torch.float64, device="cpu")
-    out = run_episodic(
-        texp["env"], texp["init_state"], texp["get_action"], texp["a"],
-        texp["b"], texp["k_fb"], kern_types=KT, l_mu=texp["l_mu"],
-        l_sigma=texp["l_sigma"], make_ssm=texp["make_ssm"], draws=draws,
-        **common)
+    (out,) = runs
     assert out["series"]["n_data"] == rs["n_data"]
     jg, tg = ref["ssm"].gp, out["ssm"].gp
     _assert_factors(tg, jg, 1e-8)

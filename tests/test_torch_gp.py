@@ -2,14 +2,10 @@
 package, in f64 on the CPU (the refit runs through the kernels' plain
 versions there).
 
-Factors (chol, beta, kinv) are held at 1e-9 relative. The cfg1 golden's
-posterior is evaluated on the JAX-fitted state carried across as numpy
-arrays (tools/regen_goldens.build_problem, as tests/test_goldens.py does)
-and held to the golden at 1e-4, variance normalized by the prior kzz.
+Factors (chol, beta, kinv) are held at 1e-9 relative. The tests on the
+JAX-fitted cfg1 golden state are in tests/test_torch_sqp_lanes.py, which
+builds that state once.
 """
-
-import os
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,14 +17,8 @@ from safe_exploration_tpu.models import gp as jgp  # noqa: E402
 from safe_exploration_tpu.models import ssm as jssm  # noqa: E402
 from safe_exploration_tpu_torch.models import gp as tgp  # noqa: E402
 from safe_exploration_tpu_torch.models import ssm as tssm  # noqa: E402
-from safe_exploration_tpu_torch.models.convert import (  # noqa: E402
-    gpssm_from_numpy,
-    gpssm_to_numpy,
-)
-from test_torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import one_torch_thread  # noqa: E402,F401
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN_DIR = os.path.join(_REPO, "tests", "goldens")
 KT = ("rbf", "rbf")
 
 
@@ -165,45 +155,3 @@ def test_precision_ff_is_not_ported():
     _, t = _both_init()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgp.gp_refit(t.replace(precision="ff"))
-
-
-@pytest.fixture(scope="module")
-def cfg1_state():
-    sys.path.insert(0, os.path.join(_REPO, "tools"))
-    try:
-        from regen_goldens import build_problem
-    finally:
-        sys.path.pop(0)
-    _, ssm, probes, _, _ = build_problem("pendulum", 5, 0)
-    return jax_gpssm_to_numpy(ssm), np.asarray(probes), ssm
-
-
-def test_numpy_bridge_round_trip(cfg1_state):
-    arrays, _, _ = cfg1_state
-    back = gpssm_to_numpy(gpssm_from_numpy(arrays, KT, device="cpu"))
-    for k, v in arrays.items():
-        if k == "params":
-            for pa, pb in zip(v, back[k]):
-                for name in pa:
-                    np.testing.assert_array_equal(pa[name], pb[name])
-        elif v is None:
-            assert back[k] is None
-        else:
-            np.testing.assert_array_equal(np.asarray(v), back[k])
-
-
-def test_cfg1_golden_posterior_on_the_jax_fitted_state(cfg1_state):
-    arrays, probes, jax_ssm = cfg1_state
-    path = os.path.join(GOLDEN_DIR, "cfg1_pendulum_h5.npz")
-    g = np.load(path)
-    np.testing.assert_allclose(probes, g["probes"], rtol=0, atol=1e-6)
-    ssm = gpssm_from_numpy(arrays, KT, device="cpu")
-    mean, var = tgp.gp_predict(ssm.gp, _t(probes))
-    scale_m = np.max(np.abs(g["posterior_mean"])) + 1e-12
-    assert np.max(np.abs(mean.numpy() - g["posterior_mean"])) / scale_m < 1e-4
-    kzz = max(float(np.exp(2.0 * p["log_sf"])) for p in arrays["params"])
-    assert np.max(np.abs(var.numpy() - g["posterior_var"])) / kzz < 1e-4
-    # and the port's own refit of the carried data reproduces JAX's factors
-    refit = tgp.gp_refit(ssm.gp)
-    for f in ("chol", "beta", "kinv"):
-        assert _rel(getattr(refit, f).numpy(), getattr(jax_ssm.gp, f)) < 1e-9

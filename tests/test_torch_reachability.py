@@ -3,15 +3,10 @@ reachability and the safety margins against the JAX package, f64 on the CPU.
 
 Every function is held to its JAX counterpart at 1e-10 relative, with and
 without input scaling, and the batched forms (leading sample dimension, the
-portable CEM's layout) to JAX's ``vmap``. On the JAX-fitted cfg1 state
-(tools/regen_goldens.build_problem, carried across as numpy arrays) the
-port's ``multistep_reachability`` and the lane scorer's margins reproduce
-the frozen golden at the goldens' gates: 1e-4 relative on the tube, 1e-4
-absolute on the margins.
+portable CEM's layout) to JAX's ``vmap``. The tests on the JAX-fitted
+cfg1 golden state are in tests/test_torch_sqp_lanes.py, which builds that
+state once.
 """
-
-import os
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,16 +31,10 @@ from safe_exploration_tpu_torch.models import ssm as tssm_mod  # noqa: E402
 from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy  # noqa: E402
 from safe_exploration_tpu_torch.ops import ellipsoid as tel  # noqa: E402
 from safe_exploration_tpu_torch.ops import lipschitz as tlip  # noqa: E402
-from safe_exploration_tpu_torch.ops.kernels import tube_score_plain  # noqa: E402
 from safe_exploration_tpu_torch.reachability import onestep as tos  # noqa: E402
 from safe_exploration_tpu_torch.reachability import safety as tsafe  # noqa: E402
-from safe_exploration_tpu_torch.solvers import sqp_lanes as tl  # noqa: E402
-from safe_exploration_tpu_torch.solvers.cem import tube_violation  # noqa: E402
-from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg  # noqa: E402
 from test_torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(_REPO, "tests", "goldens", "cfg1_pendulum_h5.npz")
 KT = ("rbf", "rbf")
 
 
@@ -91,19 +80,6 @@ def prior():
     a, b = jax_lin(env)
     k_fb = -jax_dlqr(a, b, jnp.eye(2), jnp.eye(1))[0]
     return np.asarray(a), np.asarray(b), np.asarray(k_fb)
-
-
-@pytest.fixture(scope="module")
-def cfg1():
-    """The JAX-fitted cfg1 state (both sides) and its golden."""
-    sys.path.insert(0, os.path.join(_REPO, "tools"))
-    try:
-        from regen_goldens import build_problem
-    finally:
-        sys.path.pop(0)
-    exp, jssm, _, x0, _ = build_problem("pendulum", 5, 0)
-    tssm = gpssm_from_numpy(jax_gpssm_to_numpy(jssm), KT, device="cpu")
-    return exp, jssm, tssm, np.asarray(x0), np.load(GOLDEN)
 
 
 # ------------------------------------------------------------- ellipsoids
@@ -230,56 +206,6 @@ def test_onestep_and_multistep_match_jax(models, prior, z_scale):
         for o, r in zip(out, ref):
             assert o.shape == r.shape
             assert _rel(o.numpy(), r) < 1e-10
-
-
-def test_multistep_reachability_matches_cfg1_golden(cfg1):
-    exp, _, tssm, x0, g = cfg1
-    k_fb = _t(exp["k_fb"])
-    p, q, var = tos.multistep_reachability(
-        tssm, _t(x0), _t(g["k_ff_eval"]), k_fb.expand(5, 1, 2), _t(exp["a"]),
-        _t(exp["b"]), 2.5)
-    assert _rel(p.numpy(), g["p_traj"]) < 1e-4
-    assert _rel(q.numpy(), g["q_traj"]) < 1e-4
-    assert _rel(var.numpy(), g["var_traj"]) < 1e-4
-    spec = exp["env"].spec
-    d_stage = tsafe.lin_ellipsoid_safety_distance(
-        p, q, _t(spec.h_mat_obs), _t(spec.h_obs))
-    d_term = tsafe.lin_ellipsoid_safety_distance(
-        p[-1], q[-1], _t(spec.h_mat_safe), _t(spec.h_safe))
-    assert np.max(np.abs(d_stage.numpy() - g["d_stage"])) < 1e-4
-    assert np.max(np.abs(d_term.numpy() - g["d_term"])) < 1e-4
-    viol = tube_violation(p, q, _t(spec.h_mat_obs), _t(spec.h_obs),
-                          _t(spec.h_mat_safe), _t(spec.h_safe))
-    ref = (np.maximum(g["d_stage"], 0.0).sum()
-           + np.maximum(g["d_term"], 0.0).sum())
-    assert abs(float(viol) - ref) < 1e-4
-
-
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_lane_scorer_margins_match_cfg1_golden(cfg1, impl):
-    """The lane tube (plain form, and the fused posterior's plain version)
-    and the whole-tube scorer's plain version on the golden's state and
-    plan: stage and terminal margins at 1e-4."""
-    exp, _, tssm, x0, g = cfg1
-    spec = exp["env"].spec
-    k_fb, a, b = (np.asarray(exp[k]) for k in ("k_fb", "a", "b"))
-    s_lift = np.concatenate([np.eye(2), k_fb], 0)
-    bmat = s_lift.T @ s_lift
-    u = _t(g["k_ff_eval"].reshape(5, 1))
-    rows = [_t(x0[i:i + 1]) for i in range(2)]
-    y = tl._rollout_y_lanes(tssm, u, rows, k_fb.tolist(), a.tolist(),
-                            b.tolist(), _TubeCfg(5, 2.5, 0), bmat.tolist(),
-                            impl=impl)
-    polys = [np.asarray(v) for v in (spec.h_mat_obs, spec.h_obs,
-                                     spec.h_mat_safe, spec.h_safe)]
-    d = tl._dist_lanes(y, 5, 2, *polys)[:, 0].numpy()
-    ref = np.concatenate([g["d_stage"].reshape(-1), g["d_term"]])
-    assert np.max(np.abs(d - ref)) < 1e-4
-    _, viol = tube_score_plain(
-        tssm, u, _t(x0[:, None]), *(_t(v) for v in (k_fb, a, b, bmat)),
-        *(_t(v) for v in polys), 2.5, 5, "tracking",
-        {"target": _t(spec.target)})
-    assert abs(float(viol[0]) - np.maximum(ref, 0.0).sum()) < 1e-4
 
 
 # ------------------------------------------------------------------ safety

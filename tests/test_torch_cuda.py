@@ -379,11 +379,14 @@ def test_cuda_cholesky_hbm_nan_on_indefinite_and_lower_only():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,dtype", [(1025, "float64"), (4096, "float32")])
+@pytest.mark.parametrize("n,dtype", [(1, "float64"), (64, "float32"),
+                                     (65, "float64"), (200, "float32"),
+                                     (1025, "float64"), (4096, "float32")])
 def test_cuda_cholesky_hbm_edges_match_plain(n, dtype):
-    """One column past the blocked tier's limit (a last panel of one column)
-    and the largest n of chip_smoke's [hbm] phase, against the plain
-    version's f64 factor on the card."""
+    """The panel edges (one column; one whole panel; one column past it; a
+    ragged fourth panel), one column past the blocked tier's limit (a last
+    panel of one column) and the largest n of chip_smoke's [hbm] phase,
+    against the plain version's f64 factor on the card."""
     _need_cuda()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(n)

@@ -13,8 +13,7 @@ time) and carried across as numpy arrays:
     the carried data against JAX's factors at 1e-9;
   * the port's ``multistep_reachability`` and the lane scorer's margins on
     the cfg1 golden's plan, at the goldens' gates: 1e-4 relative on the
-    tube, 1e-4 absolute on the margins.
-
+    tube, 1e-4 absolute on the margins;
   * ``solve_safempc_lanes`` against the JAX lane solve on the same inputs
     at H=5, B=8 with a small budget, feasible and infeasible lanes, for the
     tracking and the exploration objective: feasible flags exact, k_ff at

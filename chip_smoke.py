@@ -16,21 +16,24 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
   2. build    nvcc for every kernel source, all at once
   3. kernels  every kernel against its plain version at the main path's shapes
               (e=2, n=128), at n=512 and at a ragged n=200, in f32 and f64:
-              gram, cholesky (its shared-memory tier to n=224 f32 / 160 f64
+              gram (also at n=2048; exactly symmetric), cholesky (its
+              shared-memory tier to n=224 f32 / 160 f64
               and its blocked tier above), trsm's three entries (trsm_lower
               at m=1, 7, n; solve_psd at m=1; tri_inv_lower, zero above the
               diagonal); NaN from a bad pivot in each Cholesky tier; CUDA-
               event ms, device ms per CUDA kernel (profiler) and bound at the
-              least work of beta (solve_psd), K^-1's solve (tri_inv_lower)
-              and cholesky at n=128, 512 and 2048, each beside its
-              torch.linalg call
-     cem      gp_predict and cem_score against their plain versions at
-              n = 64 (H 5) and 128 (H 3, pendulum_batch's shape), L = 16,384
-              and a ragged 1,000, f32 and f64, with and without the
-              Jacobian, z_scale on and off, tracking and exploration;
-              CUDA-event times of kernel and plain version; cem_score's
-              call with a prepared object (as the CEM path calls it) and
-              without (prepare and score), and its device time (profiler)
+              least work of the Gram, beta (solve_psd), K^-1's solve
+              (tri_inv_lower) and cholesky at n=128, 512 and 2048, each
+              beside its torch.linalg call where one exists
+     cem      gp_predict (its prepared call against the plain version on
+              the same prepared posterior) and cem_score against their
+              plain versions at n = 64 (H 5) and 128 (H 3, pendulum_batch's
+              shape), L = 16,384 and a ragged 1,000, f32 and f64, with and
+              without the Jacobian, z_scale on and off, tracking and
+              exploration; CUDA-event times of kernel and plain version;
+              both kernels' calls with a prepared object (as the CEM path
+              calls them), the preparation alone and the call without one,
+              and their device times (profiler)
   4. path     build_experiment at the headline budget, a GP refit, two batched
               get_action_batch calls around a plant step and an ssm_update
               (a second refit); launch counts are zeroed just before and read
@@ -172,9 +175,9 @@ def _gram_args(rng, n, dtype, device):
     mask = (np.arange(n) < n - 7).astype(np.float64)   # ragged valid prefix
     log_ls = rng.normal(-0.5, 0.3, (E, D_IN))
     log_sf = np.array([-3.0, -2.5])
-    noise = np.exp(2.0 * np.array([-4.0, -3.8]))
+    log_noise = np.array([-4.0, -3.8])
     return [torch.tensor(a, dtype=dtype, device=device)
-            for a in (x, mask, log_ls, log_sf, noise)]
+            for a in (x, mask, log_ls, log_sf, log_noise)]
 
 
 def phase_kernels(seed: int) -> dict:
@@ -195,6 +198,19 @@ def phase_kernels(seed: int) -> dict:
 
     rng = np.random.default_rng(seed)
     errs = {"gram": 0.0, "cholesky": 0.0, "trsm": 0.0}
+    # the Gram alone at run (b)'s shape: its tiles over the lower triangle
+    # and their mirrors against the plain version, exactly symmetric
+    for dtype in (torch.float32, torch.float64):
+        args = _gram_args(rng, N_HBM, dtype, "cuda")
+        k = rbf_gram_masked(*args)
+        e_g = _rel(k, gram_plain(*args))
+        sym = bool(torch.equal(k, k.mT))
+        tol_g = 1e-10 if dtype == torch.float64 else 1e-5
+        print(f"[kernels] {str(dtype)[6:]} e={E} n={N_HBM}: gram rel {e_g:.2e}"
+              f" (tol {tol_g:g}), exactly symmetric {sym}", flush=True)
+        if not (e_g <= tol_g and sym):
+            _fail(f"gram disagrees with plain or is not symmetric at {dtype} "
+                  f"n={N_HBM}")
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
         for n in (N_PATH, 200, 512):
@@ -203,6 +219,7 @@ def phase_kernels(seed: int) -> dict:
             k = rbf_gram_masked(*args)
             kp = gram_plain(*args)
             e_g = _rel(k, kp)
+            sym = bool(torch.equal(k, k.mT))
             k64 = gram_plain(*args64)
             l = cholesky_blocked(k64.to(dtype))
             l64 = cholesky_plain(k64)
@@ -225,11 +242,11 @@ def phase_kernels(seed: int) -> dict:
             a_t = max(_abs(x, xp) for x, xp in pairs)
             tol_g, tol_ct = (1e-10, 1e-10) if f64 else (1e-5, 2e-4)
             print(f"[kernels] {str(dtype)[6:]} e={E} n={n}: gram rel {e_g:.2e} "
-                  f"(tol {tol_g:g}), cholesky rel {e_c:.2e}, trsm (trsm_lower "
-                  f"m=1/7/n, solve_psd, tri_inv_lower) rel {e_t:.2e} (tol "
-                  f"{tol_ct:g}), zeros above the diagonal {upper_zero}",
-                  flush=True)
-            if not (e_g <= tol_g and e_c <= tol_ct and e_t <= tol_ct
+                  f"(tol {tol_g:g}), symmetric {sym}, cholesky rel {e_c:.2e}, "
+                  f"trsm (trsm_lower m=1/7/n, solve_psd, tri_inv_lower) rel "
+                  f"{e_t:.2e} (tol {tol_ct:g}), zeros above the diagonal "
+                  f"{upper_zero}", flush=True)
+            if not (e_g <= tol_g and sym and e_c <= tol_ct and e_t <= tol_ct
                     and upper_zero):
                 _fail(f"kernel disagrees with plain at {dtype} n={n}")
             if dtype == torch.float32 and n == N_PATH:
@@ -277,7 +294,8 @@ def _refit_kernel_times(rng) -> dict:
     """CUDA-event ms per call of the refit's kernels at n = 128 (the SQP
     path), 512 (episodic run (a)) and 2048 (run (b)), e = 2, f32 and f64,
     each beside its torch.linalg call, its device ms per CUDA kernel
-    (profiler, f32 only) and its bound at the least work: beta 2 n^2 flops
+    (profiler, f32 only) and its bound at the least work: the Gram its
+    inputs read once and e n^2 values written; beta 2 n^2 flops
     and L's triangle, y and beta moved once; K^-1's solve n^3 / 3 flops
     (L^-1 is triangular) and the triangle read, n^2 words written; the
     Cholesky the same (the blocked kernel at 128 and 512; cholesky_hbm
@@ -327,13 +345,12 @@ def _refit_kernel_times(rng) -> dict:
                     plain=lambda: cholesky_plain(k),
                     bound=_bound_ms(_square_from_tri_bytes(n, sz),
                                     E * n ** 3 / 3, dt))
-            if path:
-                in_bytes = (n * D_IN + n + 2 * E * D_IN) * sz
-                t["gram"] = dict(
-                    fn=lambda: rbf_gram_masked(*args), library=None,
-                    plain=lambda: gram_plain(*args),
-                    bound=_bound_ms(in_bytes + E * n * n * sz,
-                                    E * n * n * (2 * D_IN + 7), dt))
+            in_bytes = (n * D_IN + n + E * D_IN + 2 * E) * sz
+            t["gram"] = dict(
+                fn=lambda: rbf_gram_masked(*args), library=None,
+                plain=lambda: gram_plain(*args),
+                bound=_bound_ms(in_bytes + E * n * n * sz,
+                                E * n * n * (2 * D_IN + 7), dt))
             res = {}
             for name, c in t.items():
                 # each profiler run costs seconds: f32 only (the paths' type)
@@ -661,28 +678,27 @@ def _tube_ops(t_len: int, m_obs: int, m_safe: int) -> int:
 
 
 def phase_cem_kernels(seed: int) -> dict:
-    """gp_predict and cem_score against their plain versions at every shape,
-    dtype and option, then times at the CEM path's shapes (f32)."""
+    """gp_predict (its prepared call against the plain version on the same
+    prepared posterior) and cem_score against their plain versions at every
+    shape, dtype and option, then times at the CEM path's shapes (f32)."""
     from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
     from safe_exploration_tpu_torch.ops.kernels import (
-        gp_predict_lanes,
-        gp_predict_plain,
+        gp_predict_prepared,
+        posterior_plain,
+        prepare_posterior,
         prepare_tube_score,
         tube_score_lanes,
         tube_score_plain,
         tube_score_prepared,
     )
+    from safe_exploration_tpu_torch.solvers.sqp_lanes import _gp_predict_lanes
 
     rng = np.random.default_rng(seed + 10)
     consts, polys, target = _cem_plant(torch.float64, "cuda")
 
-    def gp_args(arr, zz, dtype):
-        m = arr["mask"]
-        vals = (arr["x"], arr["beta"] * m, arr["kinv"] * m[:, None] * m[None],
-                np.stack([p["log_lengthscales"] for p in arr["params"]]),
-                np.stack([p["log_sf"] for p in arr["params"]]), zz)
-        return [torch.tensor(np.ascontiguousarray(v), dtype=dtype,
-                             device="cuda") for v in vals]
+    def gp_ssm(arr, dtype):
+        return gpssm_from_numpy(arr, ("rbf", "rbf"), device="cuda",
+                                dtype=dtype)
 
     def score_args(arr, u, x0, dtype, kind):
         ssm = gpssm_from_numpy(arr, ("rbf", "rbf"), device="cuda", dtype=dtype)
@@ -714,13 +730,14 @@ def phase_cem_kernels(seed: int) -> dict:
                 x0 = rng.uniform(-1.0, 1.0, (2, L)) * np.array([[0.15], [0.4]])
                 for dtype in (torch.float32, torch.float64):
                     f64 = dtype == torch.float64
+                    post = prepare_posterior(gp_ssm(arr, dtype))
+                    z = torch.tensor(zz, dtype=dtype, device="cuda")
                     errs = []
-                    for jac in (False, True) if z_scale else ():
-                        args = gp_args(arr, zz, dtype)
-                        out = gp_predict_lanes(*args, want_jac=jac)
-                        ref = gp_predict_plain(*args, want_jac=jac)
+                    for jac in (False, True):
+                        out = gp_predict_prepared(post, z, want_jac=jac)
+                        ref = posterior_plain(post, z, want_jac=jac)
                         errs.append(max(_rel(o, r) for o, r in zip(out, ref)))
-                    e_gp = max(errs, default=0.0)
+                    e_gp = max(errs)
                     e_cs = 0.0
                     for kind in ("tracking", "exploration"):
                         out = tube_score_lanes(*score_args(arr, u, x0, dtype,
@@ -745,24 +762,35 @@ def phase_cem_kernels(seed: int) -> dict:
 
     # times and max_abs_err at the path's shapes, f32: the final B-lane
     # passes call gp_predict at L = B with the Jacobian ("pallas" runs it at
-    # L = M B), every CEM iteration calls cem_score at L = M B
+    # L = M B), on the posterior prepared once per solve; every CEM
+    # iteration calls cem_score at L = M B
     dt, sz = torch.float32, 4
     arr = _cem_model(seed, N_CEM, False)
     timings, abs_err = {}, {}
     for L in (B_CEM, M_CEM * B_CEM):
-        args = gp_args(arr, rng.uniform(-1.0, 1.0, (D_IN, L)), dt)
-        out = gp_predict_lanes(*args, want_jac=True)
-        ref = gp_predict_plain(*args, want_jac=True)
+        ssm = gp_ssm(arr, dt)
+        post = prepare_posterior(ssm)
+        z = torch.tensor(rng.uniform(-1.0, 1.0, (D_IN, L)), dtype=dt,
+                         device="cuda")
+        out = gp_predict_prepared(post, z, want_jac=True)
+        ref = posterior_plain(post, z, want_jac=True)
         if L == B_CEM:
             abs_err["gp_predict"] = max(_abs(o, r) for o, r in zip(out, ref))
         n_bytes = sz * (N_CEM * D_IN + E * N_CEM + E * N_CEM ** 2
                         + E * (D_IN + 1) + D_IN * L + 2 * E * L + E * D_IN * L)
         ops = _gp_prep_ops(N_CEM) + E * L * _gp_lane_ops(N_CEM, True)
-        timings[f"gp_predict_L{L}"] = dict(
-            ms=_time_ms(lambda: gp_predict_lanes(*args, want_jac=True), 20),
-            plain_ms=_time_ms(lambda: gp_predict_plain(*args, want_jac=True),
+        r = dict(
+            ms=_time_ms(lambda: gp_predict_prepared(post, z, want_jac=True),
+                        20),
+            prepare_ms=_time_ms(lambda: prepare_posterior(ssm), 20),
+            unprepared_ms=_time_ms(lambda: _gp_predict_lanes(
+                ssm, z, want_jac=True, impl="pallas"), 20),
+            plain_ms=_time_ms(lambda: posterior_plain(post, z, want_jac=True),
                               5),
             library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
+        r["device_ms"], r["device_ms_by_kernel"] = _device_ms(
+            lambda: gp_predict_prepared(post, z, want_jac=True))
+        timings[f"gp_predict_L{L}"] = r
     L = M_CEM * B_CEM
     u = 0.4 * rng.standard_normal((H_CEM, L)).astype(np.float32)
     x0 = (rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]]).astype(np.float32)
@@ -791,12 +819,10 @@ def phase_cem_kernels(seed: int) -> dict:
         lambda: tube_score_prepared(prep, *args[1:3]))
     for name, r in timings.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
-        extra = ""
-        if "device_ms" in r:
-            extra = (f" (device {r['device_ms']:.4f}: "
-                     f"{ {k: round(v, 4) for k, v in r['device_ms_by_kernel'].items()} }"
-                     f"; without a prepared object {r['unprepared_ms']:.4f} ms"
-                     f", the prepare alone {r['prepare_ms']:.4f} ms)")
+        extra = (f" (device {r['device_ms']:.4f}: "
+                 f"{ {k: round(v, 4) for k, v in r['device_ms_by_kernel'].items()} }"
+                 f"; without a prepared object {r['unprepared_ms']:.4f} ms"
+                 f", the prepare alone {r['prepare_ms']:.4f} ms)")
         print(f"[cem-kernels] time f32 n={N_CEM} {name}: kernel {r['ms']:.4f} "
               f"ms{extra}, plain {r['plain_ms']:.4f} ms, library null (no one "
               f"PyTorch call computes it), bound {r['bound_ms']:.6f} ms "
@@ -933,6 +959,7 @@ def _cem_split(exp, plan, x0, batch, dev) -> dict:
     scoring pass (tube rollout through gp_predict, margins, cost; a solve
     runs two), and the device's busy share over one solve from
     torch.profiler's per-kernel device times."""
+    from safe_exploration_tpu_torch.ops.kernels import prepare_posterior
     from safe_exploration_tpu_torch.solvers import sqp_lanes as sl
     from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg
 
@@ -944,11 +971,12 @@ def _cem_split(exp, plan, x0, batch, dev) -> dict:
                                   spec.h_safe)]
     u = torch.zeros((H_CEM, batch), dtype=x0.dtype, device=dev)
     rows = [x0[:, 0], x0[:, 1]]
+    post = prepare_posterior(plan)
 
     def final_pass():
         y = sl._rollout_y_lanes(plan, u, rows, k_fb, a, b,
                                 _TubeCfg(H_CEM, exp["cfg"].c_safety, 0), bmat,
-                                impl="pallas")
+                                impl="pallas", post=post)
         sl._dist_lanes(y, H_CEM, 2, *polys)
         sl._cost_lanes("tracking", {"target": spec.target.tolist()}, y, u,
                        H_CEM, 2, 1)
@@ -1078,9 +1106,12 @@ def _blocked_direct(a: torch.Tensor) -> torch.Tensor:
 
 def _device_ms(fn) -> tuple[float, dict]:
     """Device ms of one call of ``fn``, in all and per CUDA kernel (the
-    kernel's name up to its template arguments), averaged over 3 calls
-    after a warm-up, from torch.profiler's device-side events (not the host
-    operators, whose self device time repeats their kernels')."""
+    kernel's name up to its template arguments), from torch.profiler's
+    device-side events over 3 calls after a warm-up (not the host
+    operators, whose self device time repeats their kernels'): a kernel's
+    mean time per launch times its launches per call (its count over the
+    3 calls, rounded), so an event the profiler drops does not count as a
+    launch that took no time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     fn()
@@ -1089,14 +1120,17 @@ def _device_ms(fn) -> tuple[float, dict]:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    by = {}
+    total, count = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU:
             continue
         name = e.key.replace("(anonymous namespace)::", "")
         name = name.split("(")[0].split("<")[0].strip().split(" ")[-1]
         name = name.split("::")[-1] or e.key[:40]
-        by[name] = by.get(name, 0.0) + e.self_device_time_total / 3e3
+        total[name] = total.get(name, 0.0) + e.self_device_time_total
+        count[name] = count.get(name, 0) + e.count
+    by = {k: total[k] / count[k] * max(1, round(count[k] / 3)) / 1e3
+          for k in total if count[k]}
     return sum(by.values()), by
 
 
@@ -1434,7 +1468,8 @@ KERNELS = (
      "safe_exploration_tpu/ops/pallas/trsm.py:39",
      ("trsm_lower", "solve_psd", "tri_inv_lower")),
     ("gp_predict", "safe_exploration_tpu_torch/csrc/gp_predict.cu",
-     "safe_exploration_tpu/ops/pallas/gp_predict.py:46", ("gp_predict_lanes",)),
+     "safe_exploration_tpu/ops/pallas/gp_predict.py:46",
+     ("gp_predict_prepared",)),
     ("cem_score", "safe_exploration_tpu_torch/csrc/cem_score.cu",
      "safe_exploration_tpu/ops/pallas/cem_score.py:50",
      ("tube_score_prepared",)),

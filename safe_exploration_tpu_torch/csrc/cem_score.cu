@@ -28,11 +28,13 @@
 // cross-covariances of 64 lanes do not fit in shared memory); the quadratic
 // form is a register-tiled product V = W KV over (rows x lanes) tiles, 4
 // rows x 4 lanes per thread from two vector shared-memory loads per 16 FMA,
-// then reduced against KV; both output dims' W (transposed by the wrapper,
-// so a tile row is contiguous) are loaded once per block (16-byte copies
-// where n is a multiple of 4) and stay in shared memory for the whole
-// launch where they fit (64 KB: n <= 89 in f32, 64 in f64), else they
-// stream through shared memory in 16-deep slices per row tile. Every
+// then reduced against KV (gp_lanes.cuh, the posterior gp_predict.cu
+// shares); both output dims' W (transposed by the wrapper, so a tile row is
+// contiguous) are loaded once per block with cp.async (16-byte copies where
+// n is a multiple of 4), overlapping the first stage's kv, and stay in
+// shared memory for the whole launch where they fit (64 KB: n <= 89 in
+// f32, 64 in f64), else they stream through shared memory in 16-deep
+// slices per row tile. Every
 // thread carries its own lane's tube algebra (the threads of a lane hold
 // the same values; one writes) and keeps its lane's GP inputs in
 // registers, so the 2x2 algebra, the margins and the costs run on all
@@ -46,12 +48,12 @@
 namespace {
 
 using gpl::DMAX;
+using gpl::KS;
 using gpl::maxnan;
+using gpl::pad4;
 
 constexpr int NT = 256;            // threads per block
-constexpr int KS = 16;             // depth slice of the streamed W
 constexpr size_t RESIDENT_MAX = 64 * 1024;  // bytes of W kept resident
-constexpr unsigned ALL = 0xffffffffu;
 
 // Offsets into the constant block (prepare_tube_score in cem_score.py): the
 // plant's constants first (one host-to-device copy), then the model's.
@@ -108,15 +110,14 @@ __device__ void diag_sum(T q[2][2], const T hw[2]) {
   for (int i = 0; i < 2; ++i) q[i][i] = q[i][i] + (T(1) + c) * T(2) * hw[i] * hw[i];
 }
 
-__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
-
 // Shared memory of a block, in elements: kv (n x LB), W (resident: 2 x n x
 // pad4(n); streamed: one KS x RT slice), the per-warp partial quadratic
 // forms (NT / 32 x LB), the mean and Jacobian rows (1 + DMAX) x LB, the support
 // rows x (n x d), x / ls (2 x n x d) and w_mean (2 x n). The arrays read
 // with vector loads come first, each a multiple of 4 elements long.
 __host__ inline size_t smem_elems(int n, int d, bool resident, int lb) {
-  const int rt = 4 * (NT / (lb / 4));
+  const int rt = lb == 64 ? gpl::rows_per_tile<NT, 64>()
+                          : gpl::rows_per_tile<NT, 32>();
   return (size_t)n * lb + (resident ? 2 * (size_t)n * pad4(n) : KS * rt) +
          (NT / 32) * lb + (1 + DMAX) * lb + 3 * (size_t)n * d + 2 * n;
 }
@@ -131,10 +132,7 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
                  T* __restrict__ viol_out, int n, int n_u, int L, int t_len,
                  int n_obs, int n_sr, int resident, T c_safety, int explore,
                  T w_x, T w_u, T w_t, T scale) {
-  constexpr int TX = LB / 4;       // lane groups of 4 in the product tile
-  constexpr int TY = NT / TX;      // row groups of 4
-  constexpr int RT = 4 * TY;       // rows of a product tile
-  constexpr int G = NT / LB;       // threads per lane
+  constexpr int RT = gpl::rows_per_tile<NT, LB>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int d = 2 + n_u, np = pad4(n);
   T* kv = reinterpret_cast<T*>(smem_raw);
@@ -147,27 +145,15 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
 
   const int tid = threadIdx.x;
   const int l = tid % LB, g = tid / LB;   // lane of the GP and the algebra
-  const int tx = tid % TX, ty = tid / TX; // place in the product tile
   const int lane = blockIdx.x * LB + l;
   const bool live = lane < L;
   const Cst o(n_u, n_obs, n_sr);
 
+  // W in flight while the rest is staged and the first kv computed
+  if (resident) gpl::load_w_async<T, NT>(wsh, wvt, n, 2);
   for (int idx = tid; idx < n * d; idx += NT) xs[idx] = x[idx];
   for (int idx = tid; idx < 2 * n * d; idx += NT) xl[idx] = xil[idx];
   for (int idx = tid; idx < 2 * n; idx += NT) wms[idx] = wm[idx];
-  if (resident && np == n) {
-    // 16-byte copies, all of a thread's in flight: W is 2 n^2 contiguous
-    const int4* src = reinterpret_cast<const int4*>(wvt);
-    int4* dst = reinterpret_cast<int4*>(wsh);
-    const int n16 = 2 * n * n * (int)sizeof(T) / 16;
-#pragma unroll 8
-    for (int idx = tid; idx < n16; idx += NT) dst[idx] = src[idx];
-  } else if (resident) {
-    for (int idx = tid; idx < 2 * n * np; idx += NT) {
-      const int ek = idx / np, r = idx % np;
-      wsh[idx] = r < n ? wvt[(size_t)ek * n + r] : T(0);
-    }
-  }
   __syncthreads();
 
   T z[DMAX];   // the lane's GP input (p, u_t)
@@ -185,104 +171,18 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
     for (int e = 0; e < 2; ++e) {
       const T* ils = cst + o.ils + e * d;
       const T sf2 = cst[o.sf2 + e];
-      // 1. kv_i = sf2 exp(-|x_i / ls - z / ls|^2 / 2) of the block's lanes
-      {
-        T zil[DMAX];
-#pragma unroll
-        for (int j = 0; j < DMAX; ++j) zil[j] = j < d ? z[j] * ils[j] : T(0);
-        const T* xe = xl + (size_t)e * n * d;
-        for (int i = g; i < n; i += G) {
-          T d2 = T(0);
-#pragma unroll
-          for (int j = 0; j < DMAX; ++j) {
-            if (j >= d) break;
-            const T df = xe[i * d + j] - zil[j];
-            d2 += df * df;
-          }
-          kv[i * LB + l] = sf2 * gpl::exp_(T(-0.5) * d2);
-        }
-      }
+      // 1. kv of the block's lanes (the first pass also waits for W)
+      gpl::kv_stage<T, NT, LB>(kv, xl + (size_t)e * n * d, z, ils, sf2, n, d);
+      gpl::cp_async_wait_all();
       __syncthreads();
       // 2. the mean and, past stage 0, the Jacobian's rows
-      //    sum_i x_ij kv_i w_i, one (row, lane) per thread
-      const T* we = wms + (size_t)e * n;
-      for (int r = g; r < (t > 0 ? 1 + d : 1); r += G) {
-        T acc = T(0);
-        if (r == 0) {
-          for (int i = 0; i < n; ++i) acc += we[i] * kv[i * LB + l];
-        } else {
-          for (int i = 0; i < n; ++i) acc += xs[i * d + r - 1] * (kv[i * LB + l] * we[i]);
-        }
-        aug[r * LB + l] = acc;
-      }
-      // 3. quad = kv^T W kv: V = W KV in RT x LB tiles, 4 x 4 per thread
-      T qp[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) qp[w] = T(0);
-      for (int r0 = 0; r0 < np; r0 += RT) {
-        const int rr = r0 + 4 * ty;   // this thread's first row
-        T acc[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int w = 0; w < 4; ++w) acc[i][w] = T(0);
-        auto step = [&](const T* wrow, const T* kvrow) {
-          T wv[4], kr[4];
-          lds4(wv, wrow);
-          lds4(kr, kvrow + 4 * tx);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int w = 0; w < 4; ++w) acc[i][w] += wv[i] * kr[w];
-          }
-        };
-        if (resident) {
-          if (rr < np) {
-            const T* w0 = wsh + (size_t)e * n * np + rr;
-            for (int k = 0; k < n; ++k) step(w0 + (size_t)k * np, kv + k * LB);
-          }
-        } else {
-          const T* we_t = wvt + (size_t)e * n * n;
-          for (int k0 = 0; k0 < n; k0 += KS) {
-            for (int idx = tid; idx < KS * RT; idx += NT) {
-              const int kk = idx / RT, r = r0 + idx % RT;
-              wsh[idx] = (k0 + kk < n && r < n)
-                             ? we_t[(size_t)(k0 + kk) * n + r] : T(0);
-            }
-            __syncthreads();
-            const int kn = min(KS, n - k0);
-            if (rr < np) {
-              for (int kk = 0; kk < kn; ++kk) {
-                step(wsh + kk * RT + 4 * ty, kv + (k0 + kk) * LB);
-              }
-            }
-            __syncthreads();
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (rr + i >= n) break;
-          T kr[4];
-          lds4(kr, kv + (rr + i) * LB + 4 * tx);
-#pragma unroll
-          for (int w = 0; w < 4; ++w) qp[w] += kr[w] * acc[i][w];
-        }
-      }
-      // the row groups of a warp share their lanes: sum them by shuffles,
-      // one partial per warp and lane to shared memory
-#pragma unroll
-      for (int off = TX; off < 32; off *= 2) {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) qp[w] += __shfl_xor_sync(ALL, qp[w], off);
-      }
-      if (tid % 32 < TX) {
-#pragma unroll
-        for (int w = 0; w < 4; ++w) red[(tid / 32) * LB + 4 * tx + w] = qp[w];
-      }
-      __syncthreads();
+      gpl::mean_rows<T, NT, LB>(aug, kv, xs, wms + (size_t)e * n, n, d,
+                                t > 0 ? 1 + d : 1);
+      // 3. quad = kv^T W kv, the register-tiled product
+      const T quad = gpl::quad_form<T, NT, LB>(
+          kv, wsh + (size_t)e * n * np, wvt + (size_t)e * n * n, resident,
+          wsh, red, n);
       // 4. every thread: its lane's mean, variance and Jacobian
-      T quad = T(0);
-      for (int h = 0; h < NT / 32; ++h) quad += red[h * LB + l];
       mu[e] = aug[l];
       var[e] = maxnan(sf2 - quad, cst[o.flr + e]);
       if (t > 0) {

@@ -1,39 +1,39 @@
-// Block-level RBF GP posterior at a block of query lanes, shared by
-// gp_predict.cu and cem_score.cu.
+// Block-level RBF GP posterior at a block of query lanes: the one posterior
+// implementation of gp_predict.cu and cem_score.cu.
 //
-// A block of NT = 128 threads owns LB = 32 query lanes. Thread t serves lane
-// t % LB and row group t / LB (G = 4 groups, one warp each): every sum over
-// the n support rows is split over the four warps and reduced through shared
-// memory at the end, so a block keeps four warps busy on 32 lanes and a
-// launch over L lanes has L / 32 blocks to spread over the SMs.
+// A block of NT threads owns LB query lanes (LB = 32 or 64). For one output
+// dim, with the lanes' inputs z in registers:
 //
-// For one output dim, at the lanes' inputs z (d, LB) in shared memory:
+//   kv_stage   kv_i = sf2 exp(-0.5 sum_j (x_ij il_j - z_j il_j)^2)  (n, LB)
+//              in shared memory; thread (l = tid % LB, g = tid / LB) takes
+//              rows g, g + G, ... (G = NT / LB threads per lane)
+//   mean_rows  the mean sum_i w_i kv_i and, for the Jacobian, the rows
+//              sum_i x_ij (kv_i w_i), one (row, lane) per thread
+//   quad_form  quad = kv^T W kv: V = W KV in RT x LB tiles (RT = 16 NT /
+//              LB rows), 4 rows x 4 lanes per thread from two vector
+//              shared-memory loads per 16 FMA, reduced against KV, summed
+//              over a warp's row groups by shuffles and over the warps
+//              through shared memory
 //
-//   kv_i   = sf2 exp(-0.5 sum_j ((x_ij il_j) - (z_j il_j))^2)    (n, LB)
-//   mu     = sum_i w_mean_i kv_i
-//   quad   = sum_i kv_i sum_k w_var_ik kv_k
-//   s      = sum_i kv_i w_mean_i,  rows_j = sum_i x_ij kv_i w_mean_i
-//
-// kv stays in shared memory (n * LB values); w_var is streamed through
-// shared memory in tiles of R = 16 rows, so n is bounded by the shared
-// memory of one block (n <= 1024 in f32, 512 in f64), not by w_var's n^2.
-// Every product is an IEEE FMA on the CUDA cores; no tensor cores, no TF32.
+// W is read transposed (W^T, so a row of the product tile is contiguous),
+// resident in shared memory (rows padded to pad4(n), loaded by load_w_async
+// with cp.async so the copy overlaps the first kv_stage) or streamed from
+// global memory in KS-deep slices. Every product is an IEEE FMA on the CUDA
+// cores; no tensor cores, no TF32.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gemm_tile.cuh"
+
 namespace gpl {
 
-constexpr int NT = 128;        // threads per block
-constexpr int LB = 32;         // query lanes per block
-constexpr int G = NT / LB;     // row groups (warps) splitting each sum
-constexpr int RT = 4;          // w_var rows per thread per tile
-constexpr int R = G * RT;      // w_var rows per shared-memory tile
-constexpr int DMAX = 8;        // largest input width
-constexpr int NRED = 3 + DMAX; // partials per lane: mu, quad, s, rows[d]
-constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory of one block
+constexpr int DMAX = 8;               // largest input width
+constexpr int KS = 16;                // depth slice of a streamed W
+constexpr size_t SMEM_MAX = 232448;   // dynamic shared memory of one block
+constexpr unsigned ALL = 0xffffffffu;
 
 __device__ __forceinline__ float exp_(float v) { return expf(v); }
 __device__ __forceinline__ double exp_(double v) { return exp(v); }
@@ -44,116 +44,182 @@ __device__ __forceinline__ double sqrt_(double v) { return sqrt(v); }
 template <typename T>
 __device__ __forceinline__ T maxnan(T a, T b) { return (a != a || a > b) ? a : b; }
 
-template <typename T>
-struct Smem {
-  T* xs;   // (n, d) support rows
-  T* kv;   // (n, LB) cross-covariances of the current output dim
-  T* wt;   // (R, n) one row tile of w_var
-  T* red;  // (G - 1, NRED, LB) partial sums of row groups 1..G-1
-  T* zb;   // (DMAX, LB) query inputs of the block's lanes
-};
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
-inline size_t smem_bytes(int n, int d, size_t elem) {
-  return elem * ((size_t)n * d + (size_t)n * LB + (size_t)R * n +
-                 (size_t)(G - 1) * NRED * LB + (size_t)DMAX * LB);
+// rows of a product tile: 4 per thread row group
+template <int NT, int LB>
+__host__ __device__ constexpr int rows_per_tile() { return 4 * (NT / (LB / 4)); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-__device__ Smem<T> carve(T* base, int n, int d) {
-  Smem<T> s;
-  s.xs = base;
-  s.kv = s.xs + (size_t)n * d;
-  s.wt = s.kv + (size_t)n * LB;
-  s.red = s.wt + (size_t)R * n;
-  s.zb = s.red + (size_t)(G - 1) * NRED * LB;
-  return s;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
 }
 
-template <typename T>
-__device__ void load_rows(const Smem<T>& sm, const T* __restrict__ x, int n,
-                          int d) {
-  for (int idx = threadIdx.x; idx < n * d; idx += NT) sm.xs[idx] = x[idx];
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "n"(B));
 }
 
-// Posterior of one output dim at the block's lanes (inputs in sm.zb). Every
-// thread of the block calls it. On return the threads of row group 0 (warp
-// 0) hold, for their lane, mu, quad and, when want_jac, s and rows[0..d).
-template <typename T>
-__device__ void posterior_dim(const Smem<T>& sm, const T* __restrict__ wm,
-                              const T* __restrict__ wv,
-                              const T* __restrict__ il, T sf2, int n, int d,
-                              bool want_jac, T& mu, T& quad, T& s, T* rows) {
-  const int tid = threadIdx.x, l = tid % LB, g = tid / LB;
-  __syncthreads();  // zb written; the previous call's kv and red consumed
-  T z[DMAX], ilr[DMAX];
-  for (int j = 0; j < d; ++j) {
-    z[j] = sm.zb[j * LB + l];
-    ilr[j] = il[j];
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts asynchronous copies of `dims` consecutive n x n matrices W^T into
+// shared memory rows of pad4(n) (the pad columns zeroed): 16 bytes a copy
+// where n is a multiple of 4 (rows contiguous), else one element a copy.
+// The caller ends them with cp_async_wait_all() and a block barrier.
+template <typename T, int NT>
+__device__ __forceinline__ void load_w_async(T* wsh, const T* wvt, int n,
+                                             int dims) {
+  const int np = pad4(n);
+  if (np == n) {
+    const int n16 = dims * n * n * (int)sizeof(T) / 16;
+    const char* src = reinterpret_cast<const char*>(wvt);
+    char* dst = reinterpret_cast<char*>(wsh);
+    for (int idx = threadIdx.x; idx < n16; idx += NT)
+      cp_async16(dst + 16 * (size_t)idx, src + 16 * (size_t)idx);
+  } else {
+    for (int idx = threadIdx.x; idx < dims * n * np; idx += NT) {
+      const int ek = idx / np, r = idx % np;
+      if (r < n) {
+        cp_async<sizeof(T)>(wsh + idx, wvt + (size_t)ek * n + r);
+      } else {
+        wsh[idx] = T(0);
+      }
+    }
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// kv[i LB + l] = sf2 exp(-0.5 |xe_i - z il|^2) of the block's lanes for one
+// output dim: xe (n x d) the dim's support rows over its lengthscales (in
+// shared memory), il its inverse lengthscales.
+template <typename T, int NT, int LB>
+__device__ __forceinline__ void kv_stage(T* kv, const T* xe, const T (&z)[DMAX],
+                                         const T* il, T sf2, int n, int d) {
+  constexpr int G = NT / LB;
+  const int l = threadIdx.x % LB, g = threadIdx.x / LB;
+  T zil[DMAX];
+#pragma unroll
+  for (int j = 0; j < DMAX; ++j) zil[j] = j < d ? z[j] * il[j] : T(0);
   for (int i = g; i < n; i += G) {
     T d2 = T(0);
-    for (int j = 0; j < d; ++j) {
-      const T df = sm.xs[i * d + j] * ilr[j] - z[j] * ilr[j];
+#pragma unroll
+    for (int j = 0; j < DMAX; ++j) {
+      if (j >= d) break;
+      const T df = xe[i * d + j] - zil[j];
       d2 += df * df;
     }
-    sm.kv[i * LB + l] = sf2 * exp_(T(-0.5) * d2);
+    kv[i * LB + l] = sf2 * exp_(T(-0.5) * d2);
+  }
+}
+
+// aug[r LB + l] for r < rows: r = 0 the mean sum_i w_i kv_i, r = 1 + j the
+// Jacobian's row sum_i x_ij (kv_i w_i) (xs the support rows, n x d); one
+// (row, lane) per thread.
+template <typename T, int NT, int LB>
+__device__ __forceinline__ void mean_rows(T* aug, const T* kv, const T* xs,
+                                          const T* w, int n, int d, int rows) {
+  constexpr int G = NT / LB;
+  const int l = threadIdx.x % LB, g = threadIdx.x / LB;
+  for (int r = g; r < rows; r += G) {
+    T acc = T(0);
+    if (r == 0) {
+      for (int i = 0; i < n; ++i) acc += w[i] * kv[i * LB + l];
+    } else {
+      for (int i = 0; i < n; ++i) acc += xs[i * d + r - 1] * (kv[i * LB + l] * w[i]);
+    }
+    aug[r * LB + l] = acc;
+  }
+}
+
+// quad = kv^T W kv for the thread's lane, returned to every thread of the
+// block (all of them call it). W^T is read from wsh, resident in shared
+// memory (rows of pad4(n)), or, when !resident, from wg in global memory
+// (rows of n), streamed in KS-deep slices through wslice (KS x RT); two
+// pointers, so the resident product's loads stay shared-memory loads.
+// red holds NT / 32 x LB partial sums. Ends after a block barrier, so what
+// the threads wrote before the call (the mean rows) is visible on return.
+template <typename T, int NT, int LB>
+__device__ __forceinline__ T quad_form(const T* kv, const T* wsh, const T* wg,
+                                       bool resident, T* wslice, T* red,
+                                       int n) {
+  constexpr int TX = LB / 4;       // lane groups of 4 in the product tile
+  constexpr int RT = rows_per_tile<NT, LB>();
+  const int tid = threadIdx.x, l = tid % LB;
+  const int tx = tid % TX, ty = tid / TX;   // place in the product tile
+  const int np = pad4(n);
+  T qp[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) qp[c] = T(0);
+  for (int r0 = 0; r0 < np; r0 += RT) {
+    const int rr = r0 + 4 * ty;   // this thread's first row
+    T acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = T(0);
+    auto step = [&](const T* wrow, const T* kvrow) {
+      T wv[4], kr[4];
+      lds4(wv, wrow);
+      lds4(kr, kvrow + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] += wv[i] * kr[c];
+      }
+    };
+    if (resident) {
+      if (rr < np) {
+        const T* w0 = wsh + rr;
+        for (int k = 0; k < n; ++k) step(w0 + (size_t)k * np, kv + k * LB);
+      }
+    } else {
+      for (int k0 = 0; k0 < n; k0 += KS) {
+        for (int idx = tid; idx < KS * RT; idx += NT) {
+          const int kk = idx / RT, r = r0 + idx % RT;
+          wslice[idx] = (k0 + kk < n && r < n)
+                            ? wg[(size_t)(k0 + kk) * n + r] : T(0);
+        }
+        __syncthreads();
+        const int kn = min(KS, n - k0);
+        if (rr < np) {
+          for (int kk = 0; kk < kn; ++kk) {
+            step(wslice + kk * RT + 4 * ty, kv + (k0 + kk) * LB);
+          }
+        }
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (rr + i >= n) break;
+      T kr[4];
+      lds4(kr, kv + (rr + i) * LB + 4 * tx);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) qp[c] += kr[c] * acc[i][c];
+    }
+  }
+  // the row groups of a warp share their lanes: sum them by shuffles, one
+  // partial per warp and lane to shared memory
+#pragma unroll
+  for (int off = TX; off < 32; off *= 2) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) qp[c] += __shfl_xor_sync(ALL, qp[c], off);
+  }
+  if (tid % 32 < TX) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[(tid / 32) * LB + 4 * tx + c] = qp[c];
   }
   __syncthreads();
-
-  T mu_p = T(0), s_p = T(0), q_p = T(0), rows_p[DMAX];
-  for (int j = 0; j < DMAX; ++j) rows_p[j] = T(0);
-  for (int i = g; i < n; i += G) {
-    const T k = sm.kv[i * LB + l], w = wm[i];
-    mu_p += w * k;
-    if (want_jac) {
-      const T wj = k * w;
-      s_p += wj;
-      for (int j = 0; j < d; ++j) rows_p[j] += sm.xs[i * d + j] * wj;
-    }
-  }
-  // quad: w_var in tiles of R rows; thread (g, l) owns tile rows g + G k
-  for (int i0 = 0; i0 < n; i0 += R) {
-    const int valid = min(R, n - i0) * n;
-    for (int idx = tid; idx < R * n; idx += NT)
-      sm.wt[idx] = idx < valid ? wv[(size_t)i0 * n + idx] : T(0);
-    __syncthreads();
-    T acc[RT];
-#pragma unroll
-    for (int k = 0; k < RT; ++k) acc[k] = T(0);
-    for (int j = 0; j < n; ++j) {
-      const T kj = sm.kv[j * LB + l];
-#pragma unroll
-      for (int k = 0; k < RT; ++k) acc[k] += sm.wt[(g + G * k) * n + j] * kj;
-    }
-#pragma unroll
-    for (int k = 0; k < RT; ++k) {
-      const int i = i0 + g + G * k;
-      if (i < n) q_p += sm.kv[i * LB + l] * acc[k];
-    }
-    __syncthreads();  // the tile is consumed before the next is staged
-  }
-
-  if (g > 0) {
-    T* r = sm.red + (size_t)(g - 1) * NRED * LB;
-    r[0 * LB + l] = mu_p;
-    r[1 * LB + l] = q_p;
-    r[2 * LB + l] = s_p;
-    for (int j = 0; j < d; ++j) r[(3 + j) * LB + l] = rows_p[j];
-  }
-  __syncthreads();
-  if (g == 0) {
-    for (int h = 0; h < G - 1; ++h) {
-      const T* r = sm.red + (size_t)h * NRED * LB;
-      mu_p += r[0 * LB + l];
-      q_p += r[1 * LB + l];
-      s_p += r[2 * LB + l];
-      for (int j = 0; j < d; ++j) rows_p[j] += r[(3 + j) * LB + l];
-    }
-    mu = mu_p;
-    quad = q_p;
-    s = s_p;
-    for (int j = 0; j < d; ++j) rows[j] = rows_p[j];
-  }
+  T quad = T(0);
+  for (int h = 0; h < NT / 32; ++h) quad += red[h * LB + l];
+  return quad;
 }
 
 // Raise a kernel's dynamic shared-memory limit to what a launch needs.

@@ -98,13 +98,13 @@ def refit_cholesky(n_max: int):
 
 
 def refit_inputs(gp: GP):
-    """What :func:`gp_refit` hands its kernels: the batched Gram's arguments,
-    the Cholesky (:func:`refit_cholesky`) and the masked targets (e, n, 1)."""
+    """What :func:`gp_refit` hands its kernels: the batched Gram's arguments
+    (the raw log-hyperparameters: the Gram forms the variances itself), the
+    Cholesky (:func:`refit_cholesky`) and the masked targets (e, n, 1)."""
     log_ls = torch.stack([p["log_lengthscales"] for p in gp.params])
     log_sf = torch.stack([p["log_sf"] for p in gp.params])
-    noise_var = torch.exp(2.0 * gp.log_noise)
     ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()
-    return ((gp.x, gp.mask, log_ls, log_sf, noise_var),
+    return ((gp.x, gp.mask, log_ls, log_sf, gp.log_noise.contiguous()),
             refit_cholesky(gp.n_max), ym)
 
 

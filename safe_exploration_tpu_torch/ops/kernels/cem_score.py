@@ -9,8 +9,9 @@ tracking or exploration cost — in one launch. It equals
 ``sqp_lanes._rollout_y_lanes`` + ``_dist_lanes`` + ``_cost_lanes``.
 
 Two steps: :func:`prepare_tube_score` makes the model and the constants
-ready once (the masked, transposed posterior weights and the constant
-block on the device), :func:`tube_score_prepared` scores lanes with them;
+ready once (the posterior of gp_predict's ``prepare_posterior``, which
+the final passes of a CEM solve share, and the constant block on the
+device), :func:`tube_score_prepared` scores lanes with them;
 a CEM solve prepares once and scores every iteration, and
 :func:`tube_score_lanes` does both in one call. The GP runs in raw input
 coordinates: ``z_scale`` is folded into the support rows and the
@@ -37,13 +38,13 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
     stream_ptr,
 )
 from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
+    LanePosterior,
     gp_pallas_supported,
-    posterior_hyper,
+    prepare_posterior,
 )
 
-__all__ = ["LanePosterior", "TubeScorePrep", "cem_score_supported",
-           "prepare_posterior", "prepare_tube_score", "tube_score_lanes",
-           "tube_score_plain", "tube_score_prepared"]
+__all__ = ["TubeScorePrep", "cem_score_supported", "prepare_tube_score",
+           "tube_score_lanes", "tube_score_plain", "tube_score_prepared"]
 
 _DBL = ctypes.c_double
 _ARGTYPES = (VP,) * 9 + (INT,) * 6 + (_DBL, INT, _DBL, _DBL, _DBL, _DBL, INT,
@@ -59,22 +60,6 @@ def cem_score_supported(ssm, n_s: int, cost_kind: str, n_perf: int) -> bool:
             and cost_kind in _COSTS)
 
 
-class LanePosterior(NamedTuple):
-    """A GP posterior made ready for the lane kernels, once per model: the
-    support rows in raw coordinates ``x`` (n, d) and divided by each output
-    dim's lengthscales ``x_il`` (e, n, d), the masked weights ``w_mean``
-    (e, n) and ``w_var_t`` (e, n, n) (K^-1 masked and transposed, so a row of
-    the kernel's product tile is contiguous), and ``hyper`` = (inv_ls,
-    inv_ls^2 (e, d), sf2, floor (e,)) of :func:`posterior_hyper`. cem_score
-    takes it; gp_predict is to take it too."""
-
-    x: torch.Tensor
-    x_il: torch.Tensor
-    w_mean: torch.Tensor
-    w_var_t: torch.Tensor
-    hyper: tuple
-
-
 class TubeScorePrep(NamedTuple):
     """What :func:`tube_score_prepared` needs besides the lanes: the
     arguments of :func:`tube_score_lanes` (the plain version's input), and
@@ -84,27 +69,6 @@ class TubeScorePrep(NamedTuple):
     args: tuple
     post: LanePosterior | None
     cst: torch.Tensor | None
-
-
-def prepare_posterior(ssm, dtype=None) -> LanePosterior:
-    """:class:`LanePosterior` of a GP-SSM on its device (``z_scale`` folded
-    into the rows and lengthscales), in ``dtype`` (default the model's)."""
-    gp = ssm.gp
-    kw = {"dtype": dtype or gp.x.dtype, "device": gp.x.device}
-    mask = gp.mask
-    inv_ls = torch.exp(-torch.stack([p["log_lengthscales"] for p in gp.params]))
-    x = gp.x
-    if ssm.z_scale is not None:
-        inv_ls = inv_ls / ssm.z_scale[None, :]
-        x = x * ssm.z_scale[None, :]
-    hyper = tuple(h.to(**kw).contiguous() for h in posterior_hyper(
-        inv_ls, torch.stack([p["log_sf"] for p in gp.params])))
-    x = x.to(**kw).contiguous()
-    w_var = gp.kinv * (mask[None, :, None] * mask[None, None, :])
-    return LanePosterior(
-        x=x, x_il=(x[None] * hyper[0][:, None, :]).contiguous(),
-        w_mean=(gp.beta * mask[None]).to(**kw).contiguous(),
-        w_var_t=w_var.transpose(-1, -2).to(**kw).contiguous(), hyper=hyper)
 
 
 def _flat_values(v) -> list:

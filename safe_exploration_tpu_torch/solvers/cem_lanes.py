@@ -17,9 +17,12 @@ Scoring is forward-only, so the CUDA kernels serve it (``cem_gp_impl``):
   ==================  ====================  ==============================
 
 each inside its envelope (``cem_score_supported``, ``gp_pallas_supported``;
-outside it the plain lane form). Where this differs from the JAX package:
-its "auto" means XLA, chosen because XLA fused the posterior chain and the
-kernels measured at parity on the TPU. Eager PyTorch fuses nothing, so here
+outside it the plain lane form). A solve prepares the model once
+(``prepare_posterior``; under "auto" the one ``prepare_tube_score`` made)
+and every gp_predict call of the solve evaluates that posterior. Where
+this differs from the JAX package: its "auto" means XLA, chosen because
+XLA fused the posterior chain and the kernels measured at parity on the
+TPU. Eager PyTorch fuses nothing, so here
 "auto" takes the kernels, and "xla" stays as the plain yardstick. On CPU
 tensors every choice computes with the kernels' plain versions (the
 wrappers' convention), so the choice changes only the summation order.
@@ -38,6 +41,7 @@ import torch
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.ops.kernels import (
     cem_score_supported,
+    prepare_posterior,
     prepare_tube_score,
     tube_score_prepared,
 )
@@ -118,6 +122,14 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     fused = (impl in ("auto", "fused")
              and cem_score_supported(ssm, n_s, cost_kind, cfg.n_perf))
     gp_impl = "pallas" if impl != "xla" and gp_pallas_supported(ssm) else "xla"
+    prep = post = None
+    if fused:
+        # the model and constants made ready once, scored every iteration
+        prep = prepare_tube_score(ssm, *consts[:3], consts[3], *polys,
+                                  c_safety, t_len, cost_kind, lane_cost_args)
+        post = prep.post
+    if gp_impl == "pallas" and post is None:
+        post = prepare_posterior(ssm)
 
     def make_score(x0_cols):
         """Penalized scorer over lanes of width x0_cols.shape[1]."""
@@ -126,7 +138,7 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
         def score(u_flat):
             y = _rollout_y_lanes(ssm, u_flat, x0_rows, *consts[:3], tube_cfg,
                                  consts[3], impl=gp_impl,
-                                 want_sigma=want_sigma)
+                                 want_sigma=want_sigma, post=post)
             g = _dist_lanes(y, t_len, n_s, *polys)
             viol = torch.sum(_relu0(g), dim=0)
             cost = _cost_lanes(cost_kind, lane_cost_args, y, u_flat, t_len,
@@ -139,10 +151,6 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     x0_wide = x0s.T.repeat(1, m)
     score_b = make_score(x0s.T)
     if fused:
-        # the model and constants made ready once, scored every iteration
-        prep = prepare_tube_score(ssm, *consts[:3], consts[3], *polys,
-                                  c_safety, t_len, cost_kind, lane_cost_args)
-
         def scores_wide(u_wide):
             c, v = tube_score_prepared(prep, u_wide, x0_wide)
             return c + cfg.penalty * v

@@ -22,7 +22,8 @@ items 7, 10 and 11).
 
 The tube rollout also serves the lane CEM (solvers/cem_lanes.py), which
 scores without derivatives: there ``impl="pallas"`` routes the posterior
-through the fused CUDA kernel (``ops/kernels/gp_predict.py``). The kernel is
+through the fused CUDA kernel (``ops/kernels/gp_predict.py``), on a
+posterior the caller prepares once per model (``post``). The kernel is
 forward-only, so the SQP, which differentiates through the posterior, keeps
 the plain form, as in the JAX package.
 
@@ -40,7 +41,8 @@ import torch
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.ops.kernels import (
     gp_pallas_supported,
-    gp_predict_lanes,
+    gp_predict_prepared,
+    prepare_posterior,
 )
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, _solve_spd_unrolled
 
@@ -94,35 +96,20 @@ def _gp_of(ssm):
     return ssm.gp
 
 
-def _gp_predict_lanes_pallas(ssm, z, *, want_jac: bool):
-    """:func:`_gp_predict_lanes` through the fused kernel: the mask is
-    folded into the weights (zeroed rows and columns add exactly 0) and the
-    z_scale chain rule is applied outside. Forward-only."""
-    gp = _gp_of(ssm)
-    m = gp.mask
-    zz = z if ssm.z_scale is None else z / ssm.z_scale[:, None]
-    out = gp_predict_lanes(
-        gp.x, gp.beta * m[None, :], gp.kinv * (m[None, :, None] * m[None, None, :]),
-        torch.stack([p["log_lengthscales"] for p in gp.params]),
-        torch.stack([p["log_sf"] for p in gp.params]), zz.contiguous(),
-        want_jac=want_jac)
-    if want_jac and ssm.z_scale is not None:
-        mu, var, jac = out
-        return mu, var, jac / ssm.z_scale[None, :, None]
-    return out
-
-
 def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
-                      impl: str = "xla"):
+                      impl: str = "xla", post=None):
     """Posterior mean/var (+ closed-form mean Jacobian) at B query lanes.
 
     ``z``: (d_in, B) raw state-action inputs. Returns (mu (e, B), var (e, B)
     [, jac (e, d_in, B)]), with the conditioning-aware variance floor and the
     z_scale chain rule of the JAX package. ``impl="pallas"`` takes the fused
-    kernel (forward-only; the name is the JAX package's).
+    kernel (forward-only; the name is the JAX package's) on ``post``, the
+    model's ``prepare_posterior`` (made here when the caller holds none).
     """
     if impl == "pallas":
-        return _gp_predict_lanes_pallas(ssm, z, want_jac=want_jac)
+        if post is None:
+            post = prepare_posterior(ssm)
+        return gp_predict_prepared(post, z.contiguous(), want_jac=want_jac)
     gp = ssm.gp
     xr, w_mean, w_var, mask = gp.x, gp.beta, gp.kinv, gp.mask
     zz = z if ssm.z_scale is None else z / ssm.z_scale[:, None]
@@ -227,13 +214,17 @@ def _sum_two_ellipsoids_q(q1, q2):
              for j in range(n)] for i in range(n)]
 
 
-def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
+def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
+                   post=None):
     """Lane tube rollout from a point state: u_flat (n_var, B), x0 list of
     n_s (B,) rows -> (p_traj, q_traj, var_traj), lists over stages of lane
     structures. Stage 0 is the point step, stages 1..T-1 the closed-loop
     ellipsoid steps; ``bmat`` is S^T S of the Lipschitz lift. ``k_fb``,
     ``a``, ``b``, ``bmat`` may be tensors or nested lists of floats;
-    ``impl`` selects the posterior (:func:`_gp_predict_lanes`)."""
+    ``impl`` and ``post`` select the posterior (:func:`_gp_predict_lanes`;
+    under "pallas" the model is prepared once here if ``post`` is None)."""
+    if impl == "pallas" and post is None:
+        post = prepare_posterior(ssm)
     t_len = cfg.n_safe
     n_s = len(x0)
     a_rows, b_rows = _const_rows(a), _const_rows(b)
@@ -247,7 +238,8 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
 
     kff = kff_at(0)
     z = torch.stack(list(x0) + kff)
-    mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl)
+    mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl,
+                                post=post)
     p = [
         sum(a_rows[i][j] * x0[j] for j in range(n_s))
         + sum(b_rows[i][k] * kff[k] for k in range(n_u))
@@ -264,7 +256,8 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
     for t in range(1, t_len):
         kff = kff_at(t)
         z = torch.stack(list(p) + kff)
-        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl)
+        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl,
+                                         post=post)
         p_next = [
             sum(a_rows[i][j] * p[j] for j in range(n_s))
             + sum(b_rows[i][k] * kff[k] for k in range(n_u))
@@ -300,7 +293,7 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla"):
 
 
 def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat,
-                     impl="xla", want_sigma=False):
+                     impl="xla", want_sigma=False, post=None):
     """Packed tube rollout (ny, B); the port covers n_s <= 2 and n_perf = 0
     (so no perf-trajectory covariance, ``want_sigma``)."""
     if len(x0_rows) > 2 or cfg.n_perf > 0 or want_sigma:
@@ -309,7 +302,7 @@ def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat,
             "not ported yet (ROADMAP Queue 1, item 10)"
         )
     return _pack_y(*_rollout_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg,
-                                   bmat, impl=impl))
+                                   bmat, impl=impl, post=post))
 
 
 def _pack_y(p_traj, q_traj, var_traj):

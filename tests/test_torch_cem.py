@@ -1,9 +1,12 @@
 """PyTorch port: the lane CEM, the portable CEM and the two CEM kernels'
 plain versions against the JAX package, on the CPU.
 
-  * ``gp_predict_plain`` against the JAX lane posterior ``_gp_predict_lanes``
-    in f64 at 1e-10 relative (the distance is taken in another form, so only
-    rounding differs), and against the Pallas kernel in interpret mode in
+  * the prepared posterior's plain path (``prepare_posterior`` then
+    ``gp_predict_prepared``, alone and as the lane rollout calls it under
+    "pallas") against the JAX lane posterior ``_gp_predict_lanes`` in f64 at
+    1e-10 relative (the distance is taken in another form and z_scale is
+    folded into the rows, so only rounding differs), and
+    ``gp_predict_plain`` against the Pallas kernel in interpret mode in
     f32 at rtol 3e-5, atol 3e-6 (the gates of tests/test_pallas_gp_predict);
   * ``tube_score_plain`` against the JAX scorer chain ``_rollout_y_lanes`` +
     ``_dist_lanes`` + ``_cost_lanes`` in f64 at 1e-10, and against the
@@ -12,8 +15,8 @@ plain versions against the JAX package, on the CPU.
   * ``cem_plan_lanes`` and the ``planner`` of ``build_experiment`` (portable
     and lane backends) fed JAX's own draws (``jax.random.split`` then
     ``jax.random.normal`` per iteration, as the JAX planners draw them) in
-    f64: the same feasible flags, and k_ff, cost and violation at 1e-8; the
-    fused scorer prepared once per solve;
+    f64: the same feasible flags, and k_ff, cost and violation at 1e-8,
+    under "auto", "pallas" and "xla"; the model prepared once per solve;
   * two closed-loop ``get_action_batch`` steps of ``build_experiment(solver=
     "cem")`` against JAX's in f64: the same flags and u at 1e-8.
 
@@ -55,8 +58,9 @@ from safe_exploration_tpu.solvers.cem_lanes import (  # noqa: E402
 from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy  # noqa: E402
 from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     cem_score_supported,
-    gp_predict_lanes,
     gp_predict_plain,
+    gp_predict_prepared,
+    prepare_posterior,
     prepare_tube_score,
     tube_score_lanes,
     tube_score_plain,
@@ -168,10 +172,13 @@ def test_gp_predict_plain_matches_jax_lane_form_f64(models, want_jac, z_scale):
     jssm, tssm = models("f64", z_scale)
     z = np.random.default_rng(1).uniform(-0.6, 0.6, (3, 37))
     ref = jl._gp_predict_lanes(jssm, jnp.asarray(z), want_jac=want_jac)
-    out = tl._gp_predict_lanes(tssm, _t(z), want_jac=want_jac, impl="pallas")
-    assert len(out) == len(ref)
-    for o, r in zip(out, ref):
-        assert _rel(o.numpy(), r) < 1e-10
+    post = prepare_posterior(tssm)
+    for out in (gp_predict_prepared(post, _t(z), want_jac=want_jac),
+                tl._gp_predict_lanes(tssm, _t(z), want_jac=want_jac,
+                                     impl="pallas")):
+        assert len(out) == len(ref)
+        for o, r in zip(out, ref):
+            assert _rel(o.numpy(), r) < 1e-10
 
 
 @pytest.mark.parametrize("want_jac", [False, True])
@@ -263,7 +270,7 @@ def test_cpu_wrappers_take_plain_versions(models, plant):
     """On CPU tensors the two CEM wrappers are their plain versions and
     count no launch."""
     _, tssm = models("f64", True)
-    before = (gp_predict_lanes.launches, tube_score_prepared.launches)
+    before = (gp_predict_prepared.launches, tube_score_prepared.launches)
     u, x0 = _lanes(9, 3, 5)
     a = _port_score(tssm, plant, u, x0, 3, "tracking", torch.float64,
                     tube_score_lanes)
@@ -271,7 +278,7 @@ def test_cpu_wrappers_take_plain_versions(models, plant):
                     tube_score_plain)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
-    assert (gp_predict_lanes.launches, tube_score_prepared.launches) == before
+    assert (gp_predict_prepared.launches, tube_score_prepared.launches) == before
 
 
 def _jax_draws(key, n_it, shape, dtype=jnp.float64):
@@ -291,32 +298,54 @@ def _assert_plans(out, ref):
                                rtol=1e-8, atol=1e-12)
 
 
-@pytest.mark.parametrize("gp_impl", ["auto", "xla"])
+LANE_CEM = dict(n_safe=3, n_samples=8, n_elites=3, n_iterations=3)
+
+
+@pytest.fixture(scope="module")
+def lane_cem_case(models, plant):
+    """The lane-CEM parity inputs and the JAX plan per cost kind, solved
+    once (the reference does not depend on the port's gp_impl)."""
+    cache = {}
+
+    def get(cost_kind):
+        if cost_kind not in cache:
+            jssm, _ = models("f64", True)
+            x0s = (np.random.default_rng(6).uniform(-1.0, 1.0, (B, 2))
+                   * [0.15, 0.4])
+            x0s[0] = [0.42, 1.1]                # a lane near the boundary
+            warm = np.random.default_rng(7).uniform(-0.3, 0.3, (B, 3, 1))
+            key = jax.random.PRNGKey(3)
+            args = (plant["k_fb"], plant["a"], plant["b"], plant["u_min"],
+                    plant["u_max"], *plant["polys"])
+            jcost = {"target": jnp.asarray(plant["target"])} \
+                if cost_kind == "tracking" else {}
+            ref = jax_cem_plan_lanes(
+                key, jssm, jnp.asarray(x0s), *(jnp.asarray(v) for v in args),
+                2.0, cost_kind, jcost, JaxCemConfig(**LANE_CEM),
+                warm=jnp.asarray(warm))
+            cache[cost_kind] = (x0s, warm, args, ref,
+                                _jax_draws(key, 3, (8, 3, B)))
+        return cache[cost_kind]
+
+    return get
+
+
+@pytest.mark.parametrize("gp_impl", ["auto", "pallas", "xla"])
 @pytest.mark.parametrize("cost_kind", ["tracking", "exploration"])
-def test_cem_plan_lanes_matches_jax_with_its_draws(models, plant, cost_kind,
+def test_cem_plan_lanes_matches_jax_with_its_draws(models, plant,
+                                                   lane_cem_case, cost_kind,
                                                    gp_impl):
-    jssm, tssm = models("f64", True)
-    cfg = dict(n_safe=3, n_samples=8, n_elites=3, n_iterations=3)
-    x0s = np.random.default_rng(6).uniform(-1.0, 1.0, (B, 2)) * [0.15, 0.4]
-    x0s[0] = [0.42, 1.1]                    # a lane near the boundary
-    warm = np.random.default_rng(7).uniform(-0.3, 0.3, (B, 3, 1))
-    key = jax.random.PRNGKey(3)
-    args = (plant["k_fb"], plant["a"], plant["b"], plant["u_min"],
-            plant["u_max"], *plant["polys"])
-    jargs = (jnp.asarray(v) for v in args)
-    jcost = {"target": jnp.asarray(plant["target"])} \
-        if cost_kind == "tracking" else {}
-    ref = jax_cem_plan_lanes(key, jssm, jnp.asarray(x0s), *jargs, 2.0,
-                             cost_kind, jcost, JaxCemConfig(**cfg),
-                             warm=jnp.asarray(warm))
+    _, tssm = models("f64", True)
+    x0s, warm, args, ref, draws = lane_cem_case(cost_kind)
     tcost = {"target": _t(plant["target"])} if cost_kind == "tracking" else {}
-    prepared = prepare_tube_score.calls
+    prepared = (prepare_tube_score.calls, prepare_posterior.calls)
     out = cem_plan_lanes(None, tssm, _t(x0s), *(_t(v) for v in args), 2.0,
-                         cost_kind, tcost, CemConfig(**cfg, gp_impl=gp_impl),
-                         warm=_t(warm),
-                         noise=_t(_jax_draws(key, 3, (8, 3, B))))
-    # the fused scorer prepares the model once per solve
-    assert prepare_tube_score.calls == prepared + (gp_impl == "auto")
+                         cost_kind, tcost,
+                         CemConfig(**LANE_CEM, gp_impl=gp_impl),
+                         warm=_t(warm), noise=_t(draws))
+    # the fused scorer and the posterior are prepared once per solve
+    assert (prepare_tube_score.calls, prepare_posterior.calls) == (
+        prepared[0] + (gp_impl == "auto"), prepared[1] + (gp_impl != "xla"))
     _assert_plans(out, ref)
     assert np.asarray(ref[1]).any() and not np.asarray(ref[1]).all()
     np.testing.assert_allclose(out[3]["p_traj"].numpy(),

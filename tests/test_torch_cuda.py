@@ -6,11 +6,13 @@ the JAX package, so on a machine with a GPU and no JAX it runs alone:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: f64 at 1e-10 relative; f32 gram at 1e-5; f32 cholesky and
+Tolerances: f64 at 1e-10 relative; f32 gram at 1e-5 (and exactly
+symmetric in both types); f32 cholesky and
 trsm's three entries (trsm_lower, solve_psd, tri_inv_lower) within 2e-4 of
 the f64 plain result (the gate tests/test_pallas.py uses for
 the f32 Pallas Cholesky); f32 gp_predict at 3e-5 of the f32 plain result
-(the gate of tests/test_pallas_gp_predict.py); f32 cem_score within 2e-4
+on the same prepared posterior (the gate of
+tests/test_pallas_gp_predict.py); f32 cem_score within 2e-4
 of the f64 plain result (the gate of tests/test_pallas_cem_score.py), at
 the ragged lane counts within twice the plain version's own f32 error (on
 the card or the CPU) on the same inputs where that is larger;
@@ -38,7 +40,10 @@ from safe_exploration_tpu_torch.ops.kernels import (  # noqa: E402
     cholesky_plain,
     gp_predict_lanes,
     gp_predict_plain,
+    gp_predict_prepared,
     gram_plain,
+    posterior_plain,
+    prepare_posterior,
     prepare_tube_score,
     rbf_gram_masked,
     solve_psd,
@@ -70,7 +75,7 @@ def _gram_args(n, dtype, device="cpu", seed=0):
     arrays = (rng.uniform(-1.0, 1.0, (n, 3)),
               (np.arange(n) < n - 5).astype(np.float64),
               rng.normal(0.0, 0.3, (E, 3)), np.array([-0.2, 0.1]),
-              np.array([3e-2, 5e-2]))
+              0.5 * np.log([3e-2, 5e-2]))
     return [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
 
 
@@ -105,6 +110,28 @@ def test_cuda_cholesky_nan_on_indefinite():
     l = cholesky_blocked(a.cuda()).cpu()
     assert torch.isnan(l).any()
     assert torch.isfinite(l[:, :150, :150]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 128, 200, 2048])
+def test_cuda_gram_matches_plain_symmetric_identity_on_padding(n, dtype):
+    """The Gram over the lower tile triangle with its mirror: against the
+    plain version, exactly symmetric, the identity on the padded rows (the
+    last 5, or the only one at n = 1), at every tile edge."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    args = _gram_args(n, dt, "cuda", seed=n)
+    before = rbf_gram_masked.launches
+    k = rbf_gram_masked(*args)
+    assert rbf_gram_masked.launches == before + 1
+    ref = gram_plain(*args)
+    assert _rel(k, ref) < (1e-10 if dt == torch.float64 else 1e-5)
+    assert torch.equal(k, k.mT)
+    pad = max(0, n - 5) if n > 1 else 0
+    eye = torch.eye(n - pad, dtype=dt, device="cuda").expand(E, -1, -1)
+    assert torch.equal(k[:, pad:, pad:], eye)
+    assert (k[:, pad:, :pad] == 0).all() and (k[:, :pad, pad:] == 0).all()
 
 
 @pytest.mark.cuda
@@ -170,21 +197,56 @@ def _gp_args(arr, n_lanes, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("n,n_lanes", [(64, 16384), (64, 1000), (200, 1000)])
+@pytest.mark.parametrize("n_lanes", [1, 256, 1000, 16384])
+@pytest.mark.parametrize("n", [64, 128, 200])
 def test_cuda_gp_predict_matches_plain(n, n_lanes, dtype):
+    """The prepared call against the plain version on the same prepared
+    posterior (f64: the plain version in f64 at 1e-10; f32: the plain
+    version in f64 on the f32 posterior's values, within 3e-5 or, where
+    the plain version in f32 misses that itself on these inputs, twice its
+    worse error on the card and on the CPU: sf2 - kv^T W kv cancels, and
+    at L = 1 the relative error is the one lane's: 9.9e-5 for the CPU's f32
+    plain version at n = 64 with z_scale), W resident (n = 64, 128) and
+    streamed (n = 200; n = 128 in f64), with and without z_scale and the
+    Jacobian, one launch a call; the raw-array entry (gp_predict_lanes)
+    against its plain version."""
     _need_cuda()
     dt = getattr(torch, dtype)
     arr = _ssm_arrays(n)
-    before = gp_predict_lanes.launches
-    for want_jac in (False, True):
-        out = gp_predict_lanes(*_gp_args(arr, n_lanes, dt, "cuda"),
-                               want_jac=want_jac)
-        ref = gp_predict_plain(*_gp_args(arr, n_lanes, dt, "cpu"),
-                               want_jac=want_jac)
-        for o, r in zip(out, ref):
-            assert o.shape == r.shape
-            assert _rel(o, r) < (1e-10 if dt == torch.float64 else 3e-5)
-    assert gp_predict_lanes.launches == before + 2
+    z = torch.tensor(np.random.default_rng(n_lanes).uniform(
+        -1.0, 1.0, (3, n_lanes)), dtype=dt, device="cuda")
+    before = gp_predict_prepared.launches
+    for z_scale in (True, False):
+        ssm = gpssm_from_numpy(arr, ("rbf", "rbf"), device="cuda", dtype=dt)
+        if not z_scale:
+            ssm = ssm.replace(z_scale=None)
+        post = prepare_posterior(ssm)
+        post64 = post._replace(**{
+            f: getattr(post, f).double() for f in post._fields
+            if f != "hyper"}, hyper=tuple(h.double() for h in post.hyper))
+        post_cpu = post._replace(**{
+            f: getattr(post, f).cpu() for f in post._fields
+            if f != "hyper"}, hyper=tuple(h.cpu() for h in post.hyper))
+        for want_jac in (False, True):
+            out = gp_predict_prepared(post, z, want_jac=want_jac)
+            ref = posterior_plain(post64, z.double(), want_jac=want_jac)
+            plains = (posterior_plain(post, z, want_jac=want_jac),
+                      posterior_plain(post_cpu, z.cpu(), want_jac=want_jac))
+            assert len(out) == len(ref) == 2 + want_jac
+            for k, (o, r) in enumerate(zip(out, ref)):
+                assert o.shape == r.shape
+                tol = 1e-10 if dt == torch.float64 else max(
+                    [3e-5] + [2 * _rel(p[k], r) for p in plains])
+                assert _rel(o, r) < tol
+    assert gp_predict_prepared.launches == before + 4
+    out = gp_predict_lanes(*_gp_args(arr, n_lanes, dt, "cuda"), want_jac=True)
+    args = _gp_args(arr, n_lanes, dt, "cpu")
+    ref = gp_predict_plain(*(a.double() for a in args), want_jac=True)
+    plain = gp_predict_plain(*args, want_jac=True)
+    for o, r, p in zip(out, ref, plain):
+        tol = 1e-10 if dt == torch.float64 else max(3e-5, 2 * _rel(p, r))
+        assert _rel(o, r) < tol
+    assert gp_predict_prepared.launches == before + 5
 
 
 def _plant():
@@ -301,9 +363,11 @@ def test_cuda_cem_score_ragged_lanes_resident_and_streamed(n, n_lanes, dtype):
 
 @pytest.mark.cuda
 def test_cuda_cem_plan_lanes_prepares_once_per_solve(monkeypatch):
-    """The lane CEM on the card prepares the scorer once per solve and
-    launches it once per iteration; its plan equals that of a solve that
-    prepares anew for every scoring call."""
+    """The lane CEM on the card prepares the model once per solve under
+    "auto" (the scorer's posterior serves the final passes' gp_predict) and
+    "pallas", launches the scorer once per iteration and gp_predict H times
+    per pass; the "auto" plan equals that of a solve that prepares anew for
+    every scoring call."""
     _need_cuda()
     from safe_exploration_tpu_torch.runtime.config import (
         ExperimentConfig,
@@ -322,10 +386,14 @@ def test_cuda_cem_plan_lanes_prepares_once_per_solve(monkeypatch):
     warm = torch.zeros((32, 5, 1), dtype=torch.float32, device="cuda")
     noise = torch.tensor(rng.standard_normal((4, 64, 5, 32)),
                          dtype=torch.float32, device="cuda")
-    before = (prepare_tube_score.calls, tube_score_prepared.launches)
+    before = (prepare_tube_score.calls, tube_score_prepared.launches,
+              prepare_posterior.calls, gp_predict_prepared.launches)
     once = exp["batch_planner"](ssm, x0s, warm, noise=noise)
-    assert (prepare_tube_score.calls, tube_score_prepared.launches) == (
-        before[0] + 1, before[1] + 4)
+    # one preparation, a scorer launch per iteration, and gp_predict on the
+    # scorer's posterior H times in each of the two final passes
+    assert (prepare_tube_score.calls, tube_score_prepared.launches,
+            prepare_posterior.calls, gp_predict_prepared.launches) == (
+        before[0] + 1, before[1] + 4, before[2] + 1, before[3] + 2 * 5)
 
     def per_call(prep, u_flat, x0_cols):
         ssm_, *rest = prep.args
@@ -337,6 +405,20 @@ def test_cuda_cem_plan_lanes_prepares_once_per_solve(monkeypatch):
         assert torch.equal(a, b)
     for key in ("cost", "warm_next", "p_traj"):
         assert torch.equal(once[3][key], again[3][key])
+
+    # "pallas": no scorer; the posterior prepared once, gp_predict H times
+    # in each of the 4 wide passes and the two final ones
+    pallas = build_experiment(ExperimentConfig(
+        solver="cem", n_safe=5, n_max=64, cem_samples=64, cem_elites=12,
+        cem_iterations=4, cem_gp_impl="pallas"), dtype=torch.float32,
+        device="cuda")
+    before = (prepare_tube_score.calls, prepare_posterior.calls,
+              gp_predict_prepared.launches)
+    out = pallas["batch_planner"](ssm, x0s, warm, noise=noise)
+    assert (prepare_tube_score.calls, prepare_posterior.calls,
+            gp_predict_prepared.launches) == (
+        before[0], before[1] + 1, before[2] + (4 + 2) * 5)
+    assert all(bool(torch.isfinite(t).all()) for t in out[:3])
 
 
 def _spd(n, seed=0):

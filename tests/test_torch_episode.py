@@ -219,8 +219,8 @@ def test_lipschitz_estimates_match_jax(pendulum):
     assert torch.equal(tc.l_sigma, ref.l_sigma)
 
 
-def _jax_draws(key, n_it, shape):
-    return np.stack([np.asarray(jax.random.normal(k, shape, F64))
+def _jax_draws(key, n_it, shape, dtype=F64):
+    return np.stack([np.asarray(jax.random.normal(k, shape, dtype))
                      for k in jax.random.split(key, n_it)])
 
 
@@ -258,13 +258,13 @@ def test_get_action_success_then_fallback_match_jax():
     assert flags == [True, False]
 
 
-def _jax_init_draws(key, n):
+def _jax_init_draws(key, n, dtype=F64):
     kx, ku, kn = jax.random.split(key, 3)
     return {
-        "init_x": np.asarray(jax.random.uniform(kx, (n, 2), F64, -1.0, 1.0)),
-        "init_u": np.asarray(jax.random.uniform(ku, (n, 1), F64, -1.0, 1.0)),
+        "init_x": np.asarray(jax.random.uniform(kx, (n, 2), dtype, -1.0, 1.0)),
+        "init_u": np.asarray(jax.random.uniform(ku, (n, 1), dtype, -1.0, 1.0)),
         "init_noise": np.asarray(jax.vmap(
-            lambda k: jax.random.normal(k, (2,), F64))(
+            lambda k: jax.random.normal(k, (2,), dtype))(
                 jax.random.split(kn, n))),
     }
 
@@ -283,25 +283,25 @@ def test_collect_initial_data_matches_jax(pendulum):
         assert _rel(o.numpy(), r) < 1e-12
 
 
-def _jax_run_draws(cfg) -> dict:
-    """The JAX runner's draws, rebuilt from its key splits
+def _jax_run_draws(cfg, dtype=F64) -> dict:
+    """The JAX runner's draws in ``dtype``, rebuilt from its key splits
     (runtime/episode.py: run_episodic, collect_initial_data,
     rollout_episode; cem_plan's per-iteration keys; calibrate_lipschitz's
     PRNGKey(0))."""
     key = jax.random.PRNGKey(cfg.seed)
     k_init, _, key = jax.random.split(key, 3)
-    draws = _jax_init_draws(k_init, cfg.n_init_samples)
-    draws["region_x"], draws["region_u"] = _jax_region(N_REGION)
+    draws = _jax_init_draws(k_init, cfg.n_init_samples, dtype)
+    draws["region_x"], draws["region_u"] = _jax_region(N_REGION, dtype)
     reset, plan, step = [], [], []
     for _ in range(cfg.n_ep):
         k_reset, k_roll, key = jax.random.split(key, 3)
-        reset.append(np.asarray(jax.random.normal(k_reset, (2,), F64)))
+        reset.append(np.asarray(jax.random.normal(k_reset, (2,), dtype)))
         pl, st = [], []
         for k in jax.random.split(k_roll, cfg.n_steps):
             k_plan, k_step = jax.random.split(k)
             pl.append(_jax_draws(k_plan, cfg.cem_iterations,
-                                 (cfg.cem_samples, cfg.n_safe, 1)))
-            st.append(np.asarray(jax.random.normal(k_step, (2,), F64)))
+                                 (cfg.cem_samples, cfg.n_safe, 1), dtype))
+            st.append(np.asarray(jax.random.normal(k_step, (2,), dtype)))
         plan.append(np.stack(pl))
         step.append(np.stack(st))
     draws.update(reset=np.stack(reset), plan=np.stack(plan),
@@ -364,6 +364,94 @@ def test_run_experiment_matches_jax_with_its_draws(monkeypatch):
     for d in range(2):
         assert _rel(tg.params[d]["log_lengthscales"].numpy(),
                     jg.params[d]["log_lengthscales"]) < 1e-8
+
+
+RUN_B_SET = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60", "n_ep=1"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_run_b_first_episode_matches_jax_with_its_draws(monkeypatch, dtype):
+    """Episodic run (b), ``pendulum_episode --set n_max=2048
+    n_init_samples=1024 hyp_iters=60``: the build (1,024 initial points, the
+    fit, the Lipschitz calibration) and the first episode on the CPU, the
+    port fed the JAX runner's draws in ``dtype``: the per-step feasibility
+    flags and the episode's counts equal. Minutes of CPU time, so outside
+    tier-1 (``-m slow`` runs it); no refit or fit after the episode
+    (opt_hyp_every 0 on both sides).
+
+    float64 passes. float32 fails: ROADMAP Queue 3's open fault, the
+    Lipschitz estimate at probes that are training inputs, where
+    |z - x_i|^2 is 0 only up to rounding, so the floor's derivative there
+    follows the rounding. The test prints, for the model JAX hands to the
+    episode, both packages' l_mu over the buffer and over the region
+    probes."""
+    from safe_exploration_tpu.runtime import episode as jep
+    from safe_exploration_tpu_torch.runtime import episode as tep
+
+    jdt, tdt = {"float64": (F64, torch.float64),
+                "float32": (jnp.float32, torch.float32)}[dtype]
+    flags, models = {}, {}
+    jax_rollout, port_rollout = jep.rollout_episode, tep.rollout_episode
+    jax_bucketed = jssm_mod.ssm_bucketed
+
+    def jax_recorded(*args, **kwargs):
+        traj, mstate, x = jax_rollout(*args, **kwargs)
+        jax.debug.callback(
+            lambda f: flags.__setitem__("jax", np.asarray(f)), traj["feasible"])
+        return traj, mstate, x
+
+    def port_recorded(*args, **kwargs):
+        out = port_rollout(*args, **kwargs)
+        flags["port"] = out[0]["feasible"].cpu().numpy()
+        return out
+
+    def jax_model(ssm):
+        models["jax"] = ssm
+        return jax_bucketed(ssm)
+
+    monkeypatch.setattr(jep, "rollout_episode", jax_recorded)
+    monkeypatch.setattr(tep, "rollout_episode", port_recorded)
+    monkeypatch.setattr(jssm_mod, "ssm_bucketed", jax_model)
+    cfg = _apply_overrides(CONFIGS["pendulum_episode"], RUN_B_SET)
+    jexp = jax_build(dataclasses.replace(
+        JAX_CONFIGS["pendulum_episode"], **dataclasses.asdict(cfg)),
+        dtype=jdt)
+    texp = build_experiment(cfg, dtype=tdt, device="cpu")
+    common = dict(n_max=cfg.n_max, n_ep=cfg.n_ep, n_steps=cfg.n_steps,
+                  n_init_samples=cfg.n_init_samples, hyp_iters=cfg.hyp_iters,
+                  opt_hyp_every=0, kern_types=KT)
+    ref = jep.run_episodic(
+        jexp["env"], jexp["init_state"], jexp["get_action"], jexp["a"],
+        jexp["b"], jexp["k_fb"], key=jax.random.PRNGKey(cfg.seed),
+        l_mu=jexp["l_mu"], l_sigma=jexp["l_sigma"],
+        make_ssm=jexp["make_ssm"], **common)["series"]
+    out = run_episodic(
+        texp["env"], texp["init_state"], texp["get_action"], texp["a"],
+        texp["b"], texp["k_fb"], l_mu=texp["l_mu"], l_sigma=texp["l_sigma"],
+        make_ssm=texp["make_ssm"], draws=_jax_run_draws(cfg, jdt),
+        plan_noise_shape=texp["planner_noise_shape"], **common)["series"]
+    jm = models["jax"]
+    tm = gpssm_from_numpy(jax_gpssm_to_numpy(jm), KT, device="cpu",
+                          dtype=tdt)
+    probes = {"buffer": jssm_mod.ssm_probe_points(jm),
+              "region": jssm_mod.lipschitz_probe_set(
+                  jexp["env"].spec, jax.random.PRNGKey(0), N_REGION)}
+    for name, z in probes.items():
+        je = jax.jit(lambda s, p: jssm_mod.estimate_lipschitz(
+            s, p, factor=1.2))(jm, z)
+        te = tssm_mod.estimate_lipschitz(
+            tm, torch.tensor(np.asarray(z), dtype=tdt), factor=1.2)
+        print(f"{dtype} l_mu over the {name} of JAX's model: JAX "
+              f"{np.asarray(je.l_mu).tolist()}, port {te.l_mu.tolist()}")
+    diff = np.flatnonzero(flags["port"] != flags["jax"])
+    print(f"run (b), episode 1, {dtype}: JAX feasible steps "
+          f"{np.flatnonzero(flags['jax']).tolist()}, port "
+          f"{np.flatnonzero(flags['port']).tolist()}; series JAX {ref}, "
+          f"port {out}")
+    assert diff.size == 0, f"first differing step {diff[0]}"
+    for k in ("violations", "feasibility_rate", "n_data"):
+        assert out[k] == ref[k], k
 
 
 def test_main_on_cpu_prints_the_summary(capsys):

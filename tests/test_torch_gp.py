@@ -104,7 +104,8 @@ def test_masked_gram_matches_jax_and_the_batched_plain_kernel():
     noise = np.exp(2.0 * log_noise)
     batched = gram_plain(_t(x), _t(mask),
                          _t([p["log_lengthscales"] for p in params]),
-                         _t([p["log_sf"] for p in params]), _t(noise)).numpy()
+                         _t([p["log_sf"] for p in params]),
+                         _t(log_noise)).numpy()
     for d, p in enumerate(params):
         ours = tgp._masked_gram("rbf", {k: _t(v) for k, v in p.items()},
                                 _t(x), _t(mask), _t(noise[d])).numpy()

@@ -68,8 +68,8 @@ def _gram_inputs(n, seed=0):
     mask = (np.arange(n) < n - 5).astype(np.float64)   # ragged valid prefix
     log_ls = rng.normal(0.0, 0.3, (E, 3))
     log_sf = np.array([-0.2, 0.1])
-    noise = np.array([3e-2, 5e-2])
-    return x, mask, log_ls, log_sf, noise
+    log_noise = 0.5 * np.log([3e-2, 5e-2])
+    return x, mask, log_ls, log_sf, log_noise
 
 
 def _spd(n, seed=1):
@@ -84,8 +84,10 @@ def _t(a, dtype=torch.float64):
 
 @pytest.mark.parametrize("n", [64, 130])
 def test_gram_plain_matches_jax_and_pallas(n):
-    x, mask, log_ls, log_sf, noise = _gram_inputs(n)
-    k = gram_plain(*(_t(a) for a in (x, mask, log_ls, log_sf, noise))).numpy()
+    x, mask, log_ls, log_sf, log_noise = _gram_inputs(n)
+    k = gram_plain(*(_t(a) for a in (x, mask, log_ls, log_sf,
+                                     log_noise))).numpy()
+    noise = np.exp(2.0 * log_noise)
     for d in range(E):
         params = {"log_lengthscales": jnp.asarray(log_ls[d]),
                   "log_sf": jnp.asarray(log_sf[d])}

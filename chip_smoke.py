@@ -2,12 +2,14 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``safe_exploration_tpu_torch/csrc``,
-holds each against its plain PyTorch version, drives the port's three paths
+holds each against its plain PyTorch version, drives the port's four paths
 (the batched lane SQP safe-MPC on the pendulum at H=5, B=512, with GP refits
 through the kernels; the batched lane CEM at H=5, B=256, M=64, scoring
 through the cem_score and gp_predict kernels; the episodic closed loop of
 ``runtime.main --config pendulum_episode``, also at n_max 2048 where the
-refits take cholesky_hbm) and checks the GPU against the CPU in f64.
+refits take cholesky_hbm; the lane fleet of ``runtime.main --config
+pendulum_batch_sqp``, 256 per-lane models refitted by model-batched
+kernels) and checks the GPU against the CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -25,6 +27,12 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               least work of the Gram, beta (solve_psd), K^-1's solve
               (tri_inv_lower) and cholesky at n=128, 512 and 2048, each
               beside its torch.linalg call where one exists
+     batch-kernels  the model-batched gram (a leading axis of L models in
+              one launch) against gram_plain, f32 and f64, at L = 256, e = 2,
+              n = 128 (the fleet refit) and L = 2, n = 2048, with per-lane
+              and shared masks and hyperparameters, exactly symmetric; the
+              fleet refit's kernels timed at its shape (512 matrices of
+              n = 128): CUDA-event and device ms, plain, library, bound
      cem      gp_predict (its prepared call against the plain version on
               the same prepared posterior) and cem_score against their
               plain versions at n = 64 (H 5) and 128 (H 3, pendulum_batch's
@@ -48,7 +56,16 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               twice each in alternating order, same generator seed
   7. cemparity  f64, B=16: one get_action_batch on the GPU (kernels) and on
               the CPU (plain versions) with the draws of one CPU generator
-  8. hbm      cholesky_hbm against its plain version at n = 1300, 2048 and
+  8. batch    the fleet CLI's run_experiment on pendulum_batch_sqp at full
+              width (256 lanes, n_max 128, 20 steps, 2 of its 4 episodes),
+              f32: per-episode series, steps/s, fit / calibration / unstack
+              refit times, the batched refit's split beside one lane's,
+              launches (one per refit kernel per refit), the model's
+              self-pair distance (exactly 0) and its l_mu against the CPU's;
+              one fleet step's solve under the profiler (busy share)
+  9. batch-parity  f64, 8 lanes, 3 steps, 2 episodes: GPU against CPU on one
+              set of draws
+ 10. hbm      cholesky_hbm against its plain version at n = 1300, 2048 and
               4096 (e=2, f32 within 3e-4 of the f64 factor, f64 at 1e-9), NaN
               on an indefinite input, trsm's entries at n = 2048
               (tri_inv_lower, solve_psd, trsm_lower at m = 1 and n); CUDA-
@@ -56,14 +73,14 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               wrapper's limit), cholesky_ex and the plain version at 1024,
               2048 and 4096, and cholesky_hbm's device time per kernel
               (profiler)
-  9. episode  the episodic CLI's run_experiment on the card: (a)
+ 11. episode  the episodic CLI's run_experiment on the card: (a)
               pendulum_episode (2 of its 6 episodes), (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
               launch counts zeroed just before each run and read just after;
               per-episode series and fit / calibration / refit times, and the
               final model's refit split (gram / cholesky / beta / K^-1 solve
               / matmul, CUDA events)
- 10. episode-parity  f64, one episode of 3 steps at n_max 2048: GPU against
+ 12. episode-parity  f64, one episode of 3 steps at n_max 2048: GPU against
               CPU on one set of draws
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
@@ -1276,6 +1293,19 @@ def _refit_split(gp) -> dict:
     return {name: _time_ms(fn, reps) for name, fn in parts.items()}
 
 
+def _timed(out: list, fn):
+    """``fn``, appending the host seconds of each call (synchronized on
+    both sides) to ``out``."""
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*args, **kw)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+        return r
+    return call
+
+
 def _episode_cfg(name: str, sets: list[str]):
     from safe_exploration_tpu_torch.runtime.config import CONFIGS
     from safe_exploration_tpu_torch.runtime.main import _apply_overrides
@@ -1309,20 +1339,10 @@ def phase_episode(seed: int) -> dict:
         saved = {k: getattr(ep_mod, k) for k in (
             "ssm_fit", "_calibrate_lipschitz", "ssm_update")}
 
-        def timed(name, fn):
-            def call(*args, **kw):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                r = fn(*args, **kw)
-                torch.cuda.synchronize()
-                spans[name].append(time.perf_counter() - t0)
-                return r
-            return call
-
-        ep_mod.ssm_fit = timed("fit", saved["ssm_fit"])
-        ep_mod._calibrate_lipschitz = timed("calibrate",
-                                            saved["_calibrate_lipschitz"])
-        ep_mod.ssm_update = timed("update", saved["ssm_update"])
+        ep_mod.ssm_fit = _timed(spans["fit"], saved["ssm_fit"])
+        ep_mod._calibrate_lipschitz = _timed(spans["calibrate"],
+                                             saved["_calibrate_lipschitz"])
+        ep_mod.ssm_update = _timed(spans["update"], saved["ssm_update"])
         captured = {}
         run_episodic = ep_mod.run_episodic
 
@@ -1456,6 +1476,445 @@ def phase_episode_parity(seed: int) -> dict:
     return res
 
 
+L_BATCH = 256   # lanes of pendulum_batch_sqp: its refit is L * E Grams
+# the fleet runs 2 of pendulum_batch_sqp's 4 episodes (the second on
+# per-lane hyperparameters) to keep the script's time
+RUN_BATCH = ["n_ep=2"]
+
+
+def _lane_gram_args(rng, lanes, n, dtype, mask_lane, hyp_lane):
+    """The model-batched Gram's arguments: x (L, n, 3); the mask (L, n) with
+    ragged per-lane prefixes or lane 0's (n,) shared; the hyperparameters
+    (L, E, .) per lane or (E, .) shared."""
+    lead = (lanes,) if hyp_lane else ()
+    mask = (np.arange(n)[None] < n - 7 - np.arange(lanes)[:, None] % 9
+            ).astype(np.float64)
+    arrays = (rng.uniform(-1.0, 1.0, (lanes, n, D_IN)),
+              mask if mask_lane else mask[0],
+              rng.normal(-0.5, 0.3, lead + (E, D_IN)),
+              rng.normal(-3.0, 0.2, lead + (E,)),
+              rng.normal(-4.0, 0.2, lead + (E,)))
+    return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrays]
+
+
+def phase_batch_kernels(seed: int) -> dict:
+    """The model-batched Gram against gram_plain, f32 and f64, at the fleet
+    refit's shape (L = 256, e = 2, n = 128) and at L = 2, n = 2048, with
+    per-lane and shared masks and hyperparameters: one launch, exactly
+    symmetric. Then the fleet refit's kernels at its shape (f32, L * E =
+    512 matrices of n = 128): CUDA-event ms, device ms (profiler), the
+    plain version's and the library's ms, and the bound at the least work
+    (as ``_refit_kernel_times``, for 512 matrices)."""
+    from safe_exploration_tpu_torch.ops.kernels import (
+        cholesky_blocked,
+        cholesky_plain,
+        gram_plain,
+        rbf_gram_masked,
+        trsm_plain,
+    )
+
+    rng = np.random.default_rng(seed + 7)
+    err = {}
+    for dtype in (torch.float32, torch.float64):
+        for lanes, n in ((L_BATCH, N_PATH), (2, N_HBM)):
+            for mask_lane, hyp_lane in ((True, True), (False, False),
+                                        (True, False)):
+                args = _lane_gram_args(rng, lanes, n, dtype, mask_lane,
+                                       hyp_lane)
+                before = rbf_gram_masked.launches
+                k = rbf_gram_masked(*args)
+                one = rbf_gram_masked.launches == before + 1
+                kp = gram_plain(*args)
+                e_g, sym = _rel(k, kp), bool(torch.equal(k, k.mT))
+                tol = 1e-10 if dtype == torch.float64 else 1e-5
+                print(f"[batch-kernels] {str(dtype)[6:]} L={lanes} e={E} "
+                      f"n={n} mask {'per lane' if mask_lane else 'shared'}, "
+                      f"hyperparameters {'per lane' if hyp_lane else 'shared'}"
+                      f": gram rel {e_g:.2e} (tol {tol:g}), one launch {one}, "
+                      f"exactly symmetric {sym}", flush=True)
+                if not (e_g <= tol and sym and one):
+                    _fail(f"model-batched gram at {dtype} L={lanes} n={n} "
+                          f"mask_lane={mask_lane} hyp_lane={hyp_lane}")
+                if dtype == torch.float32 and lanes == L_BATCH and hyp_lane \
+                        and mask_lane:
+                    err["gram"] = _abs(k, kp)
+
+    dt, n, m = torch.float32, N_PATH, L_BATCH * E
+    sz = 4
+    args = _lane_gram_args(rng, L_BATCH, n, dt, True, True)
+    k = rbf_gram_masked(*args)
+    k64 = k.double()
+    l64 = cholesky_plain(k64)
+    l = cholesky_blocked(k)
+    err["cholesky"] = _abs(l, l64)
+    y = torch.tensor(rng.normal(size=(L_BATCH, E, n, 1)), dtype=dt,
+                     device="cuda")
+    eye = torch.eye(n, dtype=dt, device="cuda").expand(L_BATCH, E, n, n)
+    eye = eye.contiguous()
+    solves = _refit_solves(l, y)
+    lt = l64.to(dt)
+    beta_ref = trsm_plain(l64, trsm_plain(l64, y.double()), True)
+    err["trsm"] = max(_abs(_refit_solves(lt, y)["beta"](), beta_ref),
+                      _abs(_refit_solves(lt, y)["kinv"](),
+                           trsm_plain(l64, eye.double())))
+    tri = n * (n + 1) // 2
+    in_bytes = (L_BATCH * (n * D_IN + n) + m * (D_IN + 2)) * sz
+    t = {
+        "gram": dict(fn=lambda: rbf_gram_masked(*args), library=None,
+                     plain=lambda: gram_plain(*args),
+                     bound=_bound_ms(in_bytes + m * n * n * sz,
+                                     m * n * n * (2 * D_IN + 7), dt)),
+        "cholesky": dict(fn=lambda: cholesky_blocked(k),
+                         library=lambda: torch.linalg.cholesky_ex(k),
+                         plain=lambda: cholesky_plain(k),
+                         bound=_bound_ms(m * (tri + n * n) * sz,
+                                         m * n ** 3 / 3, dt)),
+        "beta": dict(fn=solves["beta"],
+                     library=lambda: _lib_solve(l, _lib_solve(l, y), True),
+                     plain=lambda: trsm_plain(l, trsm_plain(l, y), True),
+                     bound=_bound_ms(m * (tri + 2 * n) * sz, m * 2 * n * n,
+                                     dt)),
+        "kinv": dict(fn=solves["kinv"], library=lambda: _lib_solve(l, eye),
+                     plain=lambda: trsm_plain(l, eye),
+                     bound=_bound_ms(m * (tri + n * n) * sz, m * n ** 3 / 3,
+                                     dt)),
+    }
+    res = {}
+    for name, c in t.items():
+        dev_ms, by_kernel = _device_ms(c["fn"])
+        r = {"ms": _time_ms(c["fn"], 20),
+             "library_ms": (None if c["library"] is None
+                            else _time_ms(c["library"], 20)),
+             "plain_ms": _time_ms(c["plain"], 2), "device_ms": dev_ms,
+             "device_ms_by_kernel": by_kernel, "bound_ms": c["bound"][0],
+             "bound_by": c["bound"][1]}
+        res[name] = r
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"[batch-kernels] time f32 L={L_BATCH} e={E} n={n} {name}: "
+              f"kernel {r['ms']:.4f} ms (device {dev_ms:.4f}), library {lib} "
+              f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} "
+              f"ms ({r['bound_by']})", flush=True)
+    # the kernels line's trsm: one fleet refit's solves (beta and L^-1)
+    res["trsm"] = {key: (res["beta"][key] + res["kinv"][key]
+                         if key in ("ms", "library_ms", "plain_ms",
+                                    "device_ms") else None)
+                   for key in res["beta"]}
+    res["trsm"]["bound_ms"], res["trsm"]["bound_by"] = _bound_ms(
+        m * (tri + 2 * n + n * n) * sz, m * (2 * n * n + n ** 3 / 3), dt)
+    return {"errs": err, "timings": res}
+
+
+def _self_distance_and_lmu(ssm) -> dict:
+    """On the card: the model's self-pair |z - x_i|^2 at its own buffer
+    (``ssm_probe_points``, as the calibration probes it) exactly 0 for
+    every output dim's lengthscales, and l_mu over the buffer equal to the
+    CPU's on the same model within 1e-5 (f32)."""
+    from safe_exploration_tpu_torch.models.convert import (
+        gpssm_from_numpy,
+        gpssm_to_numpy,
+    )
+    from safe_exploration_tpu_torch.models.kernels import _sq_dists
+    from safe_exploration_tpu_torch.models.ssm import (
+        estimate_lipschitz,
+        ssm_probe_points,
+    )
+
+    probes = ssm_probe_points(ssm)
+    z = probes if ssm.z_scale is None else probes / ssm.z_scale
+    worst = 0.0
+    for p in ssm.gp.params:
+        ls = torch.exp(p["log_lengthscales"])
+        d2 = torch.diagonal(_sq_dists(z / ls, ssm.gp.x / ls))
+        worst = max(worst, float(d2.abs().max()))
+    cpu = gpssm_from_numpy(gpssm_to_numpy(ssm), ssm.gp.kern_types,
+                           device="cpu", dtype=probes.dtype)
+    l_gpu = estimate_lipschitz(ssm, probes, factor=1.2).l_mu
+    l_cpu = estimate_lipschitz(cpu, ssm_probe_points(cpu), factor=1.2).l_mu
+    return {"self_d2_max": worst, "l_mu_gpu": l_gpu.tolist(),
+            "l_mu_cpu": l_cpu.tolist(), "l_mu_rel": _rel(l_gpu, l_cpu)}
+
+
+def phase_batch(seed: int) -> dict:
+    """run_experiment on pendulum_batch_sqp at full width on the card, f32:
+    256 lanes, n_max 128, 24 initial points, 20 steps per episode, the lane
+    SQP at 4 outer x 3 inner, a per-lane fit and calibration after every
+    episode (120 steps), 2 of its 4 episodes. Counts are zeroed just before
+    the run and read just after; the fits, calibrations and unstack
+    refits are timed inside it. Gates: 0 violations, finite series but
+    model_error (a non-finite model error only in lanes whose lane model
+    left the episode non-finite: the f32 append's divergence), n_data
+    as scheduled, one launch of each refit kernel per refit (the build, the
+    first fit, and per episode the unstack and the fit: the last two
+    cover all 256 x 2 matrices in one launch each); the model's self-pair
+    distance exactly 0 and its l_mu at the buffer equal to the CPU's."""
+    import safe_exploration_tpu_torch.runtime.batch as batch_mod
+    from safe_exploration_tpu_torch.models.gp_lanes import lane_unstack_ssm
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    cfg = _episode_cfg("pendulum_batch_sqp", RUN_BATCH + [f"seed={seed}"])
+    spans = {"fit": [], "calibrate": [], "unstack": [], "predict": [],
+             "append": []}
+    names = {"fit": "ssm_fit", "calibrate": "_calibrate_lipschitz",
+             "unstack": "lane_unstack_ssm", "predict": "lane_predict",
+             "append": "lane_append_point"}
+    saved = {n: getattr(batch_mod, n) for n in names.values()}
+    captured = {"episodes": []}
+    run_learning = saved_learning = batch_mod.run_batched_learning
+    run_episodes = saved_episodes = batch_mod.run_batched_episodes_lanes
+
+    def keep(env, exp, ssm, *args, **kw):
+        captured["initial"] = ssm
+        r = run_learning(env, exp, ssm, *args, **kw)
+        captured["model"] = r["model"]
+        return r
+
+    def keep_episode(*args, **kw):
+        traj, model = run_episodes(*args, **kw)
+        # per episode: lanes whose model error is not finite, and lanes
+        # whose lane model (beta, K^-1) left the episode non-finite
+        bad_err = ~torch.isfinite(traj["model_err"]).all(dim=1)
+        gp = model.gp
+        bad_model = ~(torch.isfinite(gp.beta).all(dim=(0, 1))
+                      & torch.isfinite(gp.kinv).all(dim=(0, 1, 2)))
+        captured["episodes"].append((bad_err.cpu(), bad_model.cpu()))
+        return traj, model
+
+    for span, name in names.items():
+        setattr(batch_mod, name, _timed(spans[span], saved[name]))
+    batch_mod.run_batched_learning = keep
+    batch_mod.run_batched_episodes_lanes = keep_episode
+    try:
+        for w in KERNEL_WRAPPERS:
+            w.launches = 0
+        t0 = time.perf_counter()
+        summary = run_experiment(cfg, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    finally:
+        for name, fn in saved.items():
+            setattr(batch_mod, name, fn)
+        batch_mod.run_batched_learning = saved_learning
+        batch_mod.run_batched_episodes_lanes = saved_episodes
+    series = summary["series"]
+    n_refits = 2 + 2 * cfg.n_ep
+    lanes = cfg.batch_lanes
+    per_ep_sps = [lanes * cfg.n_steps / t for t in series["episode_time_s"]]
+    want_n = [min(cfg.n_init_samples + (ep + 1) * cfg.n_steps, cfg.n_max)
+              for ep in range(cfg.n_ep)]
+    # model_error is left out: the f32 lane append can drive a lane's K^-1
+    # past f32's range when the fitted noise variance is below the jitter,
+    # in the JAX package as here (ROADMAP Queue 3); such a lane's model
+    # error is NaN from then on, and the episode's unstack refits it
+    finite = all(np.isfinite(v).all() for k, v in series.items()
+                 if k != "model_error")
+    nan_err = [int(e.sum()) for e, _ in captured["episodes"]]
+    bad_models = [int(m.sum()) for _, m in captured["episodes"]]
+    nan_outside = sum(int((e & ~m).sum()) for e, m in captured["episodes"])
+    # the batched refit's split on the final fleet (256 lanes), beside one
+    # lane's own refit
+    stacked = lane_unstack_ssm(captured["model"]).gp
+    split = _refit_split(stacked)
+    lane0 = stacked.replace(
+        x=stacked.x[0], y=stacked.y[0], mask=stacked.mask[0],
+        params=tuple({k: v[0] for k, v in p.items()} for p in stacked.params),
+        log_noise=stacked.log_noise[0], chol=stacked.chol[0],
+        beta=stacked.beta[0], kinv=stacked.kinv[0])
+    split_one = _refit_split(lane0)
+    probe = _self_distance_and_lmu(captured["initial"])
+    step = _fleet_step_split(cfg, captured["model"], seed)
+    r = {"config": {k: getattr(cfg, k) for k in (
+             "batch_lanes", "n_max", "n_init_samples", "hyp_iters", "n_ep",
+             "n_steps", "n_safe", "sqp_outer", "sqp_inner")},
+         "series": series, "steps_per_sec_per_episode": per_ep_sps,
+         "wall_s": wall, "launches": launches, "refits": n_refits,
+         "fit_s": spans["fit"], "calibrate_s": spans["calibrate"],
+         "unstack_refit_s": spans["unstack"], "refit_split_ms": split,
+         "lanes_nan_model_error": nan_err, "lanes_nonfinite_model": bad_models,
+         "predict_s": spans["predict"], "append_s": spans["append"],
+         "step_split": step,
+         "refit_split_one_lane_ms": split_one, **probe}
+    print(f"[batch] {cfg.name} {r['config']} f32: wall {wall:.1f} s",
+          flush=True)
+    for key in ("violations", "feasibility_rate", "model_error", "mean_cost",
+                "episode_time_s", "n_data", "steps_per_sec"):
+        print(f"[batch]   {key}: {series[key]}", flush=True)
+    print(f"[batch]   steps/s per episode {[round(v, 2) for v in per_ep_sps]}"
+          f"; fit s {[round(v, 3) for v in spans['fit']]}, calibrate s "
+          f"{[round(v, 3) for v in spans['calibrate']]}, unstack (batched "
+          f"refit) s {[round(v, 4) for v in spans['unstack']]}", flush=True)
+    print(f"[batch]   batched refit split ({lanes} lanes x {E} dims, n "
+          f"{stacked.n_max}), CUDA-event ms: "
+          f"{ {k: round(v, 4) for k, v in split.items()} }; one lane's "
+          f"refit: { {k: round(v, 4) for k, v in split_one.items()} }",
+          flush=True)
+    per_step = {k: sum(spans[k]) / len(spans[k]) for k in ("predict",
+                                                            "append")}
+    print(f"[batch]   per step (host, synchronized): lane_predict "
+          f"{per_step['predict'] * 1e3:.2f} ms, lane_append_point "
+          f"{per_step['append'] * 1e3:.2f} ms; one get_action_batch (the lane "
+          f"SQP on the final fleet) {step['wall_ms']:.1f} ms, device "
+          f"{step['device_ms']:.1f} ms (busy share {step['busy']:.3f}, idle "
+          f"{1 - step['busy']:.3f}); top kernels by device ms "
+          f"{step['top']}", flush=True)
+    print(f"[batch]   launches {launches} ({n_refits} refits)", flush=True)
+    print(f"[batch]   lanes with a non-finite model error per episode "
+          f"{nan_err}, lanes whose lane model left the episode non-finite "
+          f"{bad_models} (of {lanes}); non-finite model errors outside "
+          f"those lanes: {nan_outside}", flush=True)
+    print(f"[batch]   model's self-pair |z - x_i|^2 max {probe['self_d2_max']}"
+          f"; f32 l_mu at the buffer: card {probe['l_mu_gpu']}, CPU "
+          f"{probe['l_mu_cpu']} (rel {probe['l_mu_rel']:.2e}, tol 1e-5)",
+          flush=True)
+    if any(series["violations"]):
+        _fail(f"fleet: violations {series['violations']}")
+    if not finite:
+        _fail("fleet: non-finite series")
+    if nan_outside:
+        _fail(f"fleet: {nan_outside} lanes with a non-finite model error "
+              "whose lane model stayed finite")
+    if series["n_data"] != want_n:
+        _fail(f"fleet: n_data {series['n_data']}, want {want_n}")
+    if any(launches[w] != n_refits for w in (
+            "rbf_gram_masked", "cholesky_blocked", "solve_psd",
+            "tri_inv_lower")) or launches["trsm_lower"] or \
+            launches["cholesky_hbm"]:
+        _fail(f"fleet: refit kernels launched {launches} in {n_refits} "
+              "refits")
+    if probe["self_d2_max"] != 0.0 or probe["l_mu_rel"] > 1e-5:
+        _fail(f"fleet: self distance {probe['self_d2_max']}, l_mu card vs "
+              f"CPU rel {probe['l_mu_rel']}")
+    return r
+
+
+def _fleet_step_split(cfg, model, seed: int) -> dict:
+    """One fleet step's solve on the final fleet (its bucketed view, fresh
+    machine state, states from the initial distribution): host ms of one
+    ``get_action_batch`` under torch.profiler, the device ms of its
+    kernels (device-side events only), the busy share and the five
+    kernels with the most device time."""
+    from safe_exploration_tpu_torch.models.gp_lanes import (
+        lane_shrink_to_bucket,
+    )
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+
+    dev = model.gp.x.device
+    exp = build_experiment(cfg, dtype=model.gp.x.dtype, device=dev)
+    spec = exp["env"].spec
+    lanes = model.gp.n_lanes
+    view = lane_shrink_to_bucket(model, n_free=cfg.n_steps)
+    noise = np.random.default_rng(seed).standard_normal((lanes, spec.n_s))
+    x0 = spec.init_m + spec.init_std * torch.tensor(
+        noise, dtype=model.gp.x.dtype, device=dev)
+    state = exp["init_state_batch"](lanes)
+    exp["get_action_batch"](state, view, x0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp["get_action_batch"](state, view, x0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy": device_ms / wall_ms,
+            "launches": sum(e.count for e in events),
+            "top": {e.key[:60]: round(e.self_device_time_total / 1e3, 2)
+                    for e in top}}
+
+
+def phase_batch_parity(seed: int) -> dict:
+    """f64, 8 lanes, 3 steps, 2 episodes of pendulum_batch_sqp on the GPU
+    (kernels) and on the CPU (plain versions) with one set of draws from a
+    CPU generator: counts and feasible flags equal; the model that enters
+    the fleet (the build and first fit: no solve has run yet) within 1e-9;
+    after the episodes, whose states follow the SQP's solutions, the
+    trajectories and the final per-lane factors, hyperparameters and
+    Lipschitz constants within 1e-6."""
+    import safe_exploration_tpu_torch.runtime.batch as batch_mod
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    cfg = _episode_cfg("pendulum_batch_sqp", [
+        "batch_lanes=8", "n_steps=3", "n_ep=2", f"seed={seed}"])
+    spec = build_experiment(cfg, dtype=torch.float64, device="cpu")["env"].spec
+    out = {}
+    saved = (batch_mod.run_batched_episodes_lanes,
+             batch_mod.run_batched_learning)
+    for dev in ("cuda", "cpu"):
+        rec = {"ep": []}
+
+        def episodes(*args, **kw):
+            r = saved[0](*args, **kw)
+            rec["ep"].append(r)
+            return r
+
+        def learning(env, exp, ssm, *args, **kw):
+            rec["initial"] = ssm
+            r = saved[1](env, exp, ssm, *args, **kw)
+            rec["model"] = r["model"]
+            return r
+
+        draws = batch_mod.batch_draws(
+            torch.Generator().manual_seed(seed), spec, batch=cfg.batch_lanes,
+            n_ep=cfg.n_ep, n_steps=cfg.n_steps, n_init=cfg.n_init_samples,
+            n_region=128 * (spec.n_s + spec.n_u), dtype=torch.float64)
+        batch_mod.run_batched_episodes_lanes = episodes
+        batch_mod.run_batched_learning = learning
+        try:
+            t0 = time.perf_counter()
+            rec["summary"] = run_experiment(cfg, dtype=torch.float64,
+                                            device=dev, draws=draws)
+            rec["s"] = time.perf_counter() - t0
+        finally:
+            batch_mod.run_batched_episodes_lanes, \
+                batch_mod.run_batched_learning = saved
+        out[dev] = rec
+    g, c = out["cuda"], out["cpu"]
+    gs, cs = g["summary"]["series"], c["summary"]["series"]
+    counts_equal = all(gs[k] == cs[k] for k in ("violations",
+                                                 "feasibility_rate", "n_data"))
+    flags_equal = all(torch.equal(tg["feasible"].cpu(), tc["feasible"])
+                      for (tg, _), (tc, _) in zip(g["ep"], c["ep"]))
+    gi, ci = g["initial"], c["initial"]
+    initial = max(_rel(getattr(gi.gp, f), getattr(ci.gp, f))
+                  for f in ("chol", "beta", "kinv", "log_noise"))
+    initial = max(initial, _rel(gi.l_mu, ci.l_mu), _rel(gi.l_sigma,
+                                                        ci.l_sigma))
+    traj = max(_rel(tg[k], tc[k]) for (tg, _), (tc, _) in zip(g["ep"], c["ep"])
+               for k in ("x", "u", "resid", "model_err"))
+    gm, cm = g["model"], c["model"]
+    final = {f: _rel(getattr(gm.gp, f), getattr(cm.gp, f))
+             for f in ("beta", "kinv", "log_noise")}
+    final["params"] = max(_rel(gp_[k], cp_[k]) for gp_, cp_ in zip(
+        gm.gp.params, cm.gp.params) for k in gp_)
+    final["l_mu"], final["l_sigma"] = (_rel(gm.l_mu, cm.l_mu),
+                                      _rel(gm.l_sigma, cm.l_sigma))
+    res = {"counts_equal": counts_equal, "flags_equal": flags_equal,
+           "initial_rel": initial, "traj_rel": traj, "final_rel": final,
+           "series_cpu": cs, "gpu_s": g["s"], "cpu_s": c["s"]}
+    print(f"[batch-parity] f64 8 lanes, 3 steps, 2 episodes: counts equal "
+          f"{counts_equal} (feasibility {cs['feasibility_rate']}, n_data "
+          f"{cs['n_data']}), feasible flags equal {flags_equal}; the model "
+          f"entering the fleet rel {initial:.2e} (tol 1e-9); trajectories rel "
+          f"{traj:.2e}, final per-lane model rel "
+          f"{ {k: f'{v:.2e}' for k, v in final.items()} } (tol 1e-6); GPU "
+          f"{g['s']:.1f} s, CPU {c['s']:.1f} s", flush=True)
+    if not (counts_equal and flags_equal):
+        _fail(f"fleet series or flags differ GPU vs CPU: {gs} vs {cs}")
+    if initial > 1e-9:
+        _fail(f"fleet's initial model differs GPU vs CPU: {initial}")
+    if traj > 1e-6 or max(final.values()) > 1e-6:
+        _fail(f"fleet trajectories or final model differ GPU vs CPU: "
+              f"{traj}, {final}")
+    return res
+
+
 # the kernels line: per Pallas kernel its name, CUDA source, the Pallas
 # kernel it replaces and the wrappers whose launches count for it (trsm's
 # three entries replace _trsm_kernel together)
@@ -1499,21 +1958,26 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     kern = phase_kernels(args.seed)
+    batch_kern = phase_batch_kernels(args.seed)
     cem_kern = phase_cem_kernels(args.seed)
     path = phase_path(args.seed)
     parity = phase_parity(args.seed)
     cem = phase_cem_path(args.seed)
     cem_parity = phase_cem_parity(args.seed)
+    batch = phase_batch(args.seed)
+    batch_parity = phase_batch_parity(args.seed)
     hbm = phase_hbm_kernels(args.seed)
     episode = phase_episode(args.seed)
     episode_parity = phase_episode_parity(args.seed)
 
     # each kernel's launches are those of the path that runs it: the refit
-    # kernels' from the SQP path, the CEM kernels' from the CEM path,
-    # cholesky_hbm's from the episodic run (b); times at that path's shapes
-    # (gp_predict: the final B-lane passes; cholesky_hbm: n = 2048, f32)
+    # kernels' from the fleet (pendulum_batch_sqp, the slice's main path),
+    # the CEM kernels' from the CEM path, cholesky_hbm's from the episodic
+    # run (b); times at that path's shapes (the refit kernels: the fleet
+    # refit's 512 matrices of n = 128; gp_predict: the final B-lane passes;
+    # cholesky_hbm: n = 2048, f32)
     t_hbm = hbm["times"][f"float32_n{N_HBM}"]
-    times = {**kern["timings"][N_PATH],
+    times = {**batch_kern["timings"],
              "gp_predict": cem_kern["timings"][f"gp_predict_L{B_CEM}"],
              "cem_score": cem_kern["timings"]["cem_score"],
              "cholesky_hbm": {"ms": t_hbm["hbm_ms"],
@@ -1521,7 +1985,7 @@ def main() -> int:
                               "library_ms": t_hbm["library_ms"],
                               "bound_ms": t_hbm["bound_ms"],
                               "bound_by": t_hbm["bound_by"]}}
-    errs = {**kern["errs"], **cem_kern["errs"],
+    errs = {**batch_kern["errs"], **cem_kern["errs"],
             "cholesky_hbm": hbm["max_abs_err"]}
     path_launches = {"cholesky_hbm": episode["b"]["launches"]}
     for short in cem_kern["errs"]:
@@ -1529,7 +1993,7 @@ def main() -> int:
     kernels = []
     for short, source, replaces, wrappers in KERNELS:
         r = times[short]
-        counts = path_launches.get(short, path["launches"])
+        counts = path_launches.get(short, batch["launches"])
         entry = {
             "name": short, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -1548,7 +2012,9 @@ def main() -> int:
               "cem_kernel_worst_rel_f32": cem_kern["worst_rel_f32"],
               "path": path, "parity": parity, "cem_path": cem,
               "cem_parity": cem_parity, "hbm": hbm, "episode": episode,
-              "episode_parity": episode_parity, "failures": FAILURES,
+              "episode_parity": episode_parity,
+              "batch_kernel_times": batch_kern["timings"], "batch": batch,
+              "batch_parity": batch_parity, "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

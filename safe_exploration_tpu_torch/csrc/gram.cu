@@ -1,8 +1,10 @@
-// Masked, identity-padded RBF Gram matrix, batched over GP output dims, in
-// one launch from the raw hyperparameters.
+// Masked, identity-padded RBF Gram matrix, batched over a leading axis of
+// models and over GP output dims, in one launch from the raw
+// hyperparameters.
 //
 // Replaces the Pallas kernel safe_exploration_tpu/ops/pallas/gram.py
-// (_gram_kernel, reached through rbf_gram_masked). For each output dim e:
+// (_gram_kernel, reached through rbf_gram_masked). For each model l (a
+// lane of a stacked GP; L = 1 for one model) and output dim e:
 //
 //   K_e[i, j] = m_i m_j sf2_e exp(-0.5 max(n_i + n_j - 2 <xs_i, xs_j>, 0))
 //               + delta_ij (m_i noise_e + 1 - m_i)
@@ -10,15 +12,19 @@
 // with xs = x / ls_e, n_i = |xs_i|^2 (the matmul form of
 // models/gp._masked_gram), ls_e = exp(log_ls_e), sf2_e = exp(2 log_sf_e)
 // and noise_e = exp(2 log_noise_e) + 1e-6, all formed here once per CTA,
-// so a refit's Gram is this launch and nothing else.
+// so a refit's Gram is this launch and nothing else. Each model has its
+// own inputs x_l; its mask and hyperparameters are its own or shared by
+// all models (a lane stride of 0).
 //
 // What bounds it on an H100: the output. The work is 2 d + ~10 flops and
 // one exp per pair against 4 or 8 bytes written per entry, so the kernel
 // is a store of e n^2 values: 33.5 MB at n = 2048, e = 2 in f32, 0.010 ms
 // at 3.35 TB/s; at the SQP path's n = 128 (131 KB) the launch latency sets
-// the time, not the bytes.
+// the time, not the bytes. A fleet refit (L = 256 lanes, e = 2, n = 128)
+// is 512 Grams, 33.5 MB in f32: one launch of 5,120 CTAs.
 // What the design does about it: CTAs only over the lower triangle of the
-// 64 x 64 output tiles (i_blk >= j_blk) of each dim, so every exponential
+// 64 x 64 output tiles (i_blk >= j_blk) of each model and dim (the pair
+// (l, e) folded into the grid's y axis), so every exponential
 // is computed once; a CTA stores its tile with 16-byte stores (4
 // consecutive columns per thread, two stores in f64) and its mirror tile
 // through a shared-memory transpose, so both stores are coalesced and K is
@@ -85,10 +91,16 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
             const T* __restrict__ log_ls, const T* __restrict__ log_sf,
-            const T* __restrict__ log_noise, T* __restrict__ out, int n,
-            int d) {
+            const T* __restrict__ log_noise, T* __restrict__ out, int e_dims,
+            int n, int d, int mask_lane_stride, int hyp_per_lane) {
   __shared__ __align__(16) GramSmem<T> sm;
-  const int e = blockIdx.y;
+  // the (model, dim) pair of this CTA; a shared mask or shared
+  // hyperparameters have a lane stride of 0
+  const int b = blockIdx.y;
+  const int lane = b / e_dims;
+  const int h = hyp_per_lane ? b : b % e_dims;   // hyperparameter row
+  x += (size_t)lane * n * d;
+  mask += (size_t)lane * mask_lane_stride;
   // lower-triangle tile t -> (bi, bj), bi >= bj, t = bi (bi + 1) / 2 + bj
   const int t = blockIdx.x;
   int bi = (int)((sqrt(8.0 * t + 1.0) - 1.0) * 0.5);
@@ -100,10 +112,10 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
   const int tc = tid % 16, tr = tid / 16;
 
   // hyperparameters, once per CTA
-  if (tid < d) sm.ls[tid] = exp_(log_ls[(size_t)e * d + tid]);
+  if (tid < d) sm.ls[tid] = exp_(log_ls[(size_t)h * d + tid]);
   if (tid == DMAX) {
-    sm.sf2 = exp_(T(2) * log_sf[e]);
-    sm.noise = exp_(T(2) * log_noise[e]) + T(1e-6);
+    sm.sf2 = exp_(T(2) * log_sf[h]);
+    sm.noise = exp_(T(2) * log_noise[h]) + T(1e-6);
   }
   __syncthreads();
   for (int idx = tid; idx < 2 * TB * d; idx += NT) {
@@ -168,7 +180,7 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
   }
 
   const bool vec = ((size_t)n * sizeof(T)) % 16 == 0;
-  T* oute = out + (size_t)e * n * n;
+  T* oute = out + (size_t)b * n * n;
 #pragma unroll
   for (int p = 0; p < 4; ++p)
     store_row4(oute, n, i0 + tr + 16 * p, j0 + 4 * tc, v[p], vec);
@@ -192,29 +204,37 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
 
 template <typename T>
 int launch(const void* x, const void* mask, const void* log_ls,
-           const void* log_sf, const void* log_noise, void* out, int e, int n,
-           int d, cudaStream_t stream) {
+           const void* log_sf, const void* log_noise, void* out, int lanes,
+           int e, int n, int d, int mask_per_lane, int hyp_per_lane,
+           cudaStream_t stream) {
   const int nb = (n + TB - 1) / TB;
-  const dim3 grid(nb * (nb + 1) / 2, e);
+  const dim3 grid(nb * (nb + 1) / 2, lanes * e);
   gram_kernel<T><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mask),
       static_cast<const T*>(log_ls), static_cast<const T*>(log_sf),
-      static_cast<const T*>(log_noise), static_cast<T*>(out), n, d);
+      static_cast<const T*>(log_noise), static_cast<T*>(out), e, n, d,
+      mask_per_lane ? n : 0, hyp_per_lane);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (n, d), mask (n,), log_ls (e, d) log lengthscales, log_sf (e,) log
-// signal stds, log_noise (e,) log noise stds, out (e, n, n). Returns
-// cudaGetLastError().
+// x (L, n, d); mask (L, n), or (n,) shared (mask_per_lane 0); log_ls
+// (L, e, d) log lengthscales, log_sf (L, e) log signal stds, log_noise
+// (L, e) log noise stds, or (e, d), (e,), (e,) shared (hyp_per_lane 0);
+// out (L, e, n, n). Returns cudaGetLastError().
 extern "C" int gram_rbf_masked(const void* x, const void* mask,
                                const void* log_ls, const void* log_sf,
-                               const void* log_noise, void* out, int e, int n,
-                               int d, int is_f64, void* stream) {
-  if (d > DMAX || d < 1 || n < 1 || e < 1) return (int)cudaErrorInvalidValue;
+                               const void* log_noise, void* out, int lanes,
+                               int e, int n, int d, int mask_per_lane,
+                               int hyp_per_lane, int is_f64, void* stream) {
+  if (d > DMAX || d < 1 || n < 1 || e < 1 || lanes < 1 ||
+      (long long)lanes * e > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_f64)
-    return launch<double>(x, mask, log_ls, log_sf, log_noise, out, e, n, d, s);
-  return launch<float>(x, mask, log_ls, log_sf, log_noise, out, e, n, d, s);
+    return launch<double>(x, mask, log_ls, log_sf, log_noise, out, lanes, e,
+                          n, d, mask_per_lane, hyp_per_lane, s);
+  return launch<float>(x, mask, log_ls, log_sf, log_noise, out, lanes, e, n,
+                       d, mask_per_lane, hyp_per_lane, s);
 }

@@ -13,6 +13,15 @@ the split of the two Pallas kernels' ranges. It is never differentiated, so
 the kernels need no backward. ``linv.T @ linv`` stays a ``torch.matmul``.
 The hyperparameter fit (:func:`gp_nll`, :func:`gp_fit`) differentiates a
 library Cholesky instead, as the JAX package does.
+
+A **stacked** GP holds L independent models, one leading lane axis on every
+tensor (``x`` (L, n_max, d_in), ``mask`` (L, n_max), each hyperparameter
+(L, ...), ``chol`` (L, e, n_max, n_max), ...; ``head`` stays one shared
+int): the JAX package's ``jax.vmap``-ed GP, written out. :func:`gp_refit`,
+:func:`gp_nll` and :func:`gp_fit` take it as they take one model: one
+Gram launch, one Cholesky, one PSD solve and one triangular inverse over
+all L * e matrices, and a fit whose per-lane NLLs are summed (lanes are
+independent, so each lane's gradient is its own; Adam is elementwise).
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ _JITTER = 1e-6
 
 @dataclasses.dataclass(frozen=True)
 class GP:
-    """Padded multi-output GP state."""
+    """Padded multi-output GP state, of one model or stacked (a leading
+    lane axis on every tensor, see the module docstring)."""
 
     kern_types: tuple     # (e,) kernel type per output dim
     x: torch.Tensor       # (n_max, d_in) padded training inputs
@@ -61,15 +71,16 @@ class GP:
 
     @property
     def n_max(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-2]
 
     @property
     def n_out(self) -> int:
-        return self.y.shape[1]
+        return self.y.shape[-1]
 
     @property
     def n_points(self) -> torch.Tensor:
-        return torch.sum(self.mask).to(torch.int32)
+        """Valid points, per lane of a stacked GP."""
+        return torch.sum(self.mask, dim=-1).to(torch.int32)
 
     def replace(self, **changes) -> "GP":
         return dataclasses.replace(self, **changes)
@@ -78,11 +89,12 @@ class GP:
 def _masked_gram(kern_type: str, params: dict, x: torch.Tensor,
                  mask: torch.Tensor, noise_var: torch.Tensor) -> torch.Tensor:
     """Gram matrix of one output dim with identity padding on masked entries
-    (the per-dim plain form; the refit uses the batched kernel)."""
+    (the per-dim plain form; the refit uses the batched kernel). Leading
+    lane axes pass through."""
     k = gram(kern_type, params, x, x)
-    k = k * (mask[:, None] * mask[None, :])
-    diag = mask * (noise_var + _JITTER) + (1.0 - mask)
-    return k + torch.diag(diag)
+    k = k * (mask[..., :, None] * mask[..., None, :])
+    diag = mask * (noise_var[..., None] + _JITTER) + (1.0 - mask)
+    return k + torch.diag_embed(diag)
 
 
 def _kinv_from_chol(l: torch.Tensor) -> torch.Tensor:
@@ -100,10 +112,11 @@ def refit_cholesky(n_max: int):
 def refit_inputs(gp: GP):
     """What :func:`gp_refit` hands its kernels: the batched Gram's arguments
     (the raw log-hyperparameters: the Gram forms the variances itself), the
-    Cholesky (:func:`refit_cholesky`) and the masked targets (e, n, 1)."""
-    log_ls = torch.stack([p["log_lengthscales"] for p in gp.params])
-    log_sf = torch.stack([p["log_sf"] for p in gp.params])
-    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1).contiguous()
+    Cholesky (:func:`refit_cholesky`) and the masked targets (e, n, 1) —
+    each with the lane axis in front for a stacked GP."""
+    log_ls = torch.stack([p["log_lengthscales"] for p in gp.params], dim=-2)
+    log_sf = torch.stack([p["log_sf"] for p in gp.params], dim=-1)
+    ym = (gp.mask[..., None, :] * gp.y.mT).unsqueeze(-1).contiguous()
     return ((gp.x, gp.mask, log_ls, log_sf, gp.log_noise.contiguous()),
             refit_cholesky(gp.n_max), ym)
 
@@ -113,7 +126,7 @@ def gp_refit(gp: GP) -> GP:
     and hyperparameters: one batched Gram, one batched Cholesky (the blocked
     kernel up to n_max 1024, the left-looking one above), one PSD solve for
     beta and one triangular inverse for K^-1, each batched over all output
-    dims."""
+    dims (and all lanes of a stacked GP)."""
     if gp.precision == "ff":
         raise NotImplementedError(
             "precision='ff' (float-float refits) is not ported: on the H100 it "
@@ -214,25 +227,27 @@ def gp_shrink_to_bucket(gp: GP, *, min_bucket: int = 32) -> GP:
 
 def gp_nll(params: tuple, log_noise: torch.Tensor, gp: GP) -> torch.Tensor:
     """Negative log marginal likelihood, summed over output dims; identity
-    padding adds 0 to the quadratic form and the log-det.
+    padding adds 0 to the quadratic form and the log-det. A stacked GP
+    gives one value per lane (L,), as ``jax.vmap(gp_nll)``.
 
     Differentiable in ``params`` and ``log_noise`` through a library
     Cholesky (``cholesky_ex``), as the JAX package differentiates
     ``jnp.linalg.cholesky`` here and not a kernel. A failed factorization
     gives NaN, as JAX's does, instead of raising."""
-    n_eff = torch.sum(gp.mask)
+    n_eff = torch.sum(gp.mask, dim=-1)
     k = torch.stack([
         _masked_gram(gp.kern_types[d], params[d], gp.x, gp.mask,
-                     torch.exp(2.0 * log_noise[d]))
-        for d in range(gp.n_out)])
+                     torch.exp(2.0 * log_noise[..., d]))
+        for d in range(gp.n_out)], dim=-3)
     l, info = torch.linalg.cholesky_ex(k)
     nan = torch.tensor(float("nan"), dtype=k.dtype, device=k.device)
-    l = l + torch.where(info == 0, torch.zeros_like(nan), nan)[:, None, None]
-    ym = (gp.mask[None, :] * gp.y.T).unsqueeze(-1)
+    l = l + torch.where(info == 0, torch.zeros_like(nan), nan)[..., None, None]
+    ym = (gp.mask[..., None, :] * gp.y.mT).unsqueeze(-1)
     z = torch.linalg.solve_triangular(l, ym, upper=False).squeeze(-1)
     per = 0.5 * torch.sum(z * z, dim=-1) + torch.sum(
         torch.log(torch.diagonal(l, dim1=-2, dim2=-1)), dim=-1)
-    return torch.sum(per) + gp.n_out * 0.5 * n_eff * math.log(2.0 * math.pi)
+    return (torch.sum(per, dim=-1)
+            + gp.n_out * 0.5 * n_eff * math.log(2.0 * math.pi))
 
 
 def _theta_leaves(params: tuple, log_noise: torch.Tensor) -> list:
@@ -258,7 +273,9 @@ def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
     Adam is written out in optax's order of operations (moments, bias
     correction, ``-lr * mu_hat / (sqrt(nu_hat) + 1e-8)``) rather than taken
     from ``torch.optim``, so the two packages' fits agree to rounding.
-    The loop never reads a value back to the host."""
+    The loop never reads a value back to the host. A stacked GP is fitted
+    lane by lane in one loop: the loss is the lanes' summed NLL, whose
+    gradient in a lane's hyperparameters is that lane's own."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     ref = [t.detach() for t in _theta_leaves(gp.params, gp.log_noise)]
     theta = [t.clone() for t in ref]
@@ -268,7 +285,7 @@ def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
         leaves = [t.requires_grad_(True) for t in theta]
         with torch.enable_grad():
             params, log_noise = _theta_from_leaves(leaves, gp.params)
-            loss = gp_nll(params, log_noise, gp)
+            loss = torch.sum(gp_nll(params, log_noise, gp))
             if prior_strength > 0.0:
                 prior = None
                 for t, t0 in zip(leaves, ref):

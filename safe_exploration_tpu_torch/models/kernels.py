@@ -12,21 +12,37 @@ import torch
 __all__ = ["KERNELS", "init_kernel_params", "gram", "kernel_diag"]
 
 
+def _dot_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_k a[..., k] b[..., k], unrolled over the last axis in a fixed
+    order (no reduction whose order could change with the shape)."""
+    out = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * b[..., k]
+    return out
+
+
 def _sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared distances (n1, d) x (n2, d) -> (n1, n2) in the
-    ||a||^2 + ||b||^2 - 2ab matmul form, floored at 0 with ``maximum``,
+    """Pairwise squared distances (..., n1, d) x (..., n2, d) -> (..., n1,
+    n2) in the ||a||^2 + ||b||^2 - 2ab form, floored at 0 with ``maximum``,
     whose derivative at the tie is 1/2 as JAX's (``clamp``'s is 1): the
-    Lipschitz estimate differentiates twice through it."""
-    n1 = torch.sum(x1 * x1, dim=-1, keepdim=True)
-    n2 = torch.sum(x2 * x2, dim=-1, keepdim=True)
-    d2 = n1 + n2.T - 2.0 * (x1 @ x2.T)
+    Lipschitz estimate differentiates twice through it.
+
+    The cross term is formed by the norms' own arithmetic (products summed
+    over d in one order), so identical rows give exactly 2n - 2n = 0, as
+    jitted XLA does; a matmul rounds otherwise, and the floor's derivative
+    at a training input would follow that rounding."""
+    n1 = _dot_rows(x1, x1)[..., :, None]
+    n2 = _dot_rows(x2, x2)[..., None, :]
+    cross = _dot_rows(x1[..., :, None, :], x2[..., None, :, :])
+    d2 = n1 + n2 - 2.0 * cross
     return torch.maximum(d2, torch.zeros_like(d2))
 
 
 def _k_rbf(params: dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Squared-exponential (ARD): sigma_f^2 exp(-0.5 sum_d (dx_d / l_d)^2)."""
-    ls = torch.exp(params["log_lengthscales"])
-    var = torch.exp(2.0 * params["log_sf"])
+    """Squared-exponential (ARD): sigma_f^2 exp(-0.5 sum_d (dx_d / l_d)^2).
+    Hyperparameters may carry leading lane axes matching the inputs'."""
+    ls = torch.exp(params["log_lengthscales"])[..., None, :]
+    var = torch.exp(2.0 * params["log_sf"])[..., None, None]
     return var * torch.exp(-0.5 * _sq_dists(x1 / ls, x2 / ls))
 
 

@@ -4,6 +4,13 @@ A GP over inputs z = (x, u) modelling residual dynamics
 Delta x = f(x, u) - prior(x, u), plus the Lipschitz constants the safety
 tube needs. With ``z_scale`` the GP buffer holds normalized inputs and
 ``predict_latent`` divides raw inputs by the scales.
+
+A **stacked** GPSSM (a stacked GP, ``l_mu`` / ``l_sigma`` (L, n_s),
+``z_scale`` (L, d_in)) holds L independent models, as the JAX package's
+vmapped one: :func:`ssm_fit`, :func:`ssm_probe_points`,
+:func:`calibrate_lipschitz` and :func:`estimate_lipschitz` take it and
+work on every lane at once (the Lipschitz Hessians nest the lane axis
+around the probe axis under ``torch.func.vmap``).
 """
 
 from __future__ import annotations
@@ -144,9 +151,14 @@ def ssm_n_points(ssm) -> torch.Tensor:
 
 def ssm_probe_points(ssm) -> torch.Tensor:
     """The (padded) training inputs in raw units: the default probe set of
-    :func:`estimate_lipschitz`."""
+    :func:`estimate_lipschitz`, (n_max, d_in) or per lane (L, n_max, d_in).
+    ``predict_latent`` divides them by ``z_scale`` again; the pendulum's
+    scales are powers of two, so that round trip gives the buffer's rows
+    back exactly and a probe's distance to its own row is exactly 0."""
     _require_gp(ssm, "ssm_probe_points")
-    return ssm.gp.x if ssm.z_scale is None else ssm.gp.x * ssm.z_scale
+    if ssm.z_scale is None:
+        return ssm.gp.x
+    return ssm.gp.x * ssm.z_scale[..., None, :]
 
 
 def lipschitz_probe_set(spec, generator: torch.Generator | None = None,
@@ -180,23 +192,22 @@ def calibrate_lipschitz(ssm, spec, generator: torch.Generator | None = None,
                         draws=None):
     """Estimate l_mu / l_sigma over the training buffer plus ``n_region``
     (default 128 d_in) probes of the operating region
-    (:func:`lipschitz_probe_set`; ``draws`` as there)."""
+    (:func:`lipschitz_probe_set`; ``draws`` as there). A stacked model
+    probes each lane's own buffer and the same region."""
     probes = ssm_probe_points(ssm)
     if n_region is None:
         n_region = 128 * probes.shape[-1]
     region = lipschitz_probe_set(spec, generator, n_region, draws=draws)
+    region = region.to(probes.dtype).expand(
+        probes.shape[:-2] + region.shape)
     return estimate_lipschitz(
-        ssm, torch.cat([probes, region.to(probes.dtype)], dim=0),
-        factor=factor)
+        ssm, torch.cat([probes, region], dim=-2), factor=factor)
 
 
-def estimate_lipschitz(ssm, z_points: torch.Tensor, *, factor: float = 2.0,
-                       l_mu_min: float = 1e-4, l_sigma_min: float = 1e-4):
-    """Data-driven Lipschitz constants: per output dim ``l_mu = factor *
-    max_z ||Hess mu(z)||_2`` and ``l_sigma = factor * max_z ||grad
-    sigma(z)||_2`` over the probe points, floored. The Hessians and gradients
-    are ``torch.func`` transforms vmapped over the points; the spectral norm
-    of each d_in x d_in Hessian comes from ``eigvalsh``."""
+def _derivatives(ssm, z_points: torch.Tensor):
+    """Hessians of the posterior mean (m, e, d, d) and gradients of the
+    predictive std (m, e, d) at the points (m, d): ``torch.func``
+    transforms vmapped over the points."""
     from torch.func import hessian, jacrev, vmap
 
     def mean(z):
@@ -205,11 +216,53 @@ def estimate_lipschitz(ssm, z_points: torch.Tensor, *, factor: float = 2.0,
     def std(z):
         return torch.sqrt(ssm.predict_latent(z)[1])
 
-    hess = vmap(hessian(mean))(z_points)                  # (m, e, d, d)
-    grads = vmap(jacrev(std))(z_points)                   # (m, e, d)
-    hess_norms = torch.amax(torch.abs(torch.linalg.eigvalsh(hess)), dim=-1)
+    return vmap(hessian(mean))(z_points), vmap(jacrev(std))(z_points)
+
+
+# cuSOLVER's batched symmetric eigensolver refuses large batches (on an
+# H100 with CUDA 12.8, 32,768 3 x 3 matrices failed where 8,192 passed);
+# a fleet's calibration has 256 lanes x 512 probes x 2 dims of them
+_EIG_CHUNK = 8192
+
+
+def _eigvalsh(h: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.eigvalsh`` of (..., d, d), in chunks of at most
+    ``_EIG_CHUNK`` matrices (each matrix's eigenvalues are its own)."""
+    flat = h.reshape(-1, *h.shape[-2:])
+    vals = [torch.linalg.eigvalsh(c) for c in flat.split(_EIG_CHUNK)]
+    return torch.cat(vals).reshape(h.shape[:-1])
+
+
+def _lane_derivatives(ssm, z_points: torch.Tensor):
+    """:func:`_derivatives` of a stacked model at per-lane points (L, m, d):
+    the lane axis vmapped around the point axis over the fields
+    ``gp_predict`` reads."""
+    from torch.func import vmap
+
+    gp = ssm.gp
+
+    def one(z, z_scale, x, mask, beta, kinv, params):
+        lane = gp.replace(x=x, mask=mask, beta=beta, kinv=kinv, params=params)
+        return _derivatives(ssm.replace(gp=lane, z_scale=z_scale), z)
+
+    zs_dim = None if ssm.z_scale is None else 0
+    return vmap(one, in_dims=(0, zs_dim, 0, 0, 0, 0, 0))(
+        z_points, ssm.z_scale, gp.x, gp.mask, gp.beta, gp.kinv, gp.params)
+
+
+def estimate_lipschitz(ssm, z_points: torch.Tensor, *, factor: float = 2.0,
+                       l_mu_min: float = 1e-4, l_sigma_min: float = 1e-4):
+    """Data-driven Lipschitz constants: per output dim ``l_mu = factor *
+    max_z ||Hess mu(z)||_2`` and ``l_sigma = factor * max_z ||grad
+    sigma(z)||_2`` over the probe points, floored. The Hessians and gradients
+    are ``torch.func`` transforms vmapped over the points; the spectral norm
+    of each d_in x d_in Hessian comes from ``eigvalsh``. A stacked model
+    takes per-lane points (L, m, d) and gives (L, n_s) constants."""
+    derivs = _lane_derivatives if ssm.gp.x.ndim == 3 else _derivatives
+    hess, grads = derivs(ssm, z_points)            # (.., m, e, d, d), (.., m, e, d)
+    hess_norms = torch.amax(torch.abs(_eigvalsh(hess)), dim=-1)
     grad_norms = torch.linalg.vector_norm(grads, dim=-1)
-    l_mu = torch.clamp(factor * torch.amax(hess_norms, dim=0), min=l_mu_min)
-    l_sigma = torch.clamp(factor * torch.amax(grad_norms, dim=0),
+    l_mu = torch.clamp(factor * torch.amax(hess_norms, dim=-2), min=l_mu_min)
+    l_sigma = torch.clamp(factor * torch.amax(grad_norms, dim=-2),
                           min=l_sigma_min)
     return ssm.replace(l_mu=l_mu, l_sigma=l_sigma)

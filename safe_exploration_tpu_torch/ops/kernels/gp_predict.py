@@ -49,12 +49,13 @@ _ARGTYPES = (VP,) * 12 + (INT,) * 6 + (VP,)
 
 
 def gp_pallas_supported(ssm) -> bool:
-    """Whether this kernel covers the model: an exact GP-SSM (the port's
-    only kind, known by its padded GP ``ssm.gp``; the models package builds
-    on this one, so it is not imported here) with the all-RBF menu at f32
-    precision."""
+    """Whether this kernel covers the model: one shared exact GP-SSM (known
+    by its padded GP ``ssm.gp`` with a 2-D buffer; the models package
+    builds on this one, so it is not imported here) with the all-RBF menu
+    at f32 precision. Per-lane and stacked models (a 3-D buffer) keep the
+    plain form, as in the JAX package."""
     gp = getattr(ssm, "gp", None)
-    return (gp is not None and gp.precision == "f32"
+    return (gp is not None and gp.x.ndim == 2 and gp.precision == "f32"
             and all(kt == "rbf" for kt in gp.kern_types))
 
 

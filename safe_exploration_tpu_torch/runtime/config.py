@@ -8,7 +8,8 @@ carries: the pendulum, the exact GP state-space model, the tracking and
 exploration objectives, and the two solvers — the lane SQP and the CEM (the
 single-instance ``planner`` on the portable or the lane backend with the
 single-instance SafeMPC machine, the batched ``batch_planner`` on the lane
-CEM) — with the batched SafeMPC machine. Other choices raise
+CEM) — with the batched SafeMPC machine, and for the SQP the fleet
+runner's test ``lane_batch_supported``. Other choices raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
@@ -21,6 +22,7 @@ import torch
 
 from safe_exploration_tpu_torch import resolve_device
 from safe_exploration_tpu_torch.envs import linearize_discretize, make_pendulum
+from safe_exploration_tpu_torch.models.gp_lanes import LaneGPSSM
 from safe_exploration_tpu_torch.ops.linalg import dlqr
 from safe_exploration_tpu_torch.solvers.cem import (
     CemConfig,
@@ -165,7 +167,8 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     SafeMPC machine ``init_state`` / ``get_action`` and the shape of one
     solve's draws ``planner_noise_shape`` (CEM only; the SQP's is the
     unported portable NLP), the batch entries (``batch_planner``,
-    ``init_state_batch``, ``get_action_batch``), ``make_ssm``, ``env``,
+    ``init_state_batch``, ``get_action_batch``, ``lane_batch_supported``:
+    None for the CEM), ``make_ssm``, ``env``,
     ``a``, ``b``, ``k_fb``, ``cost_fn``, ``kern_types``, ``l_mu``,
     ``l_sigma`` and ``cfg``."""
     dev = resolve_device(device)
@@ -185,6 +188,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     else:
         cost_fn, cost_args = exploration_cost(), {}
     n_duals, dual_shift = 0, None
+    lane_batch_supported = None
     if cfg.solver == "cem":
         cem_cfg = CemConfig(
             n_safe=cfg.n_safe, n_samples=cfg.cem_samples,
@@ -244,12 +248,25 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             env, k_fb, a, b, cfg.objective, cost_args, sqp_cfg)
 
         def batch_planner(ssm, x0s, warm, lam=None):
-            if not lanes_supported(ssm, sqp_cfg, cfg.objective):
-                raise NotImplementedError(
-                    "this model/solver combination needs the portable NLP, "
-                    "which is not ported yet (ROADMAP Queue 1, item 8)"
-                )
-            return lane_solver(ssm, x0s, warm, lam)
+            if lanes_supported(ssm, sqp_cfg, cfg.objective):
+                return lane_solver(ssm, x0s, warm, lam)
+            if isinstance(ssm, LaneGPSSM):
+                raise TypeError(
+                    "per-lane (LaneGPSSM) models require the lane backend; "
+                    "this solver configuration is unsupported there "
+                    "(opt_k_fb/non-GN/ff-precision) — the stacked fleet "
+                    "runner is not ported yet (ROADMAP Queue 1, item 7)")
+            raise NotImplementedError(
+                "this model/solver combination needs the portable NLP, "
+                "which is not ported yet (ROADMAP Queue 1, item 8)"
+            )
+
+        def lane_batch_supported(ssm):
+            """Whether the fleet runner rides the lane backend for this
+            model: a shared GPSSM (stacked by ``lane_stack_ssm``) or a
+            LaneGPSSM, on a configuration the lane SQP covers (the port's
+            lane SQP takes no other model)."""
+            return lanes_supported(ssm, sqp_cfg, cfg.objective)
 
         def planner(*args, **kwargs):
             raise NotImplementedError(
@@ -296,6 +313,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         "batch_planner": batch_planner,
         "init_state_batch": init_state_batch,
         "get_action_batch": get_action_batch,
+        "lane_batch_supported": lane_batch_supported,
         "kern_types": kern_types,
         "make_ssm": make_ssm,
         "l_mu": l_mu,

@@ -13,12 +13,14 @@ Hessian is the same fold over the gradient (reverse over reverse). No
 derivative ever couples two lanes. ``lax.scan`` / ``lax.cond`` become Python
 loops and one host ``bool`` for the violation-gated extra polish.
 
-Covered here: a shared :class:`GPSSM` with the RBF kernel menu, n_s <= 2
-(the scalar-unrolled tube), no performance trajectory, the tracking and
+Covered here: a shared :class:`GPSSM` or per-lane :class:`LaneGPSSM`
+(the fleet runner's models, each lane querying its own posterior through
+``models/gp_lanes.lane_predict``) with the RBF kernel menu, n_s <= 2 (the
+scalar-unrolled tube), no performance trajectory, the tracking and
 exploration objectives, GN Hessian, exact line search and fixed feedback
 gains. The array-form tube (n_s > 2), performance trajectories, the risk
-objective and per-lane / sparse models are still to port (ROADMAP Queue 1,
-items 7, 10 and 11).
+objective and sparse models are still to port (ROADMAP Queue 1, items 10
+and 11).
 
 The tube rollout also serves the lane CEM (solvers/cem_lanes.py), which
 scores without derivatives: there ``impl="pallas"`` routes the posterior
@@ -38,6 +40,12 @@ from typing import Callable
 
 import torch
 
+from safe_exploration_tpu_torch.models.gp_lanes import (
+    _KERNEL_PARTS,
+    LaneGPSSM,
+    _relu0,
+    lane_predict,
+)
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.ops.kernels import (
     gp_pallas_supported,
@@ -49,17 +57,9 @@ from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, _solve_spd_unrolle
 __all__ = ["lanes_supported", "gp_pallas_supported", "solve_safempc_lanes",
            "make_sqp_lane_solver"]
 
-# kernel type -> additive parts (the JAX package's models/gp_lanes table,
-# restricted to the ported menu)
-_KERNEL_PARTS = {"rbf": ("rbf",)}
 # the Sigma-free stock objectives; a Sigma-consuming one (risk_tracking, not
 # ported) must be added to _wants_sigma as well
 _LANE_COSTS = ("tracking", "exploration")
-
-
-def _relu0(x: torch.Tensor) -> torch.Tensor:
-    """max(x, 0) with ``jnp.maximum``'s value and derivative (1/2 at 0)."""
-    return 0.5 * (x + torch.abs(x))
 
 
 # ---------------------------------------------------------------- lane algebra
@@ -91,8 +91,8 @@ def _const_rows(mat):
 
 
 def _gp_of(ssm):
-    """The GP state of a lane-capable SSM (the port carries the exact
-    :class:`GPSSM` only)."""
+    """The GP state of a lane-capable SSM: the exact :class:`GPSSM`'s or
+    the per-lane :class:`LaneGPSSM`'s ``gp``."""
     return ssm.gp
 
 
@@ -105,7 +105,14 @@ def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
     z_scale chain rule of the JAX package. ``impl="pallas"`` takes the fused
     kernel (forward-only; the name is the JAX package's) on ``post``, the
     model's ``prepare_posterior`` (made here when the caller holds none).
+    A :class:`LaneGPSSM` answers each lane from its own model
+    (``lane_predict``; z may hold k folded copies of the B lanes).
     """
+    if isinstance(ssm, LaneGPSSM):
+        if impl == "pallas":
+            raise NotImplementedError(
+                "the fused posterior kernel covers shared models only")
+        return lane_predict(ssm, z, want_jac=want_jac)
     if impl == "pallas":
         if post is None:
             post = prepare_posterior(ssm)
@@ -214,6 +221,14 @@ def _sum_two_ellipsoids_q(q1, q2):
              for j in range(n)] for i in range(n)]
 
 
+def _per_lane(v: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-dim constants (e,) as they are, per-lane ones (e, B) tiled to
+    ``width`` = k B folded lanes (lane c B + b is copy c of lane b)."""
+    if v.ndim < 2 or v.shape[-1] == width:
+        return v
+    return v.repeat(1, width // v.shape[-1])
+
+
 def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
                    post=None):
     """Lane tube rollout from a point state: u_flat (n_var, B), x0 list of
@@ -230,7 +245,8 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
     a_rows, b_rows = _const_rows(a), _const_rows(b)
     kfb_rows, b_lift = _const_rows(k_fb), _const_rows(bmat)
     n_u = len(kfb_rows)
-    noise = torch.exp(2.0 * ssm.gp.log_noise)
+    width = x0[0].shape[-1]
+    noise = _per_lane(torch.exp(2.0 * ssm.gp.log_noise), width)
     c_safety = cfg.c_safety
 
     def kff_at(t):
@@ -252,7 +268,8 @@ def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
          for i in range(n_s)]
     p_traj, q_traj, var_traj = [p], [q], [[var[i] for i in range(n_s)]]
 
-    l_mu, l_sigma = ssm.l_mu, ssm.l_sigma
+    l_mu = _per_lane(ssm.l_mu, width)
+    l_sigma = _per_lane(ssm.l_sigma, width)
     for t in range(1, t_len):
         kff = kff_at(t)
         z = torch.stack(list(p) + kff)
@@ -510,10 +527,16 @@ def solve_safempc_lanes(
     alphas = [0.5 ** i for i in range(cfg.n_linesearch)]
     polish_alphas = [1.0, 0.5, 0.25, 0.125]
     eye = torch.eye(n_var, dtype=dtype, device=device)[:, :, None]
+    # per-lane models evaluate the line-search candidates one by one, as
+    # the JAX package does (it folds them for shared models only)
+    fold_cands = not isinstance(ssm, LaneGPSSM)
 
     def fold_eval(cands, eval_wide):
         """cands (n_c, n_var, B) -> values (n_c, B) from one rollout over
-        n_c * B lanes (lane c * B + b sees x0[b])."""
+        n_c * B lanes (lane c * B + b sees x0[b]), or from n_c rollouts
+        over B lanes for a per-lane model."""
+        if not fold_cands:
+            return torch.stack([eval_wide(c, rollout_y(c), 1) for c in cands])
         n_c = cands.shape[0]
         u_wide = torch.movedim(cands, 0, 1).reshape(n_var, n_c * bsz)
         y_wide = rollout_at(u_wide, [xr.repeat(n_c) for xr in x0_rows])
@@ -638,9 +661,11 @@ def solve_safempc_lanes(
 
 
 def lanes_supported(ssm, cfg: SqpConfig, cost_kind: str) -> bool:
-    """Whether the port's lane backend covers this configuration."""
+    """Whether the port's lane backend covers this configuration: a shared
+    :class:`GPSSM` (one model, B initial states) or a :class:`LaneGPSSM`
+    (B per-lane models, the fleet runner's)."""
     return (
-        isinstance(ssm, GPSSM)
+        isinstance(ssm, (GPSSM, LaneGPSSM))
         and all(kt in _KERNEL_PARTS for kt in ssm.gp.kern_types)
         and ssm.gp.precision == "f32"
         and not cfg.opt_k_fb

@@ -61,7 +61,12 @@ from safe_exploration_tpu_torch.runtime.main import (  # noqa: E402
     main,
     run_experiment,
 )
-from test_torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import (  # noqa: E402,F401
+    jax_gpssm_to_numpy,
+    jax_init_draws as _jax_init_draws,
+    jax_region as _jax_region,
+    one_torch_thread,
+)
 
 F64 = jnp.float64
 KT = ("rbf", "rbf")
@@ -176,21 +181,11 @@ def test_gp_fit_matches_jax():
     assert int(tf.n_points) == int(jf.n_points) == 18
 
 
-def _jax_region(n, dtype=F64):
-    kx, ku = jax.random.split(jax.random.PRNGKey(0))
-    return (np.asarray(jax.random.uniform(kx, (n, 2), dtype)),
-            np.asarray(jax.random.uniform(ku, (n, 1), dtype)))
-
-
 def test_lipschitz_estimates_match_jax(pendulum):
     """estimate_lipschitz at off-data points against the JAX estimate
     (jitted) at 1e-8, and calibrate_lipschitz as that estimate over the
-    training buffer plus the region probes of JAX's PRNGKey(0).
-
-    Off data only: at a training input the self-distance |z - x_i|^2 is 0
-    up to rounding, and the Hessian keeps that point's own curvature or
-    drops it as the rounding falls (the floor at 0 has derivative 0 below,
-    1/2 at, 1 above the tie), in JAX as in the port."""
+    training buffer plus the region probes of JAX's PRNGKey(0). At training
+    inputs: :func:`test_lipschitz_at_training_inputs_matches_jitted_jax`."""
     jexp, texp = pendulum
     x, y = _data(20, seed=3)
     spec = jexp["env"].spec
@@ -217,6 +212,46 @@ def test_lipschitz_estimates_match_jax(pendulum):
         factor=1.2)
     assert torch.equal(tc.l_mu, ref.l_mu)
     assert torch.equal(tc.l_sigma, ref.l_sigma)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
+def test_lipschitz_at_training_inputs_matches_jitted_jax(dtype, tol):
+    """estimate_lipschitz probed at the 20-point model's own buffer
+    (``ssm_probe_points``) against jitted JAX, in each precision. There
+    |z - x_i|^2 is exactly 0 in both (the cross term formed by the norms'
+    own arithmetic; the pendulum's z_scale round trip is exact), so the
+    floor's derivative is 1/2 in both and the Hessians agree. l_sigma is
+    held in f64 only: at a training input the f32 variance sf2 - kv^T K^-1
+    kv is a cancellation whose rounding follows each library's summation
+    order, and the std's gradient divides by it (2.6e-2 relative apart on
+    this model)."""
+    from safe_exploration_tpu_torch.models.kernels import _sq_dists
+
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "float64": (F64, torch.float64)}[dtype]
+    jexp = jax_build(JaxConfig(), dtype=jdt)
+    spec = jexp["env"].spec
+    x, y = _data(20, seed=3)
+    jssm = jssm_mod.make_gp_ssm(
+        KT, jnp.asarray(x[:, :2], jdt), jnp.asarray(x[:, 2:], jdt),
+        jnp.asarray(y, jdt), n_max=24, l_mu=jexp["l_mu"],
+        l_sigma=jexp["l_sigma"], log_noise=-3.0,
+        z_scale=jnp.concatenate([spec.norm_x, spec.norm_u]))
+    jssm = jssm.replace(gp=jax.jit(jgp.gp_fit, static_argnames="iters")(
+        jssm.gp, iters=5))
+    tssm = gpssm_from_numpy(jax_gpssm_to_numpy(jssm), KT, device="cpu",
+                            dtype=tdt)
+    probes = tssm_mod.ssm_probe_points(tssm)
+    assert torch.equal(probes / tssm.z_scale, tssm.gp.x)
+    ls = torch.exp(tssm.gp.params[0]["log_lengthscales"])
+    d2 = _sq_dists(probes / tssm.z_scale / ls, tssm.gp.x / ls)
+    assert torch.all(torch.diagonal(d2) == 0.0)
+    je = jax.jit(jssm_mod.estimate_lipschitz)(
+        jssm, jssm_mod.ssm_probe_points(jssm))
+    te = tssm_mod.estimate_lipschitz(tssm, probes)
+    assert _rel(te.l_mu.numpy(), je.l_mu) < tol
+    if dtype == "float64":
+        assert _rel(te.l_sigma.numpy(), je.l_sigma) < tol
 
 
 def _jax_draws(key, n_it, shape, dtype=F64):
@@ -256,17 +291,6 @@ def test_get_action_success_then_fallback_match_jax():
         assert int(tst.plan_idx) == int(jst.plan_idx)
         assert int(tst.n_fail) == int(jst.n_fail)
     assert flags == [True, False]
-
-
-def _jax_init_draws(key, n, dtype=F64):
-    kx, ku, kn = jax.random.split(key, 3)
-    return {
-        "init_x": np.asarray(jax.random.uniform(kx, (n, 2), dtype, -1.0, 1.0)),
-        "init_u": np.asarray(jax.random.uniform(ku, (n, 1), dtype, -1.0, 1.0)),
-        "init_noise": np.asarray(jax.vmap(
-            lambda k: jax.random.normal(k, (2,), dtype))(
-                jax.random.split(kn, n))),
-    }
 
 
 def test_collect_initial_data_matches_jax(pendulum):
@@ -380,12 +404,12 @@ def test_run_b_first_episode_matches_jax_with_its_draws(monkeypatch, dtype):
     tier-1 (``-m slow`` runs it); no refit or fit after the episode
     (opt_hyp_every 0 on both sides).
 
-    float64 passes. float32 fails: ROADMAP Queue 3's open fault, the
-    Lipschitz estimate at probes that are training inputs, where
-    |z - x_i|^2 is 0 only up to rounding, so the floor's derivative there
-    follows the rounding. The test prints, for the model JAX hands to the
-    episode, both packages' l_mu over the buffer and over the region
-    probes."""
+    float64 passes. float32 fails, ROADMAP Queue 3's open fault: the l_mu
+    estimates now agree (the self-distance at a training input is exactly
+    0 in both), but the f32 posterior variance at n = 1,024 cancels below
+    its rounding, and the two packages' tubes part from the first steps.
+    The test prints, for the model JAX hands to the episode, both
+    packages' l_mu over the buffer and over the region probes."""
     from safe_exploration_tpu.runtime import episode as jep
     from safe_exploration_tpu_torch.runtime import episode as tep
 

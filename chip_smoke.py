@@ -30,9 +30,12 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
      batch-kernels  the model-batched gram (a leading axis of L models in
               one launch) against gram_plain, f32 and f64, at L = 256, e = 2,
               n = 128 (the fleet refit) and L = 2, n = 2048, with per-lane
-              and shared masks and hyperparameters, exactly symmetric; the
-              fleet refit's kernels timed at its shape (512 matrices of
-              n = 128): CUDA-event and device ms, plain, library, bound
+              and shared masks, exactly symmetric; the fleet refit's
+              cholesky, solve_psd and tri_inv_lower at its shape (512
+              matrices of n = 128) against f64 plain, each matrix within
+              2e-4 (f32) / 1e-10 (f64), zero above the diagonal; those
+              kernels timed there: CUDA-event and device ms, plain,
+              library, bound
      cem      gp_predict (its prepared call against the plain version on
               the same prepared posterior) and cem_score against their
               plain versions at n = 64 (H 5) and 128 (H 3, pendulum_batch's
@@ -1482,29 +1485,74 @@ L_BATCH = 256   # lanes of pendulum_batch_sqp: its refit is L * E Grams
 RUN_BATCH = ["n_ep=2"]
 
 
-def _lane_gram_args(rng, lanes, n, dtype, mask_lane, hyp_lane):
+def _lane_gram_args(rng, lanes, n, dtype, mask_lane):
     """The model-batched Gram's arguments: x (L, n, 3); the mask (L, n) with
     ragged per-lane prefixes or lane 0's (n,) shared; the hyperparameters
-    (L, E, .) per lane or (E, .) shared."""
-    lead = (lanes,) if hyp_lane else ()
+    (L, E, .), one set per model."""
     mask = (np.arange(n)[None] < n - 7 - np.arange(lanes)[:, None] % 9
             ).astype(np.float64)
     arrays = (rng.uniform(-1.0, 1.0, (lanes, n, D_IN)),
               mask if mask_lane else mask[0],
-              rng.normal(-0.5, 0.3, lead + (E, D_IN)),
-              rng.normal(-3.0, 0.2, lead + (E,)),
-              rng.normal(-4.0, 0.2, lead + (E,)))
+              rng.normal(-0.5, 0.3, (lanes, E, D_IN)),
+              rng.normal(-3.0, 0.2, (lanes, E)),
+              rng.normal(-4.0, 0.2, (lanes, E)))
     return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrays]
+
+
+def _rel_each(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The worst matrix's max |a - b| / max |b| over a batch (..., n, n)."""
+    a, b = a.double(), b.double()
+    num = (a - b).abs().flatten(-2).amax(-1)
+    return float((num / b.abs().flatten(-2).amax(-1)).max())
+
+
+def _batched_factor_errors(rng, dtype) -> dict:
+    """The fleet refit's Cholesky and solves at its shape (L * E = 512
+    matrices of n = 128, per-lane masks) against the f64 plain versions:
+    each matrix's relative error (cholesky from the Gram in ``dtype``;
+    solve_psd and tri_inv_lower from the f64 factor rounded to ``dtype``),
+    and whether the factor and L^-1 are zero above the diagonal."""
+    from safe_exploration_tpu_torch.ops.kernels import (
+        cholesky_blocked,
+        cholesky_plain,
+        rbf_gram_masked,
+        solve_psd,
+        tri_inv_lower,
+        trsm_plain,
+    )
+
+    n = N_PATH
+    k = rbf_gram_masked(*_lane_gram_args(rng, L_BATCH, n, dtype, True))
+    l64 = cholesky_plain(k.double())
+    l = cholesky_blocked(k)
+    lt = l64.to(dtype)
+    y = torch.tensor(rng.normal(size=(L_BATCH, E, n, 1)), device="cuda")
+    eye = torch.eye(n, dtype=torch.float64, device="cuda").expand(
+        L_BATCH, E, n, n)
+    beta = solve_psd(lt, y.to(dtype))
+    linv = tri_inv_lower(lt)
+    return {"cholesky": _rel_each(l, l64),
+            "solve_psd": _rel_each(beta.mT, trsm_plain(
+                l64, trsm_plain(l64, y), True).mT),
+            "tri_inv_lower": _rel_each(linv, trsm_plain(l64, eye)),
+            "upper_zero": bool((torch.triu(l, 1) == 0).all())
+            and bool((torch.triu(linv, 1) == 0).all()),
+            "abs": {"cholesky": _abs(l, l64), "trsm": max(
+                _abs(beta, trsm_plain(l64, trsm_plain(l64, y), True)),
+                _abs(linv, trsm_plain(l64, eye)))}}
 
 
 def phase_batch_kernels(seed: int) -> dict:
     """The model-batched Gram against gram_plain, f32 and f64, at the fleet
     refit's shape (L = 256, e = 2, n = 128) and at L = 2, n = 2048, with
-    per-lane and shared masks and hyperparameters: one launch, exactly
-    symmetric. Then the fleet refit's kernels at its shape (f32, L * E =
-    512 matrices of n = 128): CUDA-event ms, device ms (profiler), the
-    plain version's and the library's ms, and the bound at the least work
-    (as ``_refit_kernel_times``, for 512 matrices)."""
+    per-lane and shared masks: one launch, exactly symmetric. The fleet
+    refit's Cholesky, solve_psd and tri_inv_lower at its shape (L * E =
+    512 matrices of n = 128) against their f64 plain versions, each
+    matrix within 2e-4 in f32 and 1e-10 in f64, zero above the diagonal.
+    Then the fleet refit's kernels timed at its shape (f32): CUDA-event
+    ms, device ms (profiler), the plain version's and the library's ms,
+    and the bound at the least work (as ``_refit_kernel_times``, for 512
+    matrices)."""
     from safe_exploration_tpu_torch.ops.kernels import (
         cholesky_blocked,
         cholesky_plain,
@@ -1517,10 +1565,8 @@ def phase_batch_kernels(seed: int) -> dict:
     err = {}
     for dtype in (torch.float32, torch.float64):
         for lanes, n in ((L_BATCH, N_PATH), (2, N_HBM)):
-            for mask_lane, hyp_lane in ((True, True), (False, False),
-                                        (True, False)):
-                args = _lane_gram_args(rng, lanes, n, dtype, mask_lane,
-                                       hyp_lane)
+            for mask_lane in (True, False):
+                args = _lane_gram_args(rng, lanes, n, dtype, mask_lane)
                 before = rbf_gram_masked.launches
                 k = rbf_gram_masked(*args)
                 one = rbf_gram_masked.launches == before + 1
@@ -1528,35 +1574,38 @@ def phase_batch_kernels(seed: int) -> dict:
                 e_g, sym = _rel(k, kp), bool(torch.equal(k, k.mT))
                 tol = 1e-10 if dtype == torch.float64 else 1e-5
                 print(f"[batch-kernels] {str(dtype)[6:]} L={lanes} e={E} "
-                      f"n={n} mask {'per lane' if mask_lane else 'shared'}, "
-                      f"hyperparameters {'per lane' if hyp_lane else 'shared'}"
-                      f": gram rel {e_g:.2e} (tol {tol:g}), one launch {one}, "
+                      f"n={n} mask {'per lane' if mask_lane else 'shared'}: "
+                      f"gram rel {e_g:.2e} (tol {tol:g}), one launch {one}, "
                       f"exactly symmetric {sym}", flush=True)
                 if not (e_g <= tol and sym and one):
                     _fail(f"model-batched gram at {dtype} L={lanes} n={n} "
-                          f"mask_lane={mask_lane} hyp_lane={hyp_lane}")
-                if dtype == torch.float32 and lanes == L_BATCH and hyp_lane \
-                        and mask_lane:
+                          f"mask_lane={mask_lane}")
+                if dtype == torch.float32 and lanes == L_BATCH and mask_lane:
                     err["gram"] = _abs(k, kp)
+        fe = _batched_factor_errors(rng, dtype)
+        tol = 1e-10 if dtype == torch.float64 else 2e-4
+        worst = max(fe[w] for w in ("cholesky", "solve_psd", "tri_inv_lower"))
+        print(f"[batch-kernels] {str(dtype)[6:]} {L_BATCH * E} matrices of "
+              f"n={N_PATH}, worst matrix's rel against f64 plain: cholesky "
+              f"{fe['cholesky']:.2e}, solve_psd {fe['solve_psd']:.2e}, "
+              f"tri_inv_lower {fe['tri_inv_lower']:.2e} (tol {tol:g}); zeros "
+              f"above the diagonal {fe['upper_zero']}", flush=True)
+        if not (worst <= tol and fe["upper_zero"]):
+            _fail(f"fleet refit's cholesky or trsm disagrees with plain at "
+                  f"{dtype}: {fe}")
+        if dtype == torch.float32:
+            err.update(fe["abs"])
 
     dt, n, m = torch.float32, N_PATH, L_BATCH * E
     sz = 4
-    args = _lane_gram_args(rng, L_BATCH, n, dt, True, True)
+    args = _lane_gram_args(rng, L_BATCH, n, dt, True)
     k = rbf_gram_masked(*args)
-    k64 = k.double()
-    l64 = cholesky_plain(k64)
     l = cholesky_blocked(k)
-    err["cholesky"] = _abs(l, l64)
     y = torch.tensor(rng.normal(size=(L_BATCH, E, n, 1)), dtype=dt,
                      device="cuda")
     eye = torch.eye(n, dtype=dt, device="cuda").expand(L_BATCH, E, n, n)
     eye = eye.contiguous()
     solves = _refit_solves(l, y)
-    lt = l64.to(dt)
-    beta_ref = trsm_plain(l64, trsm_plain(l64, y.double()), True)
-    err["trsm"] = max(_abs(_refit_solves(lt, y)["beta"](), beta_ref),
-                      _abs(_refit_solves(lt, y)["kinv"](),
-                           trsm_plain(l64, eye.double())))
     tri = n * (n + 1) // 2
     in_bytes = (L_BATCH * (n * D_IN + n) + m * (D_IN + 2)) * sz
     t = {
@@ -1712,12 +1761,12 @@ def phase_batch(seed: int) -> dict:
     nan_err = [int(e.sum()) for e, _ in captured["episodes"]]
     bad_models = [int(m.sum()) for _, m in captured["episodes"]]
     nan_outside = sum(int((e & ~m).sum()) for e, m in captured["episodes"])
-    # the batched refit's split on the final fleet (256 lanes), beside one
-    # lane's own refit
+    # the batched refit's split on the final fleet (256 lanes, one shared
+    # lockstep mask), beside one lane's own refit
     stacked = lane_unstack_ssm(captured["model"]).gp
     split = _refit_split(stacked)
     lane0 = stacked.replace(
-        x=stacked.x[0], y=stacked.y[0], mask=stacked.mask[0],
+        x=stacked.x[0], y=stacked.y[0], mask=stacked.mask,
         params=tuple({k: v[0] for k, v in p.items()} for p in stacked.params),
         log_noise=stacked.log_noise[0], chol=stacked.chol[0],
         beta=stacked.beta[0], kinv=stacked.kinv[0])
@@ -1834,8 +1883,8 @@ def phase_batch_parity(seed: int) -> dict:
     CPU generator: counts and feasible flags equal; the model that enters
     the fleet (the build and first fit: no solve has run yet) within 1e-9;
     after the episodes, whose states follow the SQP's solutions, the
-    trajectories and the final per-lane factors, hyperparameters and
-    Lipschitz constants within 1e-6."""
+    trajectories within 1e-6, and the final per-lane factors,
+    hyperparameters and Lipschitz constants within 1e-9."""
     import safe_exploration_tpu_torch.runtime.batch as batch_mod
     from safe_exploration_tpu_torch.runtime.config import build_experiment
     from safe_exploration_tpu_torch.runtime.main import run_experiment
@@ -1902,14 +1951,14 @@ def phase_batch_parity(seed: int) -> dict:
           f"{counts_equal} (feasibility {cs['feasibility_rate']}, n_data "
           f"{cs['n_data']}), feasible flags equal {flags_equal}; the model "
           f"entering the fleet rel {initial:.2e} (tol 1e-9); trajectories rel "
-          f"{traj:.2e}, final per-lane model rel "
-          f"{ {k: f'{v:.2e}' for k, v in final.items()} } (tol 1e-6); GPU "
+          f"{traj:.2e} (tol 1e-6), final per-lane model rel "
+          f"{ {k: f'{v:.2e}' for k, v in final.items()} } (tol 1e-9); GPU "
           f"{g['s']:.1f} s, CPU {c['s']:.1f} s", flush=True)
     if not (counts_equal and flags_equal):
         _fail(f"fleet series or flags differ GPU vs CPU: {gs} vs {cs}")
     if initial > 1e-9:
         _fail(f"fleet's initial model differs GPU vs CPU: {initial}")
-    if traj > 1e-6 or max(final.values()) > 1e-6:
+    if traj > 1e-6 or max(final.values()) > 1e-9:
         _fail(f"fleet trajectories or final model differ GPU vs CPU: "
               f"{traj}, {final}")
     return res

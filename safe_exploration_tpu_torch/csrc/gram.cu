@@ -9,12 +9,13 @@
 //   K_e[i, j] = m_i m_j sf2_e exp(-0.5 max(n_i + n_j - 2 <xs_i, xs_j>, 0))
 //               + delta_ij (m_i noise_e + 1 - m_i)
 //
-// with xs = x / ls_e, n_i = |xs_i|^2 (the matmul form of
-// models/gp._masked_gram), ls_e = exp(log_ls_e), sf2_e = exp(2 log_sf_e)
+// with xs = x / ls_e, n_i = |xs_i|^2 (the norm form of the Pallas kernel;
+// the Gram is never differentiated, so the self-distance needs no exact
+// zero here, unlike models/kernels._sq_dists), ls_e = exp(log_ls_e), sf2_e = exp(2 log_sf_e)
 // and noise_e = exp(2 log_noise_e) + 1e-6, all formed here once per CTA,
 // so a refit's Gram is this launch and nothing else. Each model has its
-// own inputs x_l; its mask and hyperparameters are its own or shared by
-// all models (a lane stride of 0).
+// own inputs x_l and hyperparameters; its mask is its own or shared by all
+// models (a lane stride of 0: a fleet's lanes append in lockstep).
 //
 // What bounds it on an H100: the output. The work is 2 d + ~10 flops and
 // one exp per pair against 4 or 8 bytes written per entry, so the kernel
@@ -92,13 +93,12 @@ __global__ void __launch_bounds__(NT)
 gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
             const T* __restrict__ log_ls, const T* __restrict__ log_sf,
             const T* __restrict__ log_noise, T* __restrict__ out, int e_dims,
-            int n, int d, int mask_lane_stride, int hyp_per_lane) {
+            int n, int d, int mask_lane_stride) {
   __shared__ __align__(16) GramSmem<T> sm;
-  // the (model, dim) pair of this CTA; a shared mask or shared
-  // hyperparameters have a lane stride of 0
+  // the (model, dim) pair of this CTA, also its hyperparameter row; a
+  // shared mask has a lane stride of 0
   const int b = blockIdx.y;
   const int lane = b / e_dims;
-  const int h = hyp_per_lane ? b : b % e_dims;   // hyperparameter row
   x += (size_t)lane * n * d;
   mask += (size_t)lane * mask_lane_stride;
   // lower-triangle tile t -> (bi, bj), bi >= bj, t = bi (bi + 1) / 2 + bj
@@ -112,10 +112,10 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
   const int tc = tid % 16, tr = tid / 16;
 
   // hyperparameters, once per CTA
-  if (tid < d) sm.ls[tid] = exp_(log_ls[(size_t)h * d + tid]);
+  if (tid < d) sm.ls[tid] = exp_(log_ls[(size_t)b * d + tid]);
   if (tid == DMAX) {
-    sm.sf2 = exp_(T(2) * log_sf[h]);
-    sm.noise = exp_(T(2) * log_noise[h]) + T(1e-6);
+    sm.sf2 = exp_(T(2) * log_sf[b]);
+    sm.noise = exp_(T(2) * log_noise[b]) + T(1e-6);
   }
   __syncthreads();
   for (int idx = tid; idx < 2 * TB * d; idx += NT) {
@@ -205,15 +205,14 @@ gram_kernel(const T* __restrict__ x, const T* __restrict__ mask,
 template <typename T>
 int launch(const void* x, const void* mask, const void* log_ls,
            const void* log_sf, const void* log_noise, void* out, int lanes,
-           int e, int n, int d, int mask_per_lane, int hyp_per_lane,
-           cudaStream_t stream) {
+           int e, int n, int d, int mask_per_lane, cudaStream_t stream) {
   const int nb = (n + TB - 1) / TB;
   const dim3 grid(nb * (nb + 1) / 2, lanes * e);
   gram_kernel<T><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(mask),
       static_cast<const T*>(log_ls), static_cast<const T*>(log_sf),
       static_cast<const T*>(log_noise), static_cast<T*>(out), e, n, d,
-      mask_per_lane ? n : 0, hyp_per_lane);
+      mask_per_lane ? n : 0);
   return (int)cudaGetLastError();
 }
 
@@ -221,20 +220,19 @@ int launch(const void* x, const void* mask, const void* log_ls,
 
 // x (L, n, d); mask (L, n), or (n,) shared (mask_per_lane 0); log_ls
 // (L, e, d) log lengthscales, log_sf (L, e) log signal stds, log_noise
-// (L, e) log noise stds, or (e, d), (e,), (e,) shared (hyp_per_lane 0);
-// out (L, e, n, n). Returns cudaGetLastError().
+// (L, e) log noise stds; out (L, e, n, n). Returns cudaGetLastError().
 extern "C" int gram_rbf_masked(const void* x, const void* mask,
                                const void* log_ls, const void* log_sf,
                                const void* log_noise, void* out, int lanes,
                                int e, int n, int d, int mask_per_lane,
-                               int hyp_per_lane, int is_f64, void* stream) {
+                               int is_f64, void* stream) {
   if (d > DMAX || d < 1 || n < 1 || e < 1 || lanes < 1 ||
       (long long)lanes * e > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_f64)
     return launch<double>(x, mask, log_ls, log_sf, log_noise, out, lanes, e,
-                          n, d, mask_per_lane, hyp_per_lane, s);
+                          n, d, mask_per_lane, s);
   return launch<float>(x, mask, log_ls, log_sf, log_noise, out, lanes, e, n,
-                       d, mask_per_lane, hyp_per_lane, s);
+                       d, mask_per_lane, s);
 }

@@ -15,13 +15,18 @@ The hyperparameter fit (:func:`gp_nll`, :func:`gp_fit`) differentiates a
 library Cholesky instead, as the JAX package does.
 
 A **stacked** GP holds L independent models, one leading lane axis on every
-tensor (``x`` (L, n_max, d_in), ``mask`` (L, n_max), each hyperparameter
-(L, ...), ``chol`` (L, e, n_max, n_max), ...; ``head`` stays one shared
-int): the JAX package's ``jax.vmap``-ed GP, written out. :func:`gp_refit`,
-:func:`gp_nll` and :func:`gp_fit` take it as they take one model: one
-Gram launch, one Cholesky, one PSD solve and one triangular inverse over
-all L * e matrices, and a fit whose per-lane NLLs are summed (lanes are
-independent, so each lane's gradient is its own; Adam is elementwise).
+tensor (``x`` (L, n_max, d_in), each hyperparameter (L, ...), ``chol``
+(L, e, n_max, n_max), ...; ``head`` stays one shared int, and ``mask`` is
+(n_max,) shared by lanes that append in lockstep, as the fleet's do, or
+(L, n_max)): the JAX package's ``jax.vmap``-ed GP, written out.
+:func:`gp_refit`, :func:`gp_nll` and :func:`gp_fit` take it as they take
+one model: one Gram launch, one Cholesky, one PSD solve and one triangular
+inverse over all L * e matrices, and a fit whose per-lane NLLs are summed
+(lanes are independent, so each lane's gradient is its own; Adam is
+elementwise). The entries that take one model only (:func:`gp_predict`,
+:func:`gp_predict_mean_jac`, :func:`gp_update_data`,
+:func:`gp_shrink_to_bucket`) raise on a stacked GP; per-lane prediction and
+appends are ``models/gp_lanes.py``'s.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ class GP:
     kern_types: tuple     # (e,) kernel type per output dim
     x: torch.Tensor       # (n_max, d_in) padded training inputs
     y: torch.Tensor       # (n_max, e) padded training targets
-    mask: torch.Tensor    # (n_max,) 1.0 where valid
+    mask: torch.Tensor    # (n_max,) 1.0 where valid (stacked: or (L, n_max))
     params: tuple         # per-dim kernel param dicts, length e
     log_noise: torch.Tensor  # (e,) log observation-noise std
     chol: torch.Tensor    # (e, n_max, n_max) lower Cholesky of masked K
@@ -79,11 +84,20 @@ class GP:
 
     @property
     def n_points(self) -> torch.Tensor:
-        """Valid points, per lane of a stacked GP."""
+        """Valid points (per lane of a stacked GP with per-lane masks)."""
         return torch.sum(self.mask, dim=-1).to(torch.int32)
 
     def replace(self, **changes) -> "GP":
         return dataclasses.replace(self, **changes)
+
+
+def _require_single(gp: GP, what: str) -> None:
+    """Raise on a stacked GP for an entry that takes one model."""
+    if gp.x.ndim != 2:
+        raise ValueError(
+            f"{what} takes one model, not a stacked GP (x "
+            f"{tuple(gp.x.shape)}); per-lane models predict and append "
+            "through models/gp_lanes.py")
 
 
 def _masked_gram(kern_type: str, params: dict, x: torch.Tensor,
@@ -182,6 +196,7 @@ def gp_update_data(gp: GP, x_new: torch.Tensor, y_new: torch.Tensor, *,
     The writes follow the JAX package's scatter, last write winning: without
     ``replace_old`` every dropped point writes the slot's old row back to the
     clamped last slot, so an overflowing batch leaves that slot as it was."""
+    _require_single(gp, "gp_update_data")
     k = x_new.shape[0]
     final = {}  # slot -> index into x_new, or None to keep the old row
     for i in range(k):
@@ -208,6 +223,7 @@ def gp_shrink_to_bucket(gp: GP, *, min_bucket: int = 32) -> GP:
     active points (factors are sliced, not recomputed: with identity padding
     they are block-diagonal across the active/padding boundary). Reads the
     mask on the host once. Requires a prefix layout, else returns ``gp``."""
+    _require_single(gp, "gp_shrink_to_bucket")
     mask = gp.mask.cpu()
     n_pts = int(mask.sum())
     n_bucket = min_bucket
@@ -309,6 +325,7 @@ def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Posterior mean and latent variance at inputs z (..., d_in) ->
     (mean (..., e), var (..., e)); solve-free through kinv, with the
     conditioning-aware variance floor of the JAX package."""
+    _require_single(gp, "gp_predict")
     lead = z.shape[:-1]
     z2 = z.reshape(-1, z.shape[-1])
     eps = torch.finfo(z.dtype).eps
@@ -332,6 +349,7 @@ def gp_predict_mean_jac(gp: GP, z: torch.Tensor):
 
     RBF: d/dz sum_i c_i k(z, x_i) = (sum_i c_i k_i x_i - z sum_i c_i k_i)
     / ls^2 with c = mask * beta (``kernels.weighted_mean_jac``)."""
+    _require_single(gp, "gp_predict_mean_jac")
     lead = z.shape[:-1]
     z2 = z.reshape(-1, z.shape[-1])
     mean, var = gp_predict(gp, z2)

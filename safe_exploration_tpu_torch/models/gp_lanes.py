@@ -162,9 +162,10 @@ def lane_stack_ssm(ssm: GPSSM, batch: int) -> LaneGPSSM:
 
 def lane_unstack_ssm(lssm: LaneGPSSM) -> GPSSM:
     """Lane-major state -> the STACKED GPSSM (a leading lane axis on every
-    tensor, see ``models/gp.py``), refitted: the per-lane Cholesky is not
-    kept lane-major, so the stacked GP's batched refit rebuilds chol, beta
-    and K^-1 of all B lanes at once (exact, once per episode)."""
+    tensor but the lockstep mask and head, see ``models/gp.py``), refitted:
+    the per-lane Cholesky is not kept lane-major, so the stacked GP's
+    batched refit rebuilds chol, beta and K^-1 of all B lanes at once
+    (exact, once per episode; the Gram reads the one shared mask)."""
     gp = lssm.gp
     b = gp.n_lanes
 
@@ -178,7 +179,7 @@ def lane_unstack_ssm(lssm: LaneGPSSM) -> GPSSM:
     kinv = front(gp.kinv)
     stacked = gp_mod.GP(
         kern_types=gp.kern_types, x=front(gp.x), y=front(gp.y),
-        mask=shared(gp.mask),
+        mask=gp.mask,
         params=tuple({k: hyp(v) for k, v in p.items()} for p in gp.params),
         log_noise=hyp(gp.log_noise),
         chol=kinv,   # placeholder: the refit rebuilds chol, beta and kinv
@@ -195,7 +196,8 @@ def lane_restack_ssm(stacked: GPSSM) -> LaneGPSSM:
     ``calibrate_lipschitz``) -> lane-major, keeping each lane's own
     hyperparameters and Lipschitz constants as batch-last leaves
     (``per_lane_hypers``). Inverse of :func:`lane_unstack_ssm` up to the
-    kept factors; mask and head are in lockstep, lane 0's are taken."""
+    kept factors; mask and head are in lockstep (a per-lane mask gives
+    lane 0's)."""
     gp = stacked.gp
 
     def to_lanes(arr):
@@ -203,7 +205,7 @@ def lane_restack_ssm(stacked: GPSSM) -> LaneGPSSM:
 
     lane_gp = LaneGP(
         kern_types=gp.kern_types, x=to_lanes(gp.x), y=to_lanes(gp.y),
-        mask=gp.mask[0],
+        mask=gp.mask if gp.mask.ndim == 1 else gp.mask[0],
         params=tuple({k: to_lanes(v) for k, v in p.items()}
                      for p in gp.params),
         log_noise=to_lanes(gp.log_noise), beta=to_lanes(gp.beta),

@@ -12,29 +12,20 @@ import torch
 __all__ = ["KERNELS", "init_kernel_params", "gram", "kernel_diag"]
 
 
-def _dot_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum_k a[..., k] b[..., k], unrolled over the last axis in a fixed
-    order (no reduction whose order could change with the shape)."""
-    out = a[..., 0] * b[..., 0]
-    for k in range(1, a.shape[-1]):
-        out = out + a[..., k] * b[..., k]
-    return out
-
-
 def _sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Pairwise squared distances (..., n1, d) x (..., n2, d) -> (..., n1,
-    n2) in the ||a||^2 + ||b||^2 - 2ab form, floored at 0 with ``maximum``,
+    n2) as the sum over d of squared differences (the form of the JAX
+    package's lane models, ``_lane_d2``), floored at 0 with ``maximum``,
     whose derivative at the tie is 1/2 as JAX's (``clamp``'s is 1): the
     Lipschitz estimate differentiates twice through it.
 
-    The cross term is formed by the norms' own arithmetic (products summed
-    over d in one order), so identical rows give exactly 2n - 2n = 0, as
-    jitted XLA does; a matmul rounds otherwise, and the floor's derivative
-    at a training input would follow that rounding."""
-    n1 = _dot_rows(x1, x1)[..., :, None]
-    n2 = _dot_rows(x2, x2)[..., None, :]
-    cross = _dot_rows(x1[..., :, None, :], x2[..., None, :, :])
-    d2 = n1 + n2 - 2.0 * cross
+    Identical rows give exactly 0 whatever the summation order, as jitted
+    XLA gives for the JAX package's ||a||^2 + ||b||^2 - 2ab form; a matmul
+    cross term rounds otherwise, and the floor's derivative at a training
+    input would follow that rounding. Both forms have the same first and
+    second derivatives."""
+    diff = x1[..., :, None, :] - x2[..., None, :, :]
+    d2 = torch.sum(diff * diff, dim=-1)
     return torch.maximum(d2, torch.zeros_like(d2))
 
 

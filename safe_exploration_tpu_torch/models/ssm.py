@@ -10,7 +10,8 @@ A **stacked** GPSSM (a stacked GP, ``l_mu`` / ``l_sigma`` (L, n_s),
 vmapped one: :func:`ssm_fit`, :func:`ssm_probe_points`,
 :func:`calibrate_lipschitz` and :func:`estimate_lipschitz` take it and
 work on every lane at once (the Lipschitz Hessians nest the lane axis
-around the probe axis under ``torch.func.vmap``).
+around the probe axis under ``torch.func.vmap``); the single-model entries
+(the predictions, :func:`ssm_update`, :func:`ssm_bucketed`) raise on it.
 """
 
 from __future__ import annotations
@@ -114,6 +115,7 @@ def ssm_noise_var(ssm: GPSSM) -> torch.Tensor:
 def ssm_update(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor, y: torch.Tensor,
                *, replace_old: bool = True) -> GPSSM:
     """Append observed transitions (batch) and refit the model."""
+    gp_mod._require_single(ssm.gp, "ssm_update")
     z = torch.cat([x, u], dim=-1)
     if ssm.z_scale is not None:
         z = z / ssm.z_scale
@@ -246,7 +248,8 @@ def _lane_derivatives(ssm, z_points: torch.Tensor):
         return _derivatives(ssm.replace(gp=lane, z_scale=z_scale), z)
 
     zs_dim = None if ssm.z_scale is None else 0
-    return vmap(one, in_dims=(0, zs_dim, 0, 0, 0, 0, 0))(
+    mask_dim = 0 if gp.mask.ndim == 2 else None   # per lane or shared
+    return vmap(one, in_dims=(0, zs_dim, 0, mask_dim, 0, 0, 0))(
         z_points, ssm.z_scale, gp.x, gp.mask, gp.beta, gp.kinv, gp.params)
 
 

@@ -10,9 +10,9 @@ itself, so no other operation runs for a call):
                  + delta_ij (m_li (exp(2 log_noise_le) + 1e-6) + 1 - m_li)
 
 ``x`` is (n, d) for one model or (L, n, d); the mask is (n,) shared or
-(L, n), the hyperparameters (e, .) shared or (L, e, .) per model.
+(L, n), the hyperparameters (e, .) or (L, e, .), one set per model.
 :func:`gram_plain` is the same function in plain PyTorch with the same
-arguments, following ``models/gp._masked_gram``'s arithmetic; the wrapper
+arguments, in the Pallas kernel's norm form; the wrapper
 takes it for tensors on the CPU and launches the kernel for tensors on a
 CUDA device.
 """
@@ -35,14 +35,15 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
 __all__ = ["gram_plain", "rbf_gram_masked", "JITTER"]
 
 JITTER = 1e-6
-_ARGTYPES = (VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, INT, INT, INT, VP)
+_ARGTYPES = (VP, VP, VP, VP, VP, VP, INT, INT, INT, INT, INT, INT, VP)
 
 
 def gram_plain(x: torch.Tensor, mask: torch.Tensor, log_ls: torch.Tensor,
                log_sf: torch.Tensor, log_noise: torch.Tensor) -> torch.Tensor:
     """x (n, d) or (L, n, d), mask (n,) or (L, n), log_ls (e, d) or
-    (L, e, d), log_sf and log_noise (e,) or (L, e) -> K (e, n, n) or
-    (L, e, n, n), in the arithmetic of ``_masked_gram`` per output dim."""
+    (L, e, d), log_sf and log_noise (e,) or (L, e) (the hyperparameters
+    with x's leading axis) -> K (e, n, n) or (L, e, n, n), in the
+    Pallas kernel's arithmetic per output dim."""
     ls, sf2 = torch.exp(log_ls), torch.exp(2.0 * log_sf)
     noise = torch.exp(2.0 * log_noise) + JITTER
     xs = x[..., None, :, :] / ls[..., :, None, :]            # (.., e, n, d)
@@ -55,26 +56,19 @@ def gram_plain(x: torch.Tensor, mask: torch.Tensor, log_ls: torch.Tensor,
 
 
 def _launch_shape(x, mask, log_ls, log_sf, log_noise):
-    """(L, e, n, d, mask_per_lane, hyp_per_lane) of a launch; raises on
-    shapes the kernel does not take."""
-    lanes = x.shape[0] if x.ndim == 3 else 1
-    n, d = x.shape[-2:]
+    """(L, e, n, d, mask_per_lane) of a launch; raises on shapes the kernel
+    does not take."""
+    lead, (n, d) = x.shape[:-2], x.shape[-2:]
     e = log_ls.shape[-2] if log_ls.ndim >= 2 else 0
-    mask_lane = mask.ndim == 2
-    hyp_lane = log_ls.ndim == 3
-    lead = (lanes,) if hyp_lane else ()
-    ok = (x.ndim in (2, 3) and e >= 1
-          and mask.shape in ({(n,), (lanes, n)} if x.ndim == 3 else {(n,)})
-          and log_ls.shape == lead + (e, d) and log_sf.shape == lead + (e,)
-          and log_noise.shape == lead + (e,)
-          and (x.ndim == 3 or not hyp_lane))
-    if not ok:
+    if (x.ndim not in (2, 3) or e < 1 or log_ls.shape != lead + (e, d)
+            or log_sf.shape != lead + (e,) or log_noise.shape != lead + (e,)
+            or mask.shape not in (lead + (n,), (n,))):
         raise ValueError(
             f"rbf_gram_masked: shapes x {tuple(x.shape)}, mask "
             f"{tuple(mask.shape)}, log_ls {tuple(log_ls.shape)}, log_sf "
             f"{tuple(log_sf.shape)}, log_noise {tuple(log_noise.shape)}"
         )
-    return lanes, e, n, d, int(mask_lane), int(hyp_lane)
+    return x.shape[0] if lead else 1, e, n, d, int(mask.ndim == 2)
 
 
 def rbf_gram_masked(x: torch.Tensor, mask: torch.Tensor, log_ls: torch.Tensor,
@@ -85,8 +79,8 @@ def rbf_gram_masked(x: torch.Tensor, mask: torch.Tensor, log_ls: torch.Tensor,
     operation (the inputs must be contiguous)."""
     if not on_cuda(x, mask, log_ls, log_sf, log_noise):
         return gram_plain(x, mask, log_ls, log_sf, log_noise)
-    lanes, e, n, d, mask_lane, hyp_lane = _launch_shape(
-        x, mask, log_ls, log_sf, log_noise)
+    lanes, e, n, d, mask_lane = _launch_shape(x, mask, log_ls, log_sf,
+                                              log_noise)
     check("rbf_gram_masked", x, mask, log_ls, log_sf, log_noise)
     out = torch.empty(x.shape[:-2] + (e, n, n), dtype=x.dtype,
                       device=x.device)
@@ -94,8 +88,7 @@ def rbf_gram_masked(x: torch.Tensor, mask: torch.Tensor, log_ls: torch.Tensor,
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), mask.data_ptr(), log_ls.data_ptr(),
                   log_sf.data_ptr(), log_noise.data_ptr(), out.data_ptr(),
-                  lanes, e, n, d, mask_lane, hyp_lane, is_f64(x),
-                  stream_ptr(x))
+                  lanes, e, n, d, mask_lane, is_f64(x), stream_ptr(x))
     raise_on_error("rbf_gram_masked", code)
     rbf_gram_masked.launches += 1
     return out

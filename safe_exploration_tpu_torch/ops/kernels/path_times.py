@@ -24,6 +24,14 @@ change, parent). f32, e = 2, on CUDA only.
               wrapper's launch (the device checks, one ``torch.empty``,
               ``torch.cuda.device``, the current stream) and of a whole
               ``rbf_gram_masked`` call at n = 128 (enqueue only)
+  fit         host seconds (synchronized) of 20 ``gp_fit`` steps on the
+              n = 512 and 2048 models, and of ``estimate_lipschitz`` at the
+              n = 512 model's buffer: the plain GP arithmetic
+              (``models/kernels.py``) the fits and calibrations differentiate
+  episode     ``run_experiment`` on ``pendulum_episode`` for one episode,
+              (a) as registered and (b) at n_max 2048 with 1,024 initial
+              points and 60 fit steps (chip_smoke's runs, cut to one
+              episode): wall, episode and fit seconds
 
 Each kernel entry has the CUDA-event ms per call (mean over back-to-back
 calls) and the device ms per call by CUDA kernel (torch.profiler, 3
@@ -96,6 +104,54 @@ def _host_us(fn, reps: int = 2000) -> float:
     return us
 
 
+def _sync_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _episodes() -> dict:
+    """One episode of episodic runs (a) and (b) through the CLI's
+    ``run_experiment``, the fits timed inside the run."""
+    import safe_exploration_tpu_torch.runtime.episode as ep_mod
+    from safe_exploration_tpu_torch.runtime.config import CONFIGS
+    from safe_exploration_tpu_torch.runtime.main import (
+        _apply_overrides,
+        run_experiment,
+    )
+
+    out = {}
+    for tag, sets in (("a", []), ("b", ["n_max=2048", "n_init_samples=1024",
+                                        "hyp_iters=60"])):
+        cfg = _apply_overrides(CONFIGS["pendulum_episode"], sets + ["n_ep=1"])
+        fits, fit = [], ep_mod.ssm_fit
+
+        def timed(*args, **kw):
+            r = [None]
+
+            def call():
+                r[0] = fit(*args, **kw)
+            fits.append(_sync_s(call))
+            return r[0]
+
+        ep_mod.ssm_fit = timed
+        try:
+            t0 = time.perf_counter()
+            series = run_experiment(cfg, dtype=torch.float32,
+                                    device="cuda")["series"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ep_mod.ssm_fit = fit
+        out[f"episode_{tag}"] = {
+            "wall_s": wall, "episode_time_s": series["episode_time_s"],
+            "fit_s": fits, "feasibility_rate": series["feasibility_rate"],
+            "violations": series["violations"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("path_times: needs an NVIDIA GPU", file=sys.stderr)
@@ -130,6 +186,22 @@ def main() -> int:
         args = gp_mod.refit_inputs(gp)[0]
         out[f"gram_n{n}"] = _entry(lambda: kernels.rbf_gram_masked(*args),
                                    {128: 200, 512: 100}.get(n, 50))
+        if n > 128:
+            gp_mod.gp_fit(gp, iters=2)
+            out[f"fit20_s_n{n}"] = [
+                _sync_s(lambda: gp_mod.gp_fit(gp, iters=20)) for _ in range(2)]
+        if n == 512:
+            from safe_exploration_tpu_torch.models.ssm import (
+                GPSSM,
+                estimate_lipschitz,
+            )
+
+            lm = torch.ones(2, dtype=dt, device=dev)
+            s512 = GPSSM(gp=gp, l_mu=lm, l_sigma=lm)
+            estimate_lipschitz(s512, gp.x)
+            out["lipschitz_s_n512"] = [
+                _sync_s(lambda: estimate_lipschitz(s512, gp.x))
+                for _ in range(2)]
         if n == 128:
             x0 = args[0]
 
@@ -189,6 +261,7 @@ def main() -> int:
     x0s = t(rng.uniform(-1.0, 1.0, (2, 16384)) * [[0.15], [0.4]])
     out["cem_score_L16384"] = _entry(
         lambda: kernels.tube_score_prepared(prep, u, x0s), 50)
+    out.update(_episodes())
     print(json.dumps(out))
     return 0
 

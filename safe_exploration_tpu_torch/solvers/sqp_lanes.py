@@ -527,16 +527,13 @@ def solve_safempc_lanes(
     alphas = [0.5 ** i for i in range(cfg.n_linesearch)]
     polish_alphas = [1.0, 0.5, 0.25, 0.125]
     eye = torch.eye(n_var, dtype=dtype, device=device)[:, :, None]
-    # per-lane models evaluate the line-search candidates one by one, as
-    # the JAX package does (it folds them for shared models only)
-    fold_cands = not isinstance(ssm, LaneGPSSM)
 
     def fold_eval(cands, eval_wide):
         """cands (n_c, n_var, B) -> values (n_c, B) from one rollout over
-        n_c * B lanes (lane c * B + b sees x0[b]), or from n_c rollouts
-        over B lanes for a per-lane model."""
-        if not fold_cands:
-            return torch.stack([eval_wide(c, rollout_y(c), 1) for c in cands])
+        n_c * B lanes (lane c * B + b sees x0[b] and, for a per-lane model,
+        lane b's model: ``lane_predict`` reads the folded copies by
+        broadcasting, so the JAX package's reason not to fold them, an
+        n_c-fold copy of every GP buffer, does not arise here)."""
         n_c = cands.shape[0]
         u_wide = torch.movedim(cands, 0, 1).reshape(n_var, n_c * bsz)
         y_wide = rollout_at(u_wide, [xr.repeat(n_c) for xr in x0_rows])

@@ -227,7 +227,9 @@ def test_stack_unstack_restack_round_trip(lanes):
     (batch-last) hyperparameters and constants."""
     j, t = lanes
     tu, ju = t["unstacked"], j["unstacked"]
-    assert tu.gp.x.shape == (B, 32, 3) and tu.gp.mask.shape == (B, 32)
+    # the lockstep mask stays one shared (n_max,) row (JAX's vmapped GP
+    # carries it per lane; every lane's is the same)
+    assert tu.gp.x.shape == (B, 32, 3) and tu.gp.mask.shape == (32,)
     for f in ("chol", "beta", "kinv", "x", "y", "mask"):
         assert _rel(_np(getattr(tu.gp, f)), getattr(ju.gp, f)) < 1e-9, f
     for f in ("l_mu", "l_sigma", "z_scale"):
@@ -271,6 +273,30 @@ def test_stacked_nll_refit_and_fit_match_jax_vmapped(lanes):
     assert not torch.equal(tfit.l_mu[0], tfit.l_mu[1])
 
 
+@pytest.mark.parametrize("entry", ["gp_predict", "gp_predict_mean_jac",
+                                   "gp_update_data", "gp_shrink_to_bucket",
+                                   "ssm_update", "ssm_bucketed"])
+def test_single_model_entries_raise_on_a_stacked_model(lanes, entry):
+    """The entries that take one model raise on the stacked GP (they would
+    read the lane axis as the buffer's), naming where per-lane models
+    predict and append."""
+    _, t = lanes
+    stacked = t["unstacked"]
+    z, y = torch.zeros((2, 3), dtype=torch.float64), torch.zeros(
+        (2, 2), dtype=torch.float64)
+    calls = {
+        "gp_predict": lambda: tgp.gp_predict(stacked.gp, z),
+        "gp_predict_mean_jac": lambda: tgp.gp_predict_mean_jac(stacked.gp, z),
+        "gp_update_data": lambda: tgp.gp_update_data(stacked.gp, z, y),
+        "gp_shrink_to_bucket": lambda: tgp.gp_shrink_to_bucket(stacked.gp),
+        "ssm_update": lambda: tssm_mod.ssm_update(stacked, z[:, :2],
+                                                  z[:, 2:], y),
+        "ssm_bucketed": lambda: tssm_mod.ssm_bucketed(stacked),
+    }
+    with pytest.raises(ValueError, match="gp_lanes"):
+        calls[entry]()
+
+
 def test_shrink_and_expand_match_jax(lanes):
     j, t = lanes
     jm, tm = j["appended"], t["appended"]
@@ -285,8 +311,8 @@ def test_shrink_and_expand_match_jax(lanes):
 
 
 def test_lane_sqp_solve_on_per_lane_model_matches_jax(exps, lanes):
-    """The batched planner on the per-lane model (no candidate folding,
-    per-lane l_mu / l_sigma through the tube), at the lane-SQP gates of
+    """The batched planner on the per-lane model (line-search candidates
+    folded over its lanes, per-lane l_mu / l_sigma through the tube), at the lane-SQP gates of
     tests/test_torch_sqp_lanes.py; a per-lane model on a configuration the
     lane backend does not cover raises TypeError."""
     jexp, texp = exps

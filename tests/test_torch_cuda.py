@@ -134,19 +134,18 @@ def test_cuda_gram_matches_plain_symmetric_identity_on_padding(n, dtype):
     assert (k[:, pad:, :pad] == 0).all() and (k[:, :pad, pad:] == 0).all()
 
 
-def _lane_gram_args(lanes, n, dtype, mask_lane, hyp_lane, seed=0):
+def _lane_gram_args(lanes, n, dtype, mask_lane, seed=0):
     """The model-batched Gram's arguments on the card: x (L, n, 3); the mask
     (L, n) with per-lane padding or (n,) shared; the hyperparameters
-    (L, E, .) per lane or (E, .) shared."""
+    (L, E, .), one set per model."""
     rng = np.random.default_rng(seed)
-    lead = (lanes,) if hyp_lane else ()
     mask = (np.arange(n)[None] < n - 5 - np.arange(lanes)[:, None] % 7
             ).astype(np.float64)
     arrays = (rng.uniform(-1.0, 1.0, (lanes, n, 3)),
               mask if mask_lane else mask[0],
-              rng.normal(0.0, 0.3, lead + (E, 3)),
-              rng.normal(-0.2, 0.2, lead + (E,)),
-              rng.normal(-1.5, 0.2, lead + (E,)))
+              rng.normal(0.0, 0.3, (lanes, E, 3)),
+              rng.normal(-0.2, 0.2, (lanes, E)),
+              rng.normal(-1.5, 0.2, (lanes, E)))
     return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrays]
 
 
@@ -154,17 +153,15 @@ def _lane_gram_args(lanes, n, dtype, mask_lane, hyp_lane, seed=0):
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("lanes,n", [(256, 128), (2, 2048), (3, 200),
                                      (5, 65), (1, 128)])
-@pytest.mark.parametrize("mask_lane,hyp_lane", [(True, True), (False, False),
-                                                (True, False)])
-def test_cuda_gram_model_batched_matches_plain(lanes, n, dtype, mask_lane,
-                                               hyp_lane):
+@pytest.mark.parametrize("mask_lane", [True, False])
+def test_cuda_gram_model_batched_matches_plain(lanes, n, dtype, mask_lane):
     """A leading axis of L models in one launch (the fleet refit's L * E =
-    512 Grams at n = 128; L = 2 at n = 2048; ragged n): against the plain
-    version, exactly symmetric, and each model equal to its own
-    single-model launch (L = 1 is today's call)."""
+    512 Grams at n = 128; L = 2 at n = 2048; ragged n), with per-lane or
+    shared masks: against the plain version, exactly symmetric, and each
+    model equal to its own single-model launch (L = 1 is today's call)."""
     _need_cuda()
     dt = getattr(torch, dtype)
-    args = _lane_gram_args(lanes, n, dt, mask_lane, hyp_lane, seed=n + lanes)
+    args = _lane_gram_args(lanes, n, dt, mask_lane, seed=n + lanes)
     before = rbf_gram_masked.launches
     k = rbf_gram_masked(*args)
     assert rbf_gram_masked.launches == before + 1
@@ -173,17 +170,19 @@ def test_cuda_gram_model_batched_matches_plain(lanes, n, dtype, mask_lane,
     assert torch.equal(k, k.mT)
     x, mask, log_ls, log_sf, log_noise = args
     for l in sorted({0, lanes - 1}):
-        one = rbf_gram_masked(
-            x[l], mask[l] if mask_lane else mask,
-            *(a[l] if hyp_lane else a for a in (log_ls, log_sf, log_noise)))
+        one = rbf_gram_masked(x[l], mask[l] if mask_lane else mask,
+                              log_ls[l], log_sf[l], log_noise[l])
         assert torch.equal(k[l], one)
+    with pytest.raises(ValueError, match="rbf_gram_masked"):
+        rbf_gram_masked(x, mask, log_ls[0], log_sf[0], log_noise[0])
 
 
 @pytest.mark.cuda
 def test_cuda_stacked_refit_matches_cpu():
     """The stacked refit of 8 lanes (per-lane data, masks and
-    hyperparameters, n_max 128): one launch of each refit kernel for all
-    16 matrices, every factor within 1e-9 of the CPU's plain versions in
+    hyperparameters, n_max 128; then one shared lockstep mask, as the
+    fleet's unstack gives): one launch of each refit kernel for all 16
+    matrices, every factor within 1e-9 of the CPU's plain versions in
     f64."""
     _need_cuda()
     from safe_exploration_tpu_torch.models.gp import GP, gp_refit
@@ -194,7 +193,7 @@ def test_cuda_stacked_refit_matches_cpu():
     y = 0.1 * np.sin(3.0 * x[..., :2])
     mask = (np.arange(n)[None] < 100 + np.arange(lanes)[:, None]).astype(float)
 
-    def refit(device):
+    def refit(device, mask=mask):
         t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)
         params = tuple({"log_lengthscales": t(rng_p.normal(0.0, 0.2, (lanes, 3))),
                         "log_sf": t(rng_p.normal(-1.0, 0.1, lanes))}
@@ -210,6 +209,9 @@ def test_cuda_stacked_refit_matches_cpu():
     before = [w.launches for w in wrappers]
     g, c = refit("cuda"), refit("cpu")
     assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    for f in ("chol", "beta", "kinv"):
+        assert _rel(getattr(g, f), getattr(c, f)) < 1e-9, f
+    g, c = refit("cuda", mask[0]), refit("cpu", mask[0])
     for f in ("chol", "beta", "kinv"):
         assert _rel(getattr(g, f), getattr(c, f)) < 1e-9, f
 

@@ -107,6 +107,41 @@ def test_gram_plain_f32_close_to_f64(n):
     assert _rel(k32, k64) < 2e-4
 
 
+_SHAPES_OK = [
+    ((9, 3), (9,), (2, 3), (2,), (2,)),              # one model
+    ((4, 9, 3), (9,), (4, 2, 3), (4, 2), (4, 2)),    # shared mask
+    ((4, 9, 3), (4, 9), (4, 2, 3), (4, 2), (4, 2)),  # per-lane mask
+]
+_SHAPES_BAD = [
+    ((4, 9, 3), (9,), (2, 3), (2,), (2,)),           # hyperparameters shared
+    ((9, 3), (1, 9), (2, 3), (2,), (2,)),            # a lane mask, one model
+    ((4, 9, 3), (3, 9), (4, 2, 3), (4, 2), (4, 2)),  # too few lane masks
+    ((4, 9, 3), (9,), (4, 2, 3), (4, 2), (4, 3)),    # noise of 3 dims
+    ((2, 4, 9, 3), (9,), (2, 4, 2, 3), (2, 4, 2), (2, 4, 2)),  # two axes
+]
+
+
+@pytest.mark.parametrize("shapes,ok", [(s, True) for s in _SHAPES_OK]
+                         + [(s, False) for s in _SHAPES_BAD])
+def test_gram_launch_shapes(shapes, ok):
+    """The shapes the model-batched Gram kernel takes: x (n, d) or
+    (L, n, d), a mask (n,) shared or (L, n), the hyperparameters with x's
+    leading axis; every other combination raises before a launch. The
+    plain version computes each accepted one."""
+    from safe_exploration_tpu_torch.ops.kernels.gram import _launch_shape
+
+    args = [torch.ones(s, dtype=torch.float64) for s in shapes]
+    if not ok:
+        with pytest.raises(ValueError, match="rbf_gram_masked"):
+            _launch_shape(*args)
+        return
+    lanes, e, n, d, mask_lane = _launch_shape(*args)
+    assert (lanes, e, n, d) == (shapes[0][0] if len(shapes[0]) == 3 else 1,
+                                2, 9, 3)
+    assert mask_lane == (len(shapes[1]) == 2)
+    assert gram_plain(*args).shape == shapes[0][:-2] + (2, 9, 9)
+
+
 @pytest.mark.parametrize("n", [64, 130])
 def test_cholesky_plain_matches_jax_and_pallas(n):
     a = _spd(n)

@@ -9,7 +9,10 @@ through the cem_score and gp_predict kernels; the episodic closed loop of
 ``runtime.main --config pendulum_episode``, also at n_max 2048 where the
 refits take cholesky_hbm; the lane fleet of ``runtime.main --config
 pendulum_batch_sqp``, 256 per-lane models refitted by model-batched
-kernels) and checks the GPU against the CPU in f64.
+kernels; BASELINE config 2, the cart-pole, through ``--config
+cartpole_batch_sqp`` (128 lanes, 4-D states, the array-form tube and a
+performance trajectory) and ``--config cartpole_episode``) and checks the
+GPU against the CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -35,7 +38,9 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               matrices of n = 128) against f64 plain, each matrix within
               2e-4 (f32) / 1e-10 (f64), zero above the diagonal; those
               kernels timed there: CUDA-event and device ms, plain,
-              library, bound
+              library, bound; the same checks and times at the cart-pole
+              fleet's shape (L = 128, e = 4, d = 5, n = 128: 512 Grams),
+              each Gram held against gram_plain matrix by matrix
      cem      gp_predict (its prepared call against the plain version on
               the same prepared posterior) and cem_score against their
               plain versions at n = 64 (H 5) and 128 (H 3, pendulum_batch's
@@ -68,6 +73,12 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               one fleet step's solve under the profiler (busy share)
   9. batch-parity  f64, 8 lanes, 3 steps, 2 episodes: GPU against CPU on one
               set of draws
+     cartpole-batch  the same for cartpole_batch_sqp as registered (128
+              lanes, n_max 128, 40 initial points, 16 steps, n_safe 6,
+              n_perf 10, r_shared 2, the SQP at 4 x 3), 2 of its 4 episodes,
+              f32: the same series, times, step split, busy share and gates
+     cartpole-batch-parity  f64, 2 lanes, 2 steps, 2 episodes of
+              cartpole_batch_sqp: GPU against CPU on one set of draws
  10. hbm      cholesky_hbm against its plain version at n = 1300, 2048 and
               4096 (e=2, f32 within 3e-4 of the f64 factor, f64 at 1e-9), NaN
               on an indefinite input, trsm's entries at n = 2048
@@ -77,7 +88,7 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               2048 and 4096, and cholesky_hbm's device time per kernel
               (profiler)
  11. episode  the episodic CLI's run_experiment on the card: (a)
-              pendulum_episode (2 of its 6 episodes), (b) the same with
+              pendulum_episode (1 of its 6 episodes), (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
               launch counts zeroed just before each run and read just after;
               per-episode series and fit / calibration / refit times, and the
@@ -85,6 +96,10 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               / matmul, CUDA events)
  12. episode-parity  f64, one episode of 3 steps at n_max 2048: GPU against
               CPU on one set of draws
+ 13. cartpole-episode  cartpole_episode as registered (portable CEM, 192
+              samples, n_safe 10, n_perf 10, n_max 512), 1 of its 6
+              episodes, f32: series, seconds per step, the refit split and
+              launches
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -455,17 +470,15 @@ def _time_rollout(exp, ssm, x0, warm, dev) -> dict:
     (what every Gauss-Newton and polish step pays) at the path's shapes."""
     from safe_exploration_tpu_torch.solvers import sqp_lanes as sl
 
-    cfg, k_fb = sl.SqpConfig(n_safe=5), exp["k_fb"].tolist()
-    a, b = exp["a"].tolist(), exp["b"].tolist()
+    cfg, k_fb, a, b = sl.SqpConfig(n_safe=5), exp["k_fb"], exp["a"], exp["b"]
     s_lift = torch.cat([torch.eye(2, dtype=x0.dtype, device=x0.device),
-                        exp["k_fb"]], 0)
-    bmat = (s_lift.T @ s_lift).tolist()
-    rows = [x0[:, i] for i in range(2)]
+                        k_fb], 0)
+    bmat = s_lift.T @ s_lift
     u = torch.movedim(warm.reshape(x0.shape[0], -1), 0, -1).contiguous()
 
     def roll(v, k=1):
-        return sl._rollout_y_lanes(ssm, v, [r.repeat(k) for r in rows], k_fb,
-                                   a, b, cfg, bmat)
+        return sl._rollout_y_lanes(ssm, v, x0.T.repeat(1, k), k_fb, a, b, cfg,
+                                   bmat)
 
     def linearize():
         return roll(u), sl._lane_jacobian(roll, u, roll(u).shape[0])
@@ -983,22 +996,21 @@ def _cem_split(exp, plan, x0, batch, dev) -> dict:
     from safe_exploration_tpu_torch.solvers import sqp_lanes as sl
     from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg
 
-    k_fb, a, b = (exp[k].tolist() for k in ("k_fb", "a", "b"))
-    s_lift = torch.cat([torch.eye(2, dtype=x0.dtype, device=dev), exp["k_fb"]])
-    bmat = (s_lift.T @ s_lift).tolist()
+    k_fb, a, b = (exp[k] for k in ("k_fb", "a", "b"))
+    s_lift = torch.cat([torch.eye(2, dtype=x0.dtype, device=dev), k_fb])
+    bmat = s_lift.T @ s_lift
     spec = exp["env"].spec
-    polys = [v.tolist() for v in (spec.h_mat_obs, spec.h_obs, spec.h_mat_safe,
-                                  spec.h_safe)]
+    polys = (spec.h_mat_obs, spec.h_obs, spec.h_mat_safe, spec.h_safe)
     u = torch.zeros((H_CEM, batch), dtype=x0.dtype, device=dev)
-    rows = [x0[:, 0], x0[:, 1]]
+    x0_cols = x0.T.contiguous()
     post = prepare_posterior(plan)
 
     def final_pass():
-        y = sl._rollout_y_lanes(plan, u, rows, k_fb, a, b,
+        y = sl._rollout_y_lanes(plan, u, x0_cols, k_fb, a, b,
                                 _TubeCfg(H_CEM, exp["cfg"].c_safety, 0), bmat,
                                 impl="pallas", post=post)
         sl._dist_lanes(y, H_CEM, 2, *polys)
-        sl._cost_lanes("tracking", {"target": spec.target.tolist()}, y, u,
+        sl._cost_lanes("tracking", {"target": spec.target}, y, u,
                        H_CEM, 2, 1)
 
     final_pass()
@@ -1316,28 +1328,37 @@ def _episode_cfg(name: str, sets: list[str]):
     return _apply_overrides(CONFIGS[name], sets)
 
 
-# (a) runs 2 of the registered 6 episodes to keep the script near 5 min;
-# (b) runs its whole schedule
-RUN_A = ["n_ep=2"]
+# (a) runs 1 of the registered 6 episodes (2 until the cart-pole's phases
+# came) to keep the script's time; (b) runs its whole schedule; the
+# cart-pole's episodic run 1 of its 6
+RUN_A = ["n_ep=1"]
 RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60"]
+RUNS_PENDULUM = (("a", "pendulum_episode", RUN_A),
+                 ("b", "pendulum_episode", RUN_B))
+RUNS_CARTPOLE = (("cartpole", "cartpole_episode", ["n_ep=1"]),)
 
 
-def phase_episode(seed: int) -> dict:
-    """run_experiment on the card, f32: (a) pendulum_episode as registered
-    but for 2 of its 6 episodes (n_max 512: every refit on
-    cholesky_blocked), (b) the same at BASELINE
-    config 4's data scale on the exact GP (n_max 2048, 1,024 initial
-    points, 60 hyperparameter steps: every refit on cholesky_hbm). Counts
-    are zeroed just before each run and read just after; the fits, the
-    Lipschitz calibrations and the ssm_updates are timed inside the run."""
+def phase_episode(seed: int, runs: tuple = RUNS_PENDULUM,
+                  label: str = "episode") -> dict:
+    """run_experiment on the card, f32, printed under ``[label]``: (a)
+    pendulum_episode as registered but for 1 of its 6 episodes (n_max 512:
+    every refit on cholesky_blocked), (b) the same at BASELINE config 4's
+    data scale on the exact GP (n_max 2048, 1,024 initial points, 60
+    hyperparameter steps: every refit on cholesky_hbm); or
+    cartpole_episode (BASELINE config 2: the portable CEM with 192 samples,
+    n_safe 10, n_perf 10, a 4-output GP at n_max 512) for 1 of its 6
+    episodes. Counts are zeroed just before each run and read just after;
+    the fits, the Lipschitz calibrations and the ssm_updates are timed
+    inside the run."""
+    from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
     import safe_exploration_tpu_torch.runtime.episode as ep_mod
     from safe_exploration_tpu_torch.models.gp import gp_refit
     from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
     from safe_exploration_tpu_torch.runtime.main import run_experiment
 
     out = {}
-    for tag, sets in (("a", RUN_A), ("b", RUN_B)):
-        cfg = _episode_cfg("pendulum_episode", sets + [f"seed={seed}"])
+    for tag, config, sets in runs:
+        cfg = _episode_cfg(config, sets + [f"seed={seed}"])
         spans = {"fit": [], "calibrate": [], "update": []}
         saved = {k: getattr(ep_mod, k) for k in (
             "ssm_fit", "_calibrate_lipschitz", "ssm_update")}
@@ -1379,8 +1400,10 @@ def phase_episode(seed: int) -> dict:
         want_n = [min(cfg.n_init_samples + ep * cfg.n_steps, cfg.n_max)
                   for ep in range(cfg.n_ep)]
         finite = all(np.isfinite(v).all() for v in series.values())
-        big, small = (("cholesky_hbm", "cholesky_blocked") if tag == "b"
+        big, small = (("cholesky_hbm", "cholesky_blocked")
+                      if cfg.n_max > MAX_N
                       else ("cholesky_blocked", "cholesky_hbm"))
+        step_s = [t / cfg.n_steps for t in series["episode_time_s"]]
         r = {"config": {k: getattr(cfg, k) for k in (
                  "n_max", "n_init_samples", "hyp_iters", "n_ep", "n_steps",
                  "cem_samples", "cem_elites", "cem_iterations")},
@@ -1389,22 +1412,25 @@ def phase_episode(seed: int) -> dict:
              "calibrate_s": spans["calibrate"], "update_s": spans["update"],
              "refit_s_final_model": refit_s, "refit_split_ms": split,
              "l_mu": captured["ssm"].l_mu.tolist(),
-             "l_sigma": captured["ssm"].l_sigma.tolist()}
+             "l_sigma": captured["ssm"].l_sigma.tolist(),
+             "seconds_per_step": step_s}
         out[tag] = r
-        print(f"[episode] ({tag}) {cfg.name} {r['config']} f32: wall "
+        print(f"[{label}] ({tag}) {cfg.name} {r['config']} f32: wall "
               f"{wall:.1f} s", flush=True)
         for key in ("violations", "feasibility_rate", "model_error",
                     "mean_cost", "episode_time_s", "n_data"):
-            print(f"[episode] ({tag})   {key}: {series[key]}", flush=True)
-        print(f"[episode] ({tag})   fit s {[round(v, 3) for v in spans['fit']]}"
+            print(f"[{label}] ({tag})   {key}: {series[key]}", flush=True)
+        print(f"[{label}] ({tag})   seconds per step "
+              f"{[round(v, 4) for v in step_s]}", flush=True)
+        print(f"[{label}] ({tag})   fit s {[round(v, 3) for v in spans['fit']]}"
               f", calibrate s {[round(v, 3) for v in spans['calibrate']]}, "
               f"ssm_update (refit) s {[round(v, 4) for v in spans['update']]}"
               f", one gp_refit of the final model {refit_s * 1e3:.2f} ms; "
               f"l_mu {r['l_mu']}, l_sigma {r['l_sigma']}", flush=True)
-        print(f"[episode] ({tag})   refit split of the final model, CUDA-event"
+        print(f"[{label}] ({tag})   refit split of the final model, CUDA-event"
               f" ms per part: { {k: round(v, 4) for k, v in split.items()} }",
               flush=True)
-        print(f"[episode] ({tag})   launches {launches} ({n_refits} refits)",
+        print(f"[{label}] ({tag})   launches {launches} ({n_refits} refits)",
               flush=True)
         if any(series["violations"]):
             _fail(f"run ({tag}): violations {series['violations']}")
@@ -1485,17 +1511,17 @@ L_BATCH = 256   # lanes of pendulum_batch_sqp: its refit is L * E Grams
 RUN_BATCH = ["n_ep=2"]
 
 
-def _lane_gram_args(rng, lanes, n, dtype, mask_lane):
-    """The model-batched Gram's arguments: x (L, n, 3); the mask (L, n) with
+def _lane_gram_args(rng, lanes, n, dtype, mask_lane, e=E, d=D_IN):
+    """The model-batched Gram's arguments: x (L, n, d); the mask (L, n) with
     ragged per-lane prefixes or lane 0's (n,) shared; the hyperparameters
-    (L, E, .), one set per model."""
+    (L, e, .), one set per model."""
     mask = (np.arange(n)[None] < n - 7 - np.arange(lanes)[:, None] % 9
             ).astype(np.float64)
-    arrays = (rng.uniform(-1.0, 1.0, (lanes, n, D_IN)),
+    arrays = (rng.uniform(-1.0, 1.0, (lanes, n, d)),
               mask if mask_lane else mask[0],
-              rng.normal(-0.5, 0.3, (lanes, E, D_IN)),
-              rng.normal(-3.0, 0.2, (lanes, E)),
-              rng.normal(-4.0, 0.2, (lanes, E)))
+              rng.normal(-0.5, 0.3, (lanes, e, d)),
+              rng.normal(-3.0, 0.2, (lanes, e)),
+              rng.normal(-4.0, 0.2, (lanes, e)))
     return [torch.tensor(a, dtype=dtype, device="cuda") for a in arrays]
 
 
@@ -1506,9 +1532,10 @@ def _rel_each(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((num / b.abs().flatten(-2).amax(-1)).max())
 
 
-def _batched_factor_errors(rng, dtype) -> dict:
-    """The fleet refit's Cholesky and solves at its shape (L * E = 512
-    matrices of n = 128, per-lane masks) against the f64 plain versions:
+def _batched_factor_errors(rng, dtype, lanes=L_BATCH, e=E, d=D_IN,
+                           n=N_PATH) -> dict:
+    """A refit's Cholesky and solves at its shape (L * e matrices of n,
+    per-lane masks) against the f64 plain versions:
     each matrix's relative error (cholesky from the Gram in ``dtype``;
     solve_psd and tri_inv_lower from the f64 factor rounded to ``dtype``),
     and whether the factor and L^-1 are zero above the diagonal."""
@@ -1521,14 +1548,13 @@ def _batched_factor_errors(rng, dtype) -> dict:
         trsm_plain,
     )
 
-    n = N_PATH
-    k = rbf_gram_masked(*_lane_gram_args(rng, L_BATCH, n, dtype, True))
+    k = rbf_gram_masked(*_lane_gram_args(rng, lanes, n, dtype, True, e, d))
     l64 = cholesky_plain(k.double())
     l = cholesky_blocked(k)
     lt = l64.to(dtype)
-    y = torch.tensor(rng.normal(size=(L_BATCH, E, n, 1)), device="cuda")
+    y = torch.tensor(rng.normal(size=(lanes, e, n, 1)), device="cuda")
     eye = torch.eye(n, dtype=torch.float64, device="cuda").expand(
-        L_BATCH, E, n, n)
+        lanes, e, n, n)
     beta = solve_psd(lt, y.to(dtype))
     linv = tri_inv_lower(lt)
     return {"cholesky": _rel_each(l, l64),
@@ -1542,17 +1568,27 @@ def _batched_factor_errors(rng, dtype) -> dict:
                 _abs(linv, trsm_plain(l64, eye)))}}
 
 
-def phase_batch_kernels(seed: int) -> dict:
-    """The model-batched Gram against gram_plain, f32 and f64, at the fleet
-    refit's shape (L = 256, e = 2, n = 128) and at L = 2, n = 2048, with
-    per-lane and shared masks: one launch, exactly symmetric. The fleet
-    refit's Cholesky, solve_psd and tri_inv_lower at its shape (L * E =
-    512 matrices of n = 128) against their f64 plain versions, each
-    matrix within 2e-4 in f32 and 1e-10 in f64, zero above the diagonal.
-    Then the fleet refit's kernels timed at its shape (f32): CUDA-event
-    ms, device ms (profiler), the plain version's and the library's ms,
-    and the bound at the least work (as ``_refit_kernel_times``, for 512
-    matrices)."""
+# the cart-pole fleet (cartpole_batch_sqp): 128 lanes of 4-output GPs over
+# 4-D states and a 1-D force, n_max 128 -- 512 Grams of n = 128 at d = 5
+L_CART, E_CART, D_CART = 128, 4, 5
+# the fleet refit shapes: (label, lanes, e, d)
+FLEET_SHAPES = (("pendulum", L_BATCH, E, D_IN), ("cartpole", L_CART, E_CART,
+                                                 D_CART))
+# the refit shapes held against the plain versions: (label, lanes, e, d, n),
+# the fleets' and the cart-pole episode's (cartpole_episode: one 4-output
+# GP at n_max 512, 4 Grams in one launch)
+N_CART_EPISODE = 512
+REFIT_SHAPES = tuple((label, lanes, e, d, N_PATH)
+                     for label, lanes, e, d in FLEET_SHAPES) + (
+    ("cartpole-episode", 1, E_CART, D_CART, N_CART_EPISODE),)
+
+
+def _fleet_refit_times(rng, lanes: int, e: int, d: int) -> dict:
+    """A fleet refit's kernels timed at its shape (f32, L * e matrices of
+    n = 128): CUDA-event ms, device ms (profiler), the plain version's and
+    the library's ms, and the bound at the least work (as
+    ``_refit_kernel_times``); ``trsm`` sums beta's and K^-1's solves, the
+    kernels line's entry."""
     from safe_exploration_tpu_torch.ops.kernels import (
         cholesky_blocked,
         cholesky_plain,
@@ -1561,58 +1597,23 @@ def phase_batch_kernels(seed: int) -> dict:
         trsm_plain,
     )
 
-    rng = np.random.default_rng(seed + 7)
-    err = {}
-    for dtype in (torch.float32, torch.float64):
-        for lanes, n in ((L_BATCH, N_PATH), (2, N_HBM)):
-            for mask_lane in (True, False):
-                args = _lane_gram_args(rng, lanes, n, dtype, mask_lane)
-                before = rbf_gram_masked.launches
-                k = rbf_gram_masked(*args)
-                one = rbf_gram_masked.launches == before + 1
-                kp = gram_plain(*args)
-                e_g, sym = _rel(k, kp), bool(torch.equal(k, k.mT))
-                tol = 1e-10 if dtype == torch.float64 else 1e-5
-                print(f"[batch-kernels] {str(dtype)[6:]} L={lanes} e={E} "
-                      f"n={n} mask {'per lane' if mask_lane else 'shared'}: "
-                      f"gram rel {e_g:.2e} (tol {tol:g}), one launch {one}, "
-                      f"exactly symmetric {sym}", flush=True)
-                if not (e_g <= tol and sym and one):
-                    _fail(f"model-batched gram at {dtype} L={lanes} n={n} "
-                          f"mask_lane={mask_lane}")
-                if dtype == torch.float32 and lanes == L_BATCH and mask_lane:
-                    err["gram"] = _abs(k, kp)
-        fe = _batched_factor_errors(rng, dtype)
-        tol = 1e-10 if dtype == torch.float64 else 2e-4
-        worst = max(fe[w] for w in ("cholesky", "solve_psd", "tri_inv_lower"))
-        print(f"[batch-kernels] {str(dtype)[6:]} {L_BATCH * E} matrices of "
-              f"n={N_PATH}, worst matrix's rel against f64 plain: cholesky "
-              f"{fe['cholesky']:.2e}, solve_psd {fe['solve_psd']:.2e}, "
-              f"tri_inv_lower {fe['tri_inv_lower']:.2e} (tol {tol:g}); zeros "
-              f"above the diagonal {fe['upper_zero']}", flush=True)
-        if not (worst <= tol and fe["upper_zero"]):
-            _fail(f"fleet refit's cholesky or trsm disagrees with plain at "
-                  f"{dtype}: {fe}")
-        if dtype == torch.float32:
-            err.update(fe["abs"])
-
-    dt, n, m = torch.float32, N_PATH, L_BATCH * E
+    dt, n, m = torch.float32, N_PATH, lanes * e
     sz = 4
-    args = _lane_gram_args(rng, L_BATCH, n, dt, True)
+    args = _lane_gram_args(rng, lanes, n, dt, True, e, d)
     k = rbf_gram_masked(*args)
     l = cholesky_blocked(k)
-    y = torch.tensor(rng.normal(size=(L_BATCH, E, n, 1)), dtype=dt,
+    y = torch.tensor(rng.normal(size=(lanes, e, n, 1)), dtype=dt,
                      device="cuda")
-    eye = torch.eye(n, dtype=dt, device="cuda").expand(L_BATCH, E, n, n)
+    eye = torch.eye(n, dtype=dt, device="cuda").expand(lanes, e, n, n)
     eye = eye.contiguous()
     solves = _refit_solves(l, y)
     tri = n * (n + 1) // 2
-    in_bytes = (L_BATCH * (n * D_IN + n) + m * (D_IN + 2)) * sz
+    in_bytes = (lanes * (n * d + n) + m * (d + 2)) * sz
     t = {
         "gram": dict(fn=lambda: rbf_gram_masked(*args), library=None,
                      plain=lambda: gram_plain(*args),
                      bound=_bound_ms(in_bytes + m * n * n * sz,
-                                     m * n * n * (2 * D_IN + 7), dt)),
+                                     m * n * n * (2 * d + 7), dt)),
         "cholesky": dict(fn=lambda: cholesky_blocked(k),
                          library=lambda: torch.linalg.cholesky_ex(k),
                          plain=lambda: cholesky_plain(k),
@@ -1639,18 +1640,79 @@ def phase_batch_kernels(seed: int) -> dict:
              "bound_by": c["bound"][1]}
         res[name] = r
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[batch-kernels] time f32 L={L_BATCH} e={E} n={n} {name}: "
+        print(f"[batch-kernels] time f32 L={lanes} e={e} d={d} n={n} {name}: "
               f"kernel {r['ms']:.4f} ms (device {dev_ms:.4f}), library {lib} "
               f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} "
               f"ms ({r['bound_by']})", flush=True)
-    # the kernels line's trsm: one fleet refit's solves (beta and L^-1)
     res["trsm"] = {key: (res["beta"][key] + res["kinv"][key]
                          if key in ("ms", "library_ms", "plain_ms",
                                     "device_ms") else None)
                    for key in res["beta"]}
     res["trsm"]["bound_ms"], res["trsm"]["bound_by"] = _bound_ms(
         m * (tri + 2 * n + n * n) * sz, m * (2 * n * n + n ** 3 / 3), dt)
-    return {"errs": err, "timings": res}
+    return res
+
+
+def phase_batch_kernels(seed: int) -> dict:
+    """The model-batched Gram against gram_plain matrix by matrix, f32 and
+    f64, at the refits' shapes (``REFIT_SHAPES``: the pendulum fleet's
+    L = 256, e = 2, d = 3 and the cart-pole fleet's L = 128, e = 4, d = 5 at
+    n = 128; the cart-pole episode's L = 1, e = 4, d = 5 at n = 512) and at
+    L = 2, n = 2048, with per-lane and shared masks: one launch, exactly
+    symmetric. Each refit's Cholesky, solve_psd and tri_inv_lower at its
+    shape against their f64 plain versions, each matrix within 2e-4 in f32
+    and 1e-10 in f64, zero above the diagonal. Then each fleet refit's
+    kernels timed at its shape (f32, ``_fleet_refit_times``)."""
+    from safe_exploration_tpu_torch.ops.kernels import (
+        gram_plain,
+        rbf_gram_masked,
+    )
+
+    rng = np.random.default_rng(seed + 7)
+    errs = {label: {} for label, *_ in REFIT_SHAPES}
+    for dtype in (torch.float32, torch.float64):
+        for label, lanes, e, d, n in REFIT_SHAPES + (
+                ("large", 2, E, D_IN, N_HBM),):
+            for mask_lane in (True, False):
+                args = _lane_gram_args(rng, lanes, n, dtype, mask_lane, e, d)
+                before = rbf_gram_masked.launches
+                k = rbf_gram_masked(*args)
+                one = rbf_gram_masked.launches == before + 1
+                kp = gram_plain(*args)
+                e_g, sym = _rel_each(k, kp), bool(torch.equal(k, k.mT))
+                tol = 1e-10 if dtype == torch.float64 else 1e-5
+                print(f"[batch-kernels] {str(dtype)[6:]} L={lanes} e={e} "
+                      f"d={d} n={n} mask "
+                      f"{'per lane' if mask_lane else 'shared'}: gram worst "
+                      f"matrix's rel {e_g:.2e} (tol {tol:g}), one launch "
+                      f"{one}, exactly symmetric {sym}", flush=True)
+                if not (e_g <= tol and sym and one):
+                    _fail(f"model-batched gram at {dtype} L={lanes} e={e} "
+                          f"d={d} n={n} mask_lane={mask_lane}")
+                if dtype == torch.float32 and label in errs and mask_lane:
+                    errs[label]["gram"] = _abs(k, kp)
+        for label, lanes, e, d, n in REFIT_SHAPES:
+            fe = _batched_factor_errors(rng, dtype, lanes, e, d, n)
+            tol = 1e-10 if dtype == torch.float64 else 2e-4
+            worst = max(fe[w] for w in ("cholesky", "solve_psd",
+                                        "tri_inv_lower"))
+            print(f"[batch-kernels] {str(dtype)[6:]} {label} refit, "
+                  f"{lanes * e} matrices of n={n}, worst matrix's rel "
+                  f"against f64 plain: cholesky {fe['cholesky']:.2e}, "
+                  f"solve_psd {fe['solve_psd']:.2e}, tri_inv_lower "
+                  f"{fe['tri_inv_lower']:.2e} (tol {tol:g}); zeros above the "
+                  f"diagonal {fe['upper_zero']}", flush=True)
+            if not (worst <= tol and fe["upper_zero"]):
+                _fail(f"{label} refit's cholesky or trsm disagrees "
+                      f"with plain at {dtype}: {fe}")
+            if dtype == torch.float32:
+                errs[label].update(fe["abs"])
+    timings = {label: _fleet_refit_times(rng, lanes, e, d)
+               for label, lanes, e, d in FLEET_SHAPES}
+    return {"errs": errs["pendulum"], "timings": timings["pendulum"],
+            "errs_cartpole": errs["cartpole"],
+            "timings_cartpole": timings["cartpole"],
+            "errs_cartpole_episode": errs["cartpole-episode"]}
 
 
 def _self_distance_and_lmu(ssm) -> dict:
@@ -1683,25 +1745,34 @@ def _self_distance_and_lmu(ssm) -> dict:
             "l_mu_cpu": l_cpu.tolist(), "l_mu_rel": _rel(l_gpu, l_cpu)}
 
 
-def phase_batch(seed: int) -> dict:
-    """run_experiment on pendulum_batch_sqp at full width on the card, f32:
-    256 lanes, n_max 128, 24 initial points, 20 steps per episode, the lane
-    SQP at 4 outer x 3 inner, a per-lane fit and calibration after every
-    episode (120 steps), 2 of its 4 episodes. Counts are zeroed just before
-    the run and read just after; the fits, calibrations and unstack
-    refits are timed inside it. Gates: 0 violations, finite series but
-    model_error (a non-finite model error only in lanes whose lane model
-    left the episode non-finite: the f32 append's divergence), n_data
-    as scheduled, one launch of each refit kernel per refit (the build, the
-    first fit, and per episode the unstack and the fit: the last two
-    cover all 256 x 2 matrices in one launch each); the model's self-pair
-    distance exactly 0 and its l_mu at the buffer equal to the CPU's."""
+# the cart-pole fleet runs 2 of cartpole_batch_sqp's 4 episodes (the second
+# on per-lane hyperparameters), its only cut
+RUN_CART_BATCH = ["n_ep=2"]
+
+
+def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
+                sets: tuple = tuple(RUN_BATCH), label: str = "batch") -> dict:
+    """run_experiment on a fleet configuration at full width on the card,
+    f32, printed under ``[label]``: pendulum_batch_sqp (256 lanes, n_max
+    128, 24 initial points, 20 steps per episode, n_safe 3) or
+    cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 16 steps,
+    n_safe 6, n_perf 10, r_shared 2), both with the lane SQP at 4 outer x
+    3 inner and a per-lane fit and calibration after every episode (120
+    steps), 2 of their 4 episodes. Counts are zeroed just before the run
+    and read just after; the fits, calibrations and unstack refits are
+    timed inside it. Gates: 0 violations, finite series but model_error (a
+    non-finite model error only in lanes whose lane model left the episode
+    non-finite: the f32 append's divergence), n_data as scheduled, one
+    launch of each refit kernel per refit (the build, the first fit, and
+    per episode the unstack and the fit: the last two cover all L x e
+    matrices in one launch each); the model's self-pair distance exactly 0
+    and its l_mu at the buffer equal to the CPU's."""
     import safe_exploration_tpu_torch.runtime.batch as batch_mod
     from safe_exploration_tpu_torch.models.gp_lanes import lane_unstack_ssm
     from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
     from safe_exploration_tpu_torch.runtime.main import run_experiment
 
-    cfg = _episode_cfg("pendulum_batch_sqp", RUN_BATCH + [f"seed={seed}"])
+    cfg = _episode_cfg(config, list(sets) + [f"seed={seed}"])
     spans = {"fit": [], "calibrate": [], "unstack": [], "predict": [],
              "append": []}
     names = {"fit": "ssm_fit", "calibrate": "_calibrate_lipschitz",
@@ -1775,7 +1846,8 @@ def phase_batch(seed: int) -> dict:
     step = _fleet_step_split(cfg, captured["model"], seed)
     r = {"config": {k: getattr(cfg, k) for k in (
              "batch_lanes", "n_max", "n_init_samples", "hyp_iters", "n_ep",
-             "n_steps", "n_safe", "sqp_outer", "sqp_inner")},
+             "n_steps", "n_safe", "n_perf", "r_shared", "sqp_outer",
+             "sqp_inner")},
          "series": series, "steps_per_sec_per_episode": per_ep_sps,
          "wall_s": wall, "launches": launches, "refits": n_refits,
          "fit_s": spans["fit"], "calibrate_s": spans["calibrate"],
@@ -1784,55 +1856,58 @@ def phase_batch(seed: int) -> dict:
          "predict_s": spans["predict"], "append_s": spans["append"],
          "step_split": step,
          "refit_split_one_lane_ms": split_one, **probe}
-    print(f"[batch] {cfg.name} {r['config']} f32: wall {wall:.1f} s",
+    print(f"[{label}] {cfg.name} {r['config']} f32: wall {wall:.1f} s",
           flush=True)
     for key in ("violations", "feasibility_rate", "model_error", "mean_cost",
                 "episode_time_s", "n_data", "steps_per_sec"):
-        print(f"[batch]   {key}: {series[key]}", flush=True)
-    print(f"[batch]   steps/s per episode {[round(v, 2) for v in per_ep_sps]}"
+        print(f"[{label}]   {key}: {series[key]}", flush=True)
+    print(f"[{label}]   steps/s per episode {[round(v, 2) for v in per_ep_sps]}"
           f"; fit s {[round(v, 3) for v in spans['fit']]}, calibrate s "
           f"{[round(v, 3) for v in spans['calibrate']]}, unstack (batched "
           f"refit) s {[round(v, 4) for v in spans['unstack']]}", flush=True)
-    print(f"[batch]   batched refit split ({lanes} lanes x {E} dims, n "
+    print(f"[{label}]   batched refit split ({lanes} lanes x {stacked.n_out} "
+          f"dims, n "
           f"{stacked.n_max}), CUDA-event ms: "
           f"{ {k: round(v, 4) for k, v in split.items()} }; one lane's "
           f"refit: { {k: round(v, 4) for k, v in split_one.items()} }",
           flush=True)
     per_step = {k: sum(spans[k]) / len(spans[k]) for k in ("predict",
                                                             "append")}
-    print(f"[batch]   per step (host, synchronized): lane_predict "
+    print(f"[{label}]   per step (host, synchronized): lane_predict "
           f"{per_step['predict'] * 1e3:.2f} ms, lane_append_point "
           f"{per_step['append'] * 1e3:.2f} ms; one get_action_batch (the lane "
-          f"SQP on the final fleet) {step['wall_ms']:.1f} ms, device "
-          f"{step['device_ms']:.1f} ms (busy share {step['busy']:.3f}, idle "
-          f"{1 - step['busy']:.3f}); top kernels by device ms "
+          f"SQP on the final fleet) {step['wall_ms_unprofiled']:.1f} ms, "
+          f"{step['wall_ms']:.1f} ms under the profiler, device "
+          f"{step['device_ms']:.1f} ms (busy share {step['busy']:.3f} of the "
+          f"profiled call, {step['busy_unprofiled']:.3f} of the unprofiled "
+          f"one; {step['launches']} device events); top kernels by device ms "
           f"{step['top']}", flush=True)
-    print(f"[batch]   launches {launches} ({n_refits} refits)", flush=True)
-    print(f"[batch]   lanes with a non-finite model error per episode "
+    print(f"[{label}]   launches {launches} ({n_refits} refits)", flush=True)
+    print(f"[{label}]   lanes with a non-finite model error per episode "
           f"{nan_err}, lanes whose lane model left the episode non-finite "
           f"{bad_models} (of {lanes}); non-finite model errors outside "
           f"those lanes: {nan_outside}", flush=True)
-    print(f"[batch]   model's self-pair |z - x_i|^2 max {probe['self_d2_max']}"
+    print(f"[{label}]   model's self-pair |z - x_i|^2 max {probe['self_d2_max']}"
           f"; f32 l_mu at the buffer: card {probe['l_mu_gpu']}, CPU "
           f"{probe['l_mu_cpu']} (rel {probe['l_mu_rel']:.2e}, tol 1e-5)",
           flush=True)
     if any(series["violations"]):
-        _fail(f"fleet: violations {series['violations']}")
+        _fail(f"{label}: violations {series['violations']}")
     if not finite:
-        _fail("fleet: non-finite series")
+        _fail(f"{label}: non-finite series")
     if nan_outside:
-        _fail(f"fleet: {nan_outside} lanes with a non-finite model error "
+        _fail(f"{label}: {nan_outside} lanes with a non-finite model error "
               "whose lane model stayed finite")
     if series["n_data"] != want_n:
-        _fail(f"fleet: n_data {series['n_data']}, want {want_n}")
+        _fail(f"{label}: n_data {series['n_data']}, want {want_n}")
     if any(launches[w] != n_refits for w in (
             "rbf_gram_masked", "cholesky_blocked", "solve_psd",
             "tri_inv_lower")) or launches["trsm_lower"] or \
             launches["cholesky_hbm"]:
-        _fail(f"fleet: refit kernels launched {launches} in {n_refits} "
+        _fail(f"{label}: refit kernels launched {launches} in {n_refits} "
               "refits")
     if probe["self_d2_max"] != 0.0 or probe["l_mu_rel"] > 1e-5:
-        _fail(f"fleet: self distance {probe['self_d2_max']}, l_mu card vs "
+        _fail(f"{label}: self distance {probe['self_d2_max']}, l_mu card vs "
               f"CPU rel {probe['l_mu_rel']}")
     return r
 
@@ -1840,9 +1915,10 @@ def phase_batch(seed: int) -> dict:
 def _fleet_step_split(cfg, model, seed: int) -> dict:
     """One fleet step's solve on the final fleet (its bucketed view, fresh
     machine state, states from the initial distribution): host ms of one
-    ``get_action_batch`` under torch.profiler, the device ms of its
-    kernels (device-side events only), the busy share and the five
-    kernels with the most device time."""
+    ``get_action_batch`` without and one under torch.profiler (device
+    activity only), the device ms of its kernels, the busy share against
+    either call, the launches and the five kernels with the most device
+    time."""
     from safe_exploration_tpu_torch.models.gp_lanes import (
         lane_shrink_to_bucket,
     )
@@ -1857,28 +1933,43 @@ def _fleet_step_split(cfg, model, seed: int) -> dict:
     x0 = spec.init_m + spec.init_std * torch.tensor(
         noise, dtype=model.gp.x.dtype, device=dev)
     state = exp["init_state_batch"](lanes)
+    # the fleet's episodes ran this solve at this bucket, so the first call
+    # is warm; it warms the profiled one in turn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     exp["get_action_batch"](state, view, x0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    torch.cuda.synchronize()
+    wall_unprofiled = (time.perf_counter() - t0) * 1e3
+    # device activity only, read from the raw trace: a cart-pole step
+    # launches ~400,000 kernels, and building key_averages over them with
+    # the CPU activity on took minutes on the host
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         exp["get_action_batch"](state, view, x0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type != torch.autograd.DeviceType.CPU]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy": device_ms / wall_ms,
-            "launches": sum(e.count for e in events),
-            "top": {e.key[:60]: round(e.self_device_time_total / 1e3, 2)
-                    for e in top}}
+            "busy": device_ms / wall_ms, "wall_ms_unprofiled": wall_unprofiled,
+            "busy_unprofiled": device_ms / wall_unprofiled,
+            "launches": sum(n for _, n in by_name.values()),
+            "top": {k[:60]: round(ms, 2) for k, (ms, _) in top}}
 
 
-def phase_batch_parity(seed: int) -> dict:
-    """f64, 8 lanes, 3 steps, 2 episodes of pendulum_batch_sqp on the GPU
+def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
+                       lanes: int = 8, steps: int = 3,
+                       label: str = "batch-parity") -> dict:
+    """f64, ``lanes`` lanes, ``steps`` steps, 2 episodes of a fleet
+    configuration (pendulum_batch_sqp at 8 lanes and 3 steps,
+    cartpole_batch_sqp at 2 and 2) on the GPU
     (kernels) and on the CPU (plain versions) with one set of draws from a
     CPU generator: counts and feasible flags equal; the model that enters
     the fleet (the build and first fit: no solve has run yet) within 1e-9;
@@ -1889,8 +1980,9 @@ def phase_batch_parity(seed: int) -> dict:
     from safe_exploration_tpu_torch.runtime.config import build_experiment
     from safe_exploration_tpu_torch.runtime.main import run_experiment
 
-    cfg = _episode_cfg("pendulum_batch_sqp", [
-        "batch_lanes=8", "n_steps=3", "n_ep=2", f"seed={seed}"])
+    cfg = _episode_cfg(config, [
+        f"batch_lanes={lanes}", f"n_steps={steps}", "n_ep=2",
+        f"seed={seed}"])
     spec = build_experiment(cfg, dtype=torch.float64, device="cpu")["env"].spec
     out = {}
     saved = (batch_mod.run_batched_episodes_lanes,
@@ -1947,7 +2039,9 @@ def phase_batch_parity(seed: int) -> dict:
     res = {"counts_equal": counts_equal, "flags_equal": flags_equal,
            "initial_rel": initial, "traj_rel": traj, "final_rel": final,
            "series_cpu": cs, "gpu_s": g["s"], "cpu_s": c["s"]}
-    print(f"[batch-parity] f64 8 lanes, 3 steps, 2 episodes: counts equal "
+    print(f"[{label}] f64 {config}, {lanes} lanes, {steps} steps, 2 "
+          f"episodes: "
+          f"counts equal "
           f"{counts_equal} (feasibility {cs['feasibility_rate']}, n_data "
           f"{cs['n_data']}), feasible flags equal {flags_equal}; the model "
           f"entering the fleet rel {initial:.2e} (tol 1e-9); trajectories rel "
@@ -1955,11 +2049,11 @@ def phase_batch_parity(seed: int) -> dict:
           f"{ {k: f'{v:.2e}' for k, v in final.items()} } (tol 1e-9); GPU "
           f"{g['s']:.1f} s, CPU {c['s']:.1f} s", flush=True)
     if not (counts_equal and flags_equal):
-        _fail(f"fleet series or flags differ GPU vs CPU: {gs} vs {cs}")
+        _fail(f"{label}: series or flags differ GPU vs CPU: {gs} vs {cs}")
     if initial > 1e-9:
-        _fail(f"fleet's initial model differs GPU vs CPU: {initial}")
+        _fail(f"{label}: initial model differs GPU vs CPU: {initial}")
     if traj > 1e-6 or max(final.values()) > 1e-9:
-        _fail(f"fleet trajectories or final model differ GPU vs CPU: "
+        _fail(f"{label}: trajectories or final model differ GPU vs CPU: "
               f"{traj}, {final}")
     return res
 
@@ -2004,27 +2098,46 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    kern = phase_kernels(args.seed)
-    batch_kern = phase_batch_kernels(args.seed)
-    cem_kern = phase_cem_kernels(args.seed)
-    path = phase_path(args.seed)
-    parity = phase_parity(args.seed)
-    cem = phase_cem_path(args.seed)
-    cem_parity = phase_cem_parity(args.seed)
-    batch = phase_batch(args.seed)
-    batch_parity = phase_batch_parity(args.seed)
-    hbm = phase_hbm_kernels(args.seed)
-    episode = phase_episode(args.seed)
-    episode_parity = phase_episode_parity(args.seed)
+    phase_s = {}
+
+    def timed(label, fn, *a):
+        t0 = time.perf_counter()
+        r = fn(*a)
+        phase_s[label] = time.perf_counter() - t0
+        print(f"[time] {label}: {phase_s[label]:.1f} s", flush=True)
+        return r
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels, args.seed)
+    batch_kern = timed("batch-kernels", phase_batch_kernels, args.seed)
+    cem_kern = timed("cem-kernels", phase_cem_kernels, args.seed)
+    path = timed("path", phase_path, args.seed)
+    parity = timed("parity", phase_parity, args.seed)
+    cem = timed("cem", phase_cem_path, args.seed)
+    cem_parity = timed("cem-parity", phase_cem_parity, args.seed)
+    batch = timed("batch", phase_batch, args.seed)
+    batch_parity = timed("batch-parity", phase_batch_parity, args.seed)
+    cart_batch = timed("cartpole-batch", phase_batch, args.seed,
+                       "cartpole_batch_sqp", tuple(RUN_CART_BATCH),
+                       "cartpole-batch")
+    cart_parity = timed("cartpole-batch-parity", phase_batch_parity,
+                        args.seed, "cartpole_batch_sqp", 2, 2,
+                        "cartpole-batch-parity")
+    hbm = timed("hbm", phase_hbm_kernels, args.seed)
+    episode = timed("episode", phase_episode, args.seed)
+    episode_parity = timed("episode-parity", phase_episode_parity, args.seed)
+    cart_episode = timed("cartpole-episode", phase_episode, args.seed,
+                         RUNS_CARTPOLE, "cartpole-episode")["cartpole"]
 
     # each kernel's launches are those of the path that runs it: the refit
-    # kernels' from the fleet (pendulum_batch_sqp, the slice's main path),
-    # the CEM kernels' from the CEM path, cholesky_hbm's from the episodic
-    # run (b); times at that path's shapes (the refit kernels: the fleet
+    # kernels' from the fleet (pendulum_batch_sqp, PR 8's main path), the
+    # CEM kernels' from the CEM path, cholesky_hbm's from the episodic run
+    # (b); times at that path's shapes (the refit kernels: the fleet
     # refit's 512 matrices of n = 128; gp_predict: the final B-lane passes;
-    # cholesky_hbm: n = 2048, f32)
+    # cholesky_hbm: n = 2048, f32). The refit kernels also carry the
+    # cart-pole fleet's launches, errors and times at its shape
+    # ("cartpole_fleet"), and the cart-pole episode's launches.
     t_hbm = hbm["times"][f"float32_n{N_HBM}"]
     times = {**batch_kern["timings"],
              "gp_predict": cem_kern["timings"][f"gp_predict_L{B_CEM}"],
@@ -2053,6 +2166,18 @@ def main() -> int:
         }
         if len(wrappers) > 1:
             entry["entries"] = list(wrappers)
+        if short in batch_kern["timings_cartpole"]:
+            rc = batch_kern["timings_cartpole"][short]
+            entry["cartpole_fleet"] = {
+                "launches": sum(cart_batch["launches"].get(w, 0)
+                                for w in wrappers),
+                "max_abs_err": batch_kern["errs_cartpole"][short],
+                **{k: rc[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+            entry["cartpole_episode_launches"] = sum(
+                cart_episode["launches"].get(w, 0) for w in wrappers)
+            entry["cartpole_episode_max_abs_err"] = batch_kern[
+                "errs_cartpole_episode"][short]
         kernels.append(entry)
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels,
@@ -2063,7 +2188,12 @@ def main() -> int:
               "cem_parity": cem_parity, "hbm": hbm, "episode": episode,
               "episode_parity": episode_parity,
               "batch_kernel_times": batch_kern["timings"], "batch": batch,
-              "batch_parity": batch_parity, "failures": FAILURES,
+              "batch_parity": batch_parity,
+              "batch_kernel_times_cartpole": batch_kern["timings_cartpole"],
+              "cartpole_batch": cart_batch,
+              "cartpole_batch_parity": cart_parity,
+              "cartpole_episode": cart_episode, "phase_s": phase_s,
+              "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:

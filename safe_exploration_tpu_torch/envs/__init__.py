@@ -9,9 +9,10 @@ from safe_exploration_tpu_torch.envs.base import (
     linearize_discretize,
     rk4_step,
 )
+from safe_exploration_tpu_torch.envs.cartpole import make_cartpole
 from safe_exploration_tpu_torch.envs.pendulum import make_pendulum
 
 __all__ = [
     "Env", "EnvSpec", "box_polytope", "env_reset", "env_step",
-    "linearize_discretize", "rk4_step", "make_pendulum",
+    "linearize_discretize", "rk4_step", "make_cartpole", "make_pendulum",
 ]

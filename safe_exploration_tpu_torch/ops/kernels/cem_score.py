@@ -152,8 +152,13 @@ def tube_score_plain(ssm, u_flat, x0_cols, k_fb, a, b, bmat, h_mat_obs, h_obs,
     from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg
 
     _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind)
+    # the constants as the kernel takes them (lists or tensors), as tensors
+    # of the lanes' dtype and device
+    k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe = (
+        torch.as_tensor(v, dtype=u_flat.dtype, device=u_flat.device)
+        for v in (k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe))
     y = sqp_lanes._rollout_y_lanes(
-        ssm, u_flat, [x0_cols[0], x0_cols[1]], k_fb, a, b,
+        ssm, u_flat, x0_cols, k_fb, a, b,
         _TubeCfg(n_safe=t_len, c_safety=c_safety, n_perf=0), bmat)
     g = sqp_lanes._dist_lanes(y, t_len, 2, h_mat_obs, h_obs, h_mat_safe,
                               h_safe)

@@ -6,6 +6,11 @@ from safe_exploration_tpu_torch.reachability.onestep import (
     onestep_reachability,
     onestep_reachability_point,
 )
+from safe_exploration_tpu_torch.reachability.propagation import (
+    multi_step_propagation,
+    one_step_mean_equivalent,
+    one_step_taylor,
+)
 from safe_exploration_tpu_torch.reachability.safety import (
     is_ellipsoid_inside_polytope,
     lin_ellipsoid_safety_distance,
@@ -16,7 +21,8 @@ from safe_exploration_tpu_torch.reachability.safety import (
 
 __all__ = [
     "onestep_reachability", "onestep_reachability_point",
-    "multistep_reachability", "lin_ellipsoid_safety_distance",
+    "multistep_reachability", "one_step_mean_equivalent", "one_step_taylor",
+    "multi_step_propagation", "lin_ellipsoid_safety_distance",
     "is_ellipsoid_inside_polytope", "trajectory_inside_ellipsoids",
     "verify_trajectory_safety", "sample_inside_polytope",
 ]

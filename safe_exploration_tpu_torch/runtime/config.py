@@ -4,7 +4,8 @@
 :class:`ExperimentConfig` has the JAX package's fields and defaults, and
 :data:`CONFIGS` its registry of named configurations, so a name means the
 same thing on both sides. :func:`build_experiment` wires what the port
-carries: the pendulum, the exact GP state-space model, the tracking and
+carries: the pendulum and the cart-pole (with or without a performance
+trajectory), the exact GP state-space model, the tracking and
 exploration objectives, and the two solvers — the lane SQP and the CEM (the
 single-instance ``planner`` on the portable or the lane backend with the
 single-instance SafeMPC machine, the batched ``batch_planner`` on the lane
@@ -21,7 +22,11 @@ from functools import partial
 import torch
 
 from safe_exploration_tpu_torch import resolve_device
-from safe_exploration_tpu_torch.envs import linearize_discretize, make_pendulum
+from safe_exploration_tpu_torch.envs import (
+    linearize_discretize,
+    make_cartpole,
+    make_pendulum,
+)
 from safe_exploration_tpu_torch.models.gp_lanes import LaneGPSSM
 from safe_exploration_tpu_torch.ops.linalg import dlqr
 from safe_exploration_tpu_torch.solvers.cem import (
@@ -55,6 +60,8 @@ from safe_exploration_tpu_torch.solvers.sqp_lanes import (
 
 __all__ = ["ExperimentConfig", "CONFIGS", "build_experiment",
            "register_config"]
+
+ENV_FACTORIES = {"pendulum": make_pendulum, "cartpole": make_cartpole}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +138,7 @@ def _require_ported(cfg: ExperimentConfig) -> None:
     if cfg.solver not in ("sqp", "cem"):
         raise ValueError(f"unknown solver {cfg.solver!r} (sqp|cem)")
     todo = {
-        "env": (("pendulum",),
-                "cartpole and quadrotor: ROADMAP Queue 1, item 10"),
+        "env": (tuple(ENV_FACTORIES), "quadrotor: ROADMAP Queue 1, item 10"),
         "objective": (("tracking", "exploration"),
                       "risk_tracking: ROADMAP Queue 1, item 10"),
         "ssm": (("gp",), "sparse and MC-dropout models: ROADMAP Queue 1, "
@@ -143,11 +149,6 @@ def _require_ported(cfg: ExperimentConfig) -> None:
             raise NotImplementedError(
                 f"{field}={getattr(cfg, field)!r} is not ported yet ({where})"
             )
-    if cfg.n_perf > 0:
-        raise NotImplementedError(
-            "performance trajectories (n_perf > 0) are not ported yet "
-            "(ROADMAP Queue 1, item 10)"
-        )
 
 
 def _kern_tuple(cfg: ExperimentConfig, n_s: int) -> tuple:
@@ -173,7 +174,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     ``l_sigma`` and ``cfg``."""
     dev = resolve_device(device)
     _require_ported(cfg)
-    env = make_pendulum(dtype=dtype, device=dev)
+    env = ENV_FACTORIES[cfg.env](dtype=dtype, device=dev)
     spec = env.spec
     kw = {"dtype": dtype, "device": dev}
     mpc_cfg = SafeMPCConfig(n_safe=cfg.n_safe, c_safety=cfg.c_safety,

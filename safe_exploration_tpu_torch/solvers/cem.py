@@ -8,6 +8,12 @@ JAX package ``vmap``s the tube over the samples; here the reachability
 functions take the sample dimension as a leading batch dimension, and only
 the user's scalar cost function is vectorized with ``torch.func.vmap``.
 
+With ``n_perf > 0`` the objective rides an ``n_perf``-step Gaussian
+propagation (``reachability/propagation.multi_step_propagation``) over
+u_perf_all = [k_ff[:r], the free perf controls], while violations stay on
+the safety tube — the joint safety + performance structure of the JAX
+package.
+
 ``jax.random`` keys become a ``torch.Generator`` (``None``: a fresh one
 seeded 0 on the planner's device, as the JAX package uses PRNGKey(0)) or
 an explicit ``noise`` tensor of the per-iteration standard-normal draws.
@@ -21,6 +27,9 @@ import torch
 
 from safe_exploration_tpu_torch.reachability.onestep import (
     multistep_reachability,
+)
+from safe_exploration_tpu_torch.reachability.propagation import (
+    multi_step_propagation,
 )
 from safe_exploration_tpu_torch.reachability.safety import (
     lin_ellipsoid_safety_distance,
@@ -45,7 +54,7 @@ class CemConfig(NamedTuple):
     penalty: float = 1e3       # constraint-violation penalty weight
     smoothing: float = 0.3     # distribution update smoothing (0 = replace)
     feas_tol: float = 1e-4     # feasibility gate on the summed violation
-    n_perf: int = 0            # performance horizon (0 = none; not ported)
+    n_perf: int = 0            # performance horizon (0 = none)
     r_shared: int = 1
     # posterior / scorer of the lane CEM (solvers/cem_lanes.py); the
     # portable planner ignores it
@@ -91,15 +100,13 @@ def cem_plan(generator, ssm, x0, k_fb, a, b, u_min, u_max, h_mat_obs, h_obs,
     """Plan a safe feed-forward sequence from ``x0`` (n_s,).
 
     Returns (k_ff_all (n_safe, n_u), feasible, violation, info) with
-    ``info = {cost, warm_next}``. ``noise`` (n_iterations, M, t_total, n_u)
+    ``info = {cost, warm_next}`` (``warm_next`` the whole decision matrix,
+    ``cem_warm_len(cfg)`` rows). ``noise`` (n_iterations, M, t_total, n_u)
     replaces the draws of ``generator``.
     """
-    if cfg.n_perf > 0:
-        raise NotImplementedError(
-            "performance trajectories (n_perf > 0) are not ported yet "
-            "(ROADMAP Queue 1, item 10)")
     t_len, n_u = cfg.n_safe, u_min.shape[0]
     t_total = cem_warm_len(cfg)
+    r = min(cfg.r_shared, t_len, cfg.n_perf) if cfg.n_perf > 0 else 0
     dtype, device = x0.dtype, x0.device
     u_range = (u_max - u_min) * 0.5
     mean0 = (torch.zeros((t_total, n_u), dtype=dtype, device=device)
@@ -116,10 +123,16 @@ def cem_plan(generator, ssm, x0, k_fb, a, b, u_min, u_max, h_mat_obs, h_obs,
         p, q, var = multistep_reachability(ssm, p0, k_ff_all, k_fb_all, a, b,
                                            c_safety)
         viol = tube_violation(p, q, h_mat_obs, h_obs, h_mat_safe, h_safe)
+        u_cost = k_ff_all
+        if cfg.n_perf > 0:
+            u_cost = torch.cat([k_ff_all[..., :r, :], seqs[..., t_len:, :]],
+                               dim=-2)
+            p, q, var = multi_step_propagation(ssm, p0, u_cost, a, b,
+                                               method=cfg.perf_method)
         if seqs.dim() == 2:
-            cost = cost_fn(p, q, var, k_ff_all)
+            cost = cost_fn(p, q, var, u_cost)
         else:
-            cost = batch_cost(p, q, var, k_ff_all)
+            cost = batch_cost(p, q, var, u_cost)
         return cost + cfg.penalty * viol, viol, cost
 
     if noise is None:

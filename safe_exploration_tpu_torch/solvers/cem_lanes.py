@@ -66,7 +66,7 @@ __all__ = ["cem_lanes_supported", "cem_plan_lanes", "make_cem_lane_solver"]
 
 
 class _TubeCfg(NamedTuple):
-    """The rollout knobs _rollout_lanes reads."""
+    """The rollout knobs _rollout_y_lanes reads."""
 
     n_safe: int
     c_safety: float
@@ -97,6 +97,11 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     t_len, n_u = cfg.n_safe, u_min.shape[0]
     t_total = cem_warm_len(cfg)
     bsz, n_s = x0s.shape
+    if n_s > 2 or cfg.n_perf > 0:
+        raise NotImplementedError(
+            "the lane CEM covers n_s <= 2 with no performance trajectory; "
+            "larger states and perf trajectories on it are not ported yet "
+            "(ROADMAP Queue 1, item 10; the portable CEM carries both)")
     m = cfg.n_samples
     dtype, device = x0s.dtype, x0s.device
     n_var = t_total * n_u
@@ -109,14 +114,8 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     tube_cfg = _TubeCfg(n_safe=t_len, c_safety=c_safety, n_perf=cfg.n_perf,
                         perf_method=cfg.perf_method)
     want_sigma = _wants_sigma(cost_kind, cfg.n_perf)
-    # constants to the host once: the lane algebra multiplies Python floats
-    # (the scorer kernel takes the tensors as they are)
-    consts = [v.tolist() for v in (k_fb, a, b, bmat)]
-    polys = [v.tolist() for v in (h_mat_obs, h_obs, h_mat_safe, h_safe)]
-    lane_cost_args = cost_args
-    if "target" in cost_args:
-        lane_cost_args = {**cost_args, "target": torch.as_tensor(
-            cost_args["target"]).tolist()}
+    consts = [k_fb, a, b, bmat]
+    polys = [h_mat_obs, h_obs, h_mat_safe, h_safe]
 
     impl = cfg.gp_impl
     fused = (impl in ("auto", "fused")
@@ -126,22 +125,21 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     if fused:
         # the model and constants made ready once, scored every iteration
         prep = prepare_tube_score(ssm, *consts[:3], consts[3], *polys,
-                                  c_safety, t_len, cost_kind, lane_cost_args)
+                                  c_safety, t_len, cost_kind, cost_args)
         post = prep.post
     if gp_impl == "pallas" and post is None:
         post = prepare_posterior(ssm)
 
     def make_score(x0_cols):
         """Penalized scorer over lanes of width x0_cols.shape[1]."""
-        x0_rows = [x0_cols[i] for i in range(n_s)]
 
         def score(u_flat):
-            y = _rollout_y_lanes(ssm, u_flat, x0_rows, *consts[:3], tube_cfg,
+            y = _rollout_y_lanes(ssm, u_flat, x0_cols, *consts[:3], tube_cfg,
                                  consts[3], impl=gp_impl,
                                  want_sigma=want_sigma, post=post)
             g = _dist_lanes(y, t_len, n_s, *polys)
             viol = torch.sum(_relu0(g), dim=0)
-            cost = _cost_lanes(cost_kind, lane_cost_args, y, u_flat, t_len,
+            cost = _cost_lanes(cost_kind, cost_args, y, u_flat, t_len,
                                n_s, n_u)
             return cost + cfg.penalty * viol, viol, cost, y
 

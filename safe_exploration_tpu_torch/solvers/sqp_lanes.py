@@ -2,8 +2,9 @@
 ``safe_exploration_tpu/solvers/sqp_lanes.py``.
 
 The whole solve is written batch-LAST: every per-lane scalar is a ``(B,)``
-tensor, tiny-matrix algebra (ellipsoids, closed-loop maps, Newton systems) is
-unrolled over indices, and the GP contractions are ``(n, B)`` matmuls.
+tensor, the tube's tiny-matrix algebra (ellipsoids, closed-loop maps) is
+batch-last ``(n_s, n_s, B)`` einsums, the Newton systems are unrolled over
+indices, and the GP contractions are ``(n, B)`` matmuls.
 
 The Gauss-Newton machinery is plain reverse-mode autograd over lane-folded
 copies (:func:`_lane_jacobian`): lanes are independent, so evaluating the
@@ -15,12 +16,15 @@ loops and one host ``bool`` for the violation-gated extra polish.
 
 Covered here: a shared :class:`GPSSM` or per-lane :class:`LaneGPSSM`
 (the fleet runner's models, each lane querying its own posterior through
-``models/gp_lanes.lane_predict``) with the RBF kernel menu, n_s <= 2 (the
-scalar-unrolled tube), no performance trajectory, the tracking and
-exploration objectives, GN Hessian, exact line search and fixed feedback
-gains. The array-form tube (n_s > 2), performance trajectories, the risk
-objective and sparse models are still to port (ROADMAP Queue 1, items 10
-and 11).
+``models/gp_lanes.lane_predict``) with the RBF kernel menu, any state
+dimension (the JAX package's array-form tube; its scalar unroll at n_s <= 2
+is not kept, see :func:`_rollout_y_lanes`), the joint performance trajectory on its Sigma-free branch (the first
+``r_shared`` controls shared with the safety block, the rest from the free
+perf tail of the decision vector), the tracking and exploration objectives,
+GN Hessian, exact line search and fixed feedback gains. The perf
+trajectory's covariance recursion (``want_sigma``, which only the risk
+objective reads), the risk objective and sparse models are still to port
+(ROADMAP Queue 1, items 10 and 11).
 
 The tube rollout also serves the lane CEM (solvers/cem_lanes.py), which
 scores without derivatives: there ``impl="pallas"`` routes the posterior
@@ -60,32 +64,6 @@ __all__ = ["lanes_supported", "gp_pallas_supported", "solve_safempc_lanes",
 # the Sigma-free stock objectives; a Sigma-consuming one (risk_tracking, not
 # ported) must be added to _wants_sigma as well
 _LANE_COSTS = ("tracking", "exploration")
-
-
-# ---------------------------------------------------------------- lane algebra
-# A lane matrix is a nested list m[i][j] of (B,) tensors (or Python floats
-# for constants); a lane vector is a list v[i].
-
-
-def _mat_mul(a, b):
-    n, m, k = len(a), len(b[0]), len(b)
-    return [[sum(a[i][l] * b[l][j] for l in range(k)) for j in range(m)]
-            for i in range(n)]
-
-
-def _mat_vec(a, v):
-    return [sum(a[i][j] * v[j] for j in range(len(v))) for i in range(len(a))]
-
-
-def _trace(a):
-    return sum(a[i][i] for i in range(len(a)))
-
-
-def _const_rows(mat):
-    """A constant (k, m) matrix as nested lists of Python floats (a tensor is
-    read to the host once; nested lists pass through)."""
-    return mat.tolist() if isinstance(mat, torch.Tensor) else mat
-
 
 # ----------------------------------------------------------------- GP (lanes)
 
@@ -176,49 +154,51 @@ def _jac_part_shared(part, params, x, zz, c):
 
 
 # ------------------------------------------------------------- tube (lanes)
+# Lane matrices are batch-last tensors (n, n, B), lane vectors (n, B); the
+# plant's constants are tensors of the lanes' dtype and device.
 
 
-def _max_eig_lanes(m, iters: int = 30):
-    """Dominant eigenvalue of lane matrices M = Q B (closed form at n <= 2,
-    trace-normalized squaring + Rayleigh refinement above)."""
-    n = len(m)
+def _trace_array(m):
+    """Traces of lane matrices (n, n, B) -> (B,)."""
+    return torch.diagonal(m, dim1=0, dim2=1).sum(-1)
+
+
+def _max_eig_lanes_array(m, iters: int = 30):
+    """Dominant eigenvalue of lane matrices M = Q B, (n, n, B) -> (B,):
+    closed forms at n <= 2, trace-normalized squarings and a Rayleigh
+    refinement above."""
+    n = m.shape[0]
     if n == 1:
-        return _relu0(m[0][0])
+        return _relu0(m[0, 0])
     if n == 2:
-        tr = m[0][0] + m[1][1]
-        det = m[0][0] * m[1][1] - m[0][1] * m[1][0]
+        tr = m[0, 0] + m[1, 1]
+        det = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
         disc = torch.sqrt(_relu0(tr * tr - 4.0 * det))
         return _relu0(0.5 * (tr + disc))
-    scale = _trace(m) / n + 1e-30
-    mn = [[m[i][j] / scale for j in range(n)] for i in range(n)]
+    mn = m / (_trace_array(m) / n + 1e-30)[None, None, :]
     n_sq = 3
     n_refine = max(2, (iters + (1 << n_sq) - 1) // (1 << n_sq))
     for _ in range(n_sq):
-        mn = _mat_mul(mn, mn)
-        s = _trace(mn) / n + 1e-30
-        mn = [[mn[i][j] / s for j in range(n)] for i in range(n)]
-    v = [1.0 + 1e-3 * i for i in range(n)]
-    nrm = sum(x * x for x in v) ** 0.5
-    v = [(x / nrm) * torch.ones_like(m[0][0]) for x in v]
+        mn = torch.einsum("ikb,kjb->ijb", mn, mn)
+        mn = mn / (_trace_array(mn) / n + 1e-30)[None, None, :]
+    v0 = 1.0 + 1e-3 * torch.arange(n, dtype=m.dtype, device=m.device)
+    v = (v0 / torch.linalg.vector_norm(v0))[:, None].expand(n, m.shape[-1])
     for _ in range(n_refine):
-        w = _mat_vec(mn, v)
-        nw = torch.sqrt(sum(x * x for x in w)) + 1e-30
-        v = [x / nw for x in w]
-    mv = _mat_vec(m, v)
-    num = sum(a * b for a, b in zip(v, mv))
-    den = sum(a * a for a in v) + 1e-30
+        w = torch.einsum("ijb,jb->ib", mn, v)
+        v = w / (torch.linalg.vector_norm(w, dim=0, keepdim=True) + 1e-30)
+    mv = torch.einsum("ijb,jb->ib", m, v)
+    num = torch.sum(v * mv, dim=0)
+    den = torch.sum(v * v, dim=0) + 1e-30
     return _relu0(num / den)
 
 
-def _sum_two_ellipsoids_q(q1, q2):
-    """Shape part of the Minkowski-sum outer approximation on lane matrices."""
-    n = len(q1)
+def _sum_two_ellipsoids_q_array(q1, q2):
+    """Shape part of the Minkowski-sum outer approximation on (n, n, B)
+    lanes."""
     eps = 1e-30
-    t1 = _trace(q1) + eps
-    t2 = _trace(q2) + eps
-    c = torch.sqrt(t1 / t2)
-    return [[(1.0 + 1.0 / c) * q1[i][j] + (1.0 + c) * q2[i][j]
-             for j in range(n)] for i in range(n)]
+    c = torch.sqrt((_trace_array(q1) + eps) / (_trace_array(q2) + eps))
+    c = c[None, None, :]
+    return (1.0 + 1.0 / c) * q1 + (1.0 + c) * q2
 
 
 def _per_lane(v: torch.Tensor, width: int) -> torch.Tensor:
@@ -229,151 +209,145 @@ def _per_lane(v: torch.Tensor, width: int) -> torch.Tensor:
     return v.repeat(1, width // v.shape[-1])
 
 
-def _rollout_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
-                   post=None):
-    """Lane tube rollout from a point state: u_flat (n_var, B), x0 list of
-    n_s (B,) rows -> (p_traj, q_traj, var_traj), lists over stages of lane
-    structures. Stage 0 is the point step, stages 1..T-1 the closed-loop
-    ellipsoid steps; ``bmat`` is S^T S of the Lipschitz lift. ``k_fb``,
-    ``a``, ``b``, ``bmat`` may be tensors or nested lists of floats;
-    ``impl`` and ``post`` select the posterior (:func:`_gp_predict_lanes`;
-    under "pallas" the model is prepared once here if ``post`` is None)."""
+def _lane_col(v: torch.Tensor, width: int) -> torch.Tensor:
+    """Per-dim constants (e,) as a column (e, 1), per-lane ones (e, B)
+    tiled to ``width`` folded lanes."""
+    return v[:, None] if v.ndim < 2 else _per_lane(v, width)
+
+
+def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
+                         post=None):
+    """Lane tube rollout from a point state, the tiny-matrix algebra as
+    batch-last (n_s, n_s, B) einsums: u_flat (n_var, B), x0 (n_s, B) ->
+    the packed y (ny, B) (:func:`_unpack_y`'s layout). Stage 0 is the point
+    step, stages 1..T-1 the closed-loop ellipsoid steps; ``bmat`` is S^T S
+    of the Lipschitz lift. ``impl`` and ``post`` select the posterior
+    (:func:`_gp_predict_lanes`; under "pallas" the model is prepared once
+    here if ``post`` is None)."""
     if impl == "pallas" and post is None:
         post = prepare_posterior(ssm)
     t_len = cfg.n_safe
-    n_s = len(x0)
-    a_rows, b_rows = _const_rows(a), _const_rows(b)
-    kfb_rows, b_lift = _const_rows(k_fb), _const_rows(bmat)
-    n_u = len(kfb_rows)
-    width = x0[0].shape[-1]
-    noise = _per_lane(torch.exp(2.0 * ssm.gp.log_noise), width)
+    n_s, n_u = a.shape[0], k_fb.shape[0]
+    width = x0.shape[-1]
+    noise = _lane_col(torch.exp(2.0 * _gp_of(ssm).log_noise), width)
     c_safety = cfg.c_safety
+    eye = torch.eye(n_s, dtype=x0.dtype, device=x0.device)
 
-    def kff_at(t):
-        return [u_flat[t * n_u + i] for i in range(n_u)]
+    def diag_q(hw):                                         # (n_s, B) -> q
+        return eye[:, :, None] * (n_s * hw * hw)[:, None, :]
 
-    kff = kff_at(0)
-    z = torch.stack(list(x0) + kff)
-    mu, var = _gp_predict_lanes(ssm, z, want_jac=False, impl=impl,
-                                post=post)
-    p = [
-        sum(a_rows[i][j] * x0[j] for j in range(n_s))
-        + sum(b_rows[i][k] * kff[k] for k in range(n_u))
-        + mu[i]
-        for i in range(n_s)
-    ]
-    zero = torch.zeros_like(p[0])
-    hw0 = [c_safety * torch.sqrt(var[i] + noise[i]) for i in range(n_s)]
-    q = [[n_s * hw0[i] * hw0[i] if i == j else zero for j in range(n_s)]
-         for i in range(n_s)]
-    p_traj, q_traj, var_traj = [p], [q], [[var[i] for i in range(n_s)]]
+    kff = u_flat[:n_u]
+    mu, var = _gp_predict_lanes(ssm, torch.cat([x0, kff], 0),
+                                want_jac=False, impl=impl, post=post)
+    p = a @ x0 + b @ kff + mu
+    q = diag_q(c_safety * torch.sqrt(var + noise))
+    p_traj, q_traj, var_traj = [p], [q], [var]
 
-    l_mu = _per_lane(ssm.l_mu, width)
-    l_sigma = _per_lane(ssm.l_sigma, width)
+    l_mu = _lane_col(ssm.l_mu, width)
+    l_sigma = _lane_col(ssm.l_sigma, width)
     for t in range(1, t_len):
-        kff = kff_at(t)
-        z = torch.stack(list(p) + kff)
-        mu, var, jac = _gp_predict_lanes(ssm, z, want_jac=True, impl=impl,
-                                         post=post)
-        p_next = [
-            sum(a_rows[i][j] * p[j] for j in range(n_s))
-            + sum(b_rows[i][k] * kff[k] for k in range(n_u))
-            + mu[i]
-            for i in range(n_s)
-        ]
+        kff = u_flat[t * n_u:(t + 1) * n_u]
+        mu, var, jac = _gp_predict_lanes(ssm, torch.cat([p, kff], 0),
+                                         want_jac=True, impl=impl, post=post)
+        p = a @ p + b @ kff + mu
         # H = a + J_x + (b + J_u) k_fb
-        h = [[
-            a_rows[i][j] + jac[i, j]
-            + sum((b_rows[i][k] + jac[i, n_s + k]) * kfb_rows[k][j]
-                  for k in range(n_u))
-            for j in range(n_s)] for i in range(n_s)]
-        q_lin = _mat_mul(_mat_mul(h, q), [[h[j][i] for j in range(n_s)]
-                                          for i in range(n_s)])
+        h = (a[:, :, None] + jac[:, :n_s]
+             + torch.einsum("ikb,kj->ijb", b[:, :, None] + jac[:, n_s:],
+                            k_fb))
+        q_lin = torch.einsum("ikb,klb,jlb->ijb", h, q, h)
         # Lipschitz remainder: r^2 = lambda_max(Q S^T S)
-        r_sqr = _max_eig_lanes(_mat_mul(q, b_lift))
+        r_sqr = _max_eig_lanes_array(torch.einsum("ikb,kj->ijb", q, bmat))
         r = torch.sqrt(_relu0(r_sqr))
-        u_mu = [0.5 * l_mu[i] * r_sqr for i in range(n_s)]
-        u_sig = [l_sigma[i] * r for i in range(n_s)]
-        q_taylor = [[n_s * u_mu[i] * u_mu[i] if i == j else zero
-                     for j in range(n_s)] for i in range(n_s)]
-        hw_c = [c_safety * (torch.sqrt(var[i] + noise[i]) + u_sig[i])
-                for i in range(n_s)]
-        q_conf = [[n_s * hw_c[i] * hw_c[i] if i == j else zero
-                   for j in range(n_s)] for i in range(n_s)]
-        q = _sum_two_ellipsoids_q(_sum_two_ellipsoids_q(q_lin, q_conf),
-                                  q_taylor)
-        p = p_next
+        q_taylor = diag_q(0.5 * l_mu * r_sqr[None, :])
+        q_conf = diag_q(c_safety * (torch.sqrt(var + noise)
+                                    + l_sigma * r[None, :]))
+        q = _sum_two_ellipsoids_q_array(
+            _sum_two_ellipsoids_q_array(q_lin, q_conf), q_taylor)
         p_traj.append(p)
         q_traj.append(q)
-        var_traj.append([var[i] for i in range(n_s)])
-    return p_traj, q_traj, var_traj
+        var_traj.append(var)
+    return torch.cat([torch.cat(p_traj)]
+                     + [qq.reshape(n_s * n_s, -1) for qq in q_traj]
+                     + [torch.cat(var_traj)])
 
 
-def _rollout_y_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg, bmat,
-                     impl="xla", want_sigma=False, post=None):
-    """Packed tube rollout (ny, B); the port covers n_s <= 2 and n_perf = 0
-    (so no perf-trajectory covariance, ``want_sigma``)."""
-    if len(x0_rows) > 2 or cfg.n_perf > 0 or want_sigma:
+def _rollout_perf_lanes(ssm, u_flat, x0, a, b, cfg, r, n_u, t_len,
+                        impl="xla", post=None):
+    """Performance-trajectory stages, lane-major: the Sigma-free branch of
+    the JAX package's ``_rollout_perf_lanes`` (its
+    ``reachability/propagation.multi_step_propagation`` means and GP
+    variances, open loop). The tracking and exploration objectives read
+    only these, so ``taylor`` and ``mean_equivalent`` coincide here.
+
+    Stage t's control is k_ff[t] (``u_flat`` rows t n_u ...) for t < r,
+    shared with the safety block, and the free perf tail of ``u_flat``
+    (rows t_len n_u + (t - r) n_u ...) after. x0 (n_s, B). Returns
+    (p_perf, var_perf), each (n_perf, n_s, B)."""
+    p = x0
+    p_perf, var_perf = [], []
+    for t in range(cfg.n_perf):
+        base = t * n_u if t < r else t_len * n_u + (t - r) * n_u
+        ut = u_flat[base:base + n_u]
+        mu, var = _gp_predict_lanes(ssm, torch.cat([p, ut], 0),
+                                    want_jac=False, impl=impl, post=post)
+        p = a @ p + b @ ut + mu
+        p_perf.append(p)
+        var_perf.append(var)
+    return torch.stack(p_perf), torch.stack(var_perf)
+
+
+def _rollout_y_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
+                     want_sigma=False, post=None, r=0):
+    """Packed tube (+ perf) rollout (ny, B) from x0 (n_s, B): the tube of
+    :func:`_rollout_lanes_array` at any state dimension (the JAX package
+    unrolls n_s <= 2 into scalars for XLA's trace size, which eager
+    PyTorch does not have; on the H100 the array form is the faster one at
+    n_s = 2 as well). With ``cfg.n_perf > 0`` the perf stages
+    (:func:`_rollout_perf_lanes`, ``r`` shared controls) follow the tube's
+    rows. The perf covariance (``want_sigma``) is not ported."""
+    if want_sigma:
         raise NotImplementedError(
-            "the array-form tube (n_s > 2) and performance trajectories are "
-            "not ported yet (ROADMAP Queue 1, item 10)"
-        )
-    return _pack_y(*_rollout_lanes(ssm, u_flat, x0_rows, k_fb, a, b, cfg,
-                                   bmat, impl=impl, post=post))
+            "the performance trajectory's covariance recursion (the "
+            "risk_tracking objective) is not ported yet (ROADMAP Queue 1, "
+            "item 10)")
+    y = _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
+                             impl=impl, post=post)
+    if cfg.n_perf == 0:
+        return y
+    perf = _rollout_perf_lanes(ssm, u_flat, x0, a, b, cfg, r, len(k_fb),
+                               cfg.n_safe, impl=impl, post=post)
+    return torch.cat([y] + [blk.reshape(-1, blk.shape[-1]) for blk in perf])
 
 
-def _pack_y(p_traj, q_traj, var_traj):
-    parts = []
-    for p in p_traj:
-        parts += p
-    for q in q_traj:
-        for row in q:
-            parts += row
-    for v in var_traj:
-        parts += v
-    return torch.stack(parts)                              # (ny, B)
-
-
-def _unpack_y(y, t_len, n_s):
-    idx = 0
-    p_traj, q_traj, var_traj = [], [], []
-    for _ in range(t_len):
-        p_traj.append([y[idx + i] for i in range(n_s)])
-        idx += n_s
-    for _ in range(t_len):
-        q_traj.append([[y[idx + i * n_s + j] for j in range(n_s)]
-                       for i in range(n_s)])
-        idx += n_s * n_s
-    for _ in range(t_len):
-        var_traj.append([y[idx + i] for i in range(n_s)])
-        idx += n_s
-    return p_traj, q_traj, var_traj
+def _unpack_y(y, t_len, n_s, n_perf=0):
+    """The packed y's stages: centers p (t_len, n_s, B), shapes q (t_len,
+    n_s, n_s, B), variances var (t_len, n_s, B); with ``n_perf > 0`` also
+    (p_perf, var_perf), each (n_perf, n_s, B)."""
+    blk_p, blk_q = t_len * n_s, t_len * n_s * n_s
+    p = y[:blk_p].reshape(t_len, n_s, -1)
+    q = y[blk_p:blk_p + blk_q].reshape(t_len, n_s, n_s, -1)
+    idx = blk_p + blk_q
+    var = y[idx:idx + blk_p].reshape(t_len, n_s, -1)
+    if n_perf == 0:
+        return p, q, var
+    idx, blk = idx + blk_p, n_perf * n_s
+    p_perf = y[idx:idx + blk].reshape(n_perf, n_s, -1)
+    var_perf = y[idx + blk:idx + 2 * blk].reshape(n_perf, n_s, -1)
+    return p, q, var, (p_perf, var_perf)
 
 
 def _dist_lanes(y, t_len, n_s, h_mat_obs, h_obs, h_mat_safe, h_safe):
     """Safety margins (lin_ellipsoid_safety_distance) for every stage and
-    the terminal set, stacked (n_con, B); polytopes as tensors or lists."""
-    p_traj, q_traj, _ = _unpack_y(y, t_len, n_s)
+    the terminal set, stacked (n_con, B), as batch-last einsums."""
+    p, q, _ = _unpack_y(y, t_len, n_s)
 
-    def margins(p, q, h_mat, h_vec):
-        h_mat, h_vec = _const_rows(h_mat), _const_rows(h_vec)
-        out = []
-        for i in range(len(h_mat)):
-            sup = sum(
-                h_mat[i][j] * q[j][k] * h_mat[i][k]
-                for j in range(n_s) for k in range(n_s)
-            )
-            sup = torch.sqrt(_relu0(sup))
-            out.append(
-                sum(h_mat[i][j] * p[j] for j in range(n_s)) + sup - h_vec[i]
-            )
-        return out
+    def margins(p_t, q_t, h, hv):
+        sup = torch.sqrt(_relu0(torch.einsum("ij,tjkb,ik->tib", h, q_t, h)))
+        lin = torch.einsum("ij,tjb->tib", h, p_t)
+        return (lin + sup - hv[None, :, None]).reshape(-1, p_t.shape[-1])
 
-    rows = []
-    for t in range(t_len):
-        rows += margins(p_traj[t], q_traj[t], h_mat_obs, h_obs)
-    rows += margins(p_traj[-1], q_traj[-1], h_mat_safe, h_safe)
-    return torch.stack(rows)
+    return torch.cat([margins(p, q, h_mat_obs, h_obs),
+                      margins(p[-1:], q[-1:], h_mat_safe, h_safe)])
 
 
 def _wants_sigma(cost_kind: str, n_perf: int) -> bool:
@@ -383,29 +357,35 @@ def _wants_sigma(cost_kind: str, n_perf: int) -> bool:
     return cost_kind == "risk_tracking" and n_perf > 0
 
 
-def _cost_lanes(cost_kind: str, cost_args: dict, y, u_flat, t_len, n_s, n_u):
-    """Lane forms of the tracking and exploration objectives -> (B,)."""
+def _cost_lanes(cost_kind: str, cost_args: dict, y, u_flat, t_len, n_s, n_u,
+                n_perf=0, r=0):
+    """Lane forms of the tracking and exploration objectives -> (B,), on
+    the tube's stages, or with ``n_perf > 0`` on the performance
+    trajectory's (the perf blocks of ``y``) with the control penalty over
+    u_perf_all = the shared k_ff[:r] plus the free perf controls, the JAX
+    package's ``ctrl_idx``."""
     if cost_kind not in _LANE_COSTS:
         raise NotImplementedError(
             f"lane cost {cost_kind!r} is not ported yet (ROADMAP Queue 1, "
             "item 10); the port carries 'tracking' and 'exploration'"
         )
-    p_cost, _, var_cost = _unpack_y(y, t_len, n_s)
+    if n_perf > 0:
+        *_, (p_cost, var_cost) = _unpack_y(y, t_len, n_s, n_perf)
+        u_cost = torch.cat([u_flat[:r * n_u],
+                            u_flat[t_len * n_u:(t_len + n_perf - r) * n_u]])
+    else:
+        p_cost, _, var_cost = _unpack_y(y, t_len, n_s)
+        u_cost = u_flat[:t_len * n_u]
     if cost_kind == "exploration":
-        scale = cost_args.get("scale", 1.0)
-        return -scale * sum(torch.sqrt(var_cost[t][i])
-                            for t in range(t_len) for i in range(n_s))
-    target = _const_rows(cost_args["target"])
-    w_x = cost_args.get("w_x", 1.0)
-    w_u = cost_args.get("w_u", 0.1)
-    w_t = cost_args.get("w_terminal", 5.0)
-    stage = sum(
-        (p_cost[t][i] - target[i]) ** 2
-        for t in range(t_len - 1) for i in range(n_s)
-    )
-    ctrl = sum(u_flat[m] ** 2 for m in range(t_len * n_u))
-    term = sum((p_cost[-1][i] - target[i]) ** 2 for i in range(n_s))
-    return w_x * stage + w_u * ctrl + w_t * term
+        return -cost_args.get("scale", 1.0) * torch.sqrt(var_cost).sum((0, 1))
+    target = torch.as_tensor(cost_args["target"], dtype=y.dtype,
+                             device=y.device)
+    dx = p_cost - target[None, :, None]                     # (T, n_s, B)
+    return (cost_args.get("w_x", 1.0) * torch.sum(dx[:-1] * dx[:-1],
+                                                  dim=(0, 1))
+            + cost_args.get("w_u", 0.1) * torch.sum(u_cost * u_cost, dim=0)
+            + cost_args.get("w_terminal", 5.0) * torch.sum(dx[-1] * dx[-1],
+                                                           dim=0))
 
 
 # ------------------------------------------------------------------- GN-AL
@@ -473,10 +453,12 @@ def solve_safempc_lanes(
 ):
     """Batched safety-NLP solve, lane-major.
 
-    x0s (B, n_s), u_init (B, n_safe, n_u), lam_init (B, n_con) optional.
-    Returns (k_ff (B, n_safe, n_u), feasible (B,), violation (B,), info) with
-    info = {cost, max_constraint, warm_next, lam, p_traj} — the contract of
-    the JAX lane solver.
+    x0s (B, n_s), u_init (B, t_total, n_u) (t_total = n_safe, plus the
+    free perf controls n_perf - r with a performance trajectory), lam_init
+    (B, n_con) optional. Returns (k_ff (B, n_safe, n_u), feasible (B,),
+    violation (B,), info) with info = {cost, max_constraint, warm_next (the
+    whole decision matrix, (B, t_total, n_u)), lam, p_traj} — the contract
+    of the JAX lane solver.
     """
     if cfg.opt_k_fb or cfg.hessian != "gn" or cfg.linesearch != "exact":
         raise NotImplementedError(
@@ -487,38 +469,36 @@ def solve_safempc_lanes(
     n_u = k_fb.shape[0]
     bsz, n_s = x0s.shape
     dtype, device = x0s.dtype, x0s.device
-    n_var = t_len * n_u
+    # the joint safety + performance decision vector [k_ff | free perf]
+    r = min(cfg.r_shared, t_len, cfg.n_perf) if cfg.n_perf > 0 else 0
+    t_total = t_len + (cfg.n_perf - r if cfg.n_perf > 0 else 0)
+    n_var = t_total * n_u
     n_con = t_len * h_obs.shape[0] + h_safe.shape[0]
 
-    # constants to the host once: the lane algebra multiplies Python floats
     s_lift = torch.cat([torch.eye(n_s, dtype=dtype, device=device), k_fb], 0)
-    consts = dict(k_fb=k_fb.tolist(), a=a.tolist(), b=b.tolist(),
-                  bmat=(s_lift.T @ s_lift).tolist())
-    polys = (h_mat_obs.tolist(), h_obs.tolist(), h_mat_safe.tolist(),
-             h_safe.tolist())
-    if "target" in cost_args:
-        cost_args = {**cost_args, "target": _const_rows(cost_args["target"])}
+    bmat = s_lift.T @ s_lift
+    polys = (h_mat_obs, h_obs, h_mat_safe, h_safe)
 
     x0 = x0s.T
     u0 = torch.movedim(u_init.reshape(bsz, n_var), 0, -1)   # (n_var, B)
-    lo = u_min.repeat(t_len)[:, None]
-    hi = u_max.repeat(t_len)[:, None]
+    lo = u_min.repeat(t_total)[:, None]
+    hi = u_max.repeat(t_total)[:, None]
     lam0 = (torch.zeros((n_con, bsz), dtype=dtype, device=device)
             if lam_init is None else lam_init.T)
-    x0_rows = [x0[i] for i in range(n_s)]
 
-    def rollout_at(u_flat, rows):
-        return _rollout_y_lanes(ssm, u_flat, rows, consts["k_fb"],
-                                consts["a"], consts["b"], cfg, consts["bmat"])
+    def rollout_at(u_flat, x0_wide):
+        return _rollout_y_lanes(ssm, u_flat, x0_wide, k_fb, a, b, cfg, bmat,
+                                r=r)
 
     def rollout_y(u_flat):
-        return rollout_at(u_flat, x0_rows)
+        return rollout_at(u_flat, x0)
 
     def dist(y):
         return _dist_lanes(y, t_len, n_s, *polys)
 
     def cost(y, u_flat):
-        return _cost_lanes(cost_kind, cost_args, y, u_flat, t_len, n_s, n_u)
+        return _cost_lanes(cost_kind, cost_args, y, u_flat, t_len, n_s, n_u,
+                           n_perf=cfg.n_perf, r=r)
 
     def al_of(y, u, lam, mu):
         s = _relu0(lam + mu * dist(y))
@@ -536,14 +516,14 @@ def solve_safempc_lanes(
         n_c-fold copy of every GP buffer, does not arise here)."""
         n_c = cands.shape[0]
         u_wide = torch.movedim(cands, 0, 1).reshape(n_var, n_c * bsz)
-        y_wide = rollout_at(u_wide, [xr.repeat(n_c) for xr in x0_rows])
+        y_wide = rollout_at(u_wide, x0.repeat(1, n_c))
         return eval_wide(u_wide, y_wide, n_c).reshape(n_c, bsz)
 
     def linearize(u):
         """The primal rollout y (ny, B) and its lane Jacobian (n_var, ny, B)."""
         y = rollout_y(u)
         jy = _lane_jacobian(
-            lambda uw, k: rollout_at(uw, [xr.repeat(k) for xr in x0_rows]),
+            lambda uw, k: rollout_at(uw, x0.repeat(1, k)),
             u, y.shape[0])
         return y, jy
 
@@ -646,7 +626,7 @@ def solve_safempc_lanes(
     violation = torch.sum(_relu0(g_fin), dim=0)
     feasible = violation <= cfg.feas_tol
     p_traj = torch.movedim(y_fin[: t_len * n_s], -1, 0).reshape(bsz, t_len, n_s)
-    u_mat = torch.movedim(u_fin, -1, 0).reshape(bsz, t_len, n_u)
+    u_mat = torch.movedim(u_fin, -1, 0).reshape(bsz, t_total, n_u)
     info = {
         "cost": cost(y_fin, u_fin),
         "max_constraint": torch.max(g_fin, dim=0).values,
@@ -654,13 +634,15 @@ def solve_safempc_lanes(
         "lam": lam_fin.T,
         "p_traj": p_traj,
     }
-    return u_mat, feasible, violation, info
+    return u_mat[:, :t_len], feasible, violation, info
 
 
 def lanes_supported(ssm, cfg: SqpConfig, cost_kind: str) -> bool:
     """Whether the port's lane backend covers this configuration: a shared
     :class:`GPSSM` (one model, B initial states) or a :class:`LaneGPSSM`
-    (B per-lane models, the fleet runner's)."""
+    (B per-lane models, the fleet runner's), any state dimension, with or
+    without a performance trajectory (either ``perf_method``: the Sigma-free
+    objectives read the same stages under both)."""
     return (
         isinstance(ssm, (GPSSM, LaneGPSSM))
         and all(kt in _KERNEL_PARTS for kt in ssm.gp.kern_types)
@@ -668,7 +650,7 @@ def lanes_supported(ssm, cfg: SqpConfig, cost_kind: str) -> bool:
         and not cfg.opt_k_fb
         and cfg.hessian == "gn"
         and cfg.linesearch == "exact"
-        and cfg.n_perf == 0
+        and cfg.perf_method in ("taylor", "mean_equivalent")
         and cost_kind in _LANE_COSTS
     )
 
@@ -677,7 +659,7 @@ def make_sqp_lane_solver(env, k_fb, a, b, cost_kind: str, cost_args: dict,
                          cfg: SqpConfig) -> Callable:
     """Batched planner solving all lanes in one lane-major program:
 
-        batch_planner(ssm, x0s (B, n_s), warm (B, n_safe, n_u)[, lam])
+        batch_planner(ssm, x0s (B, n_s), warm (B, t_total, n_u)[, lam])
             -> (k_ff (B, n_safe, n_u), feasible (B,), violation (B,), info)
     """
     spec = env.spec

@@ -60,8 +60,8 @@ from safe_exploration_tpu_torch.runtime.main import (  # noqa: E402
     run_experiment,
 )
 from test_torch_bridge import (  # noqa: E402,F401
+    jax_batch_draws,
     jax_gpssm_to_numpy,
-    jax_init_draws,
     jax_region,
     one_torch_thread,
 )
@@ -353,26 +353,8 @@ def test_lane_sqp_solve_on_per_lane_model_matches_jax(exps, lanes):
 
 
 def _jax_batch_draws(cfg, lanes_, dtype=F64) -> dict:
-    """The JAX CLI's batch-task draws, rebuilt from its key splits
-    (runtime/main.py's batch task, runtime/batch.py's
-    run_batched_learning and run_batched_episodes_lanes)."""
-    k1, _, _, key = jax.random.split(jax.random.PRNGKey(cfg.seed), 4)
-    draws = jax_init_draws(k1, cfg.n_init_samples, dtype)
-    draws["region_x"], draws["region_u"] = jax_region(N_REGION, dtype)
-    reset, step = [], []
-    for _ in range(cfg.n_ep):
-        key, k_reset, k_roll = jax.random.split(key, 3)
-        reset.append(np.stack([
-            np.asarray(jax.random.normal(k, (2,), dtype))
-            for k in jax.random.split(k_reset, lanes_)]))
-        per_lane = [
-            np.stack([np.asarray(jax.random.normal(
-                jax.random.split(k)[1], (2,), dtype))
-                for k in jax.random.split(k_lane, cfg.n_steps)])
-            for k_lane in jax.random.split(k_roll, lanes_)]
-        step.append(np.stack(per_lane, axis=1))         # (n_steps, B, n_s)
-    draws.update(reset=np.stack(reset), step=np.stack(step))
-    return {k: _t(v) for k, v in draws.items()}
+    """The JAX CLI's batch-task draws (``jax_batch_draws``) as tensors."""
+    return {k: _t(v) for k, v in jax_batch_draws(cfg, lanes_, dtype).items()}
 
 
 def _recorder(monkeypatch, mod, name, store):

@@ -1,7 +1,8 @@
 """Helpers the port's CPU tests share (no tests here): a JAX GPSSM's state
 as numpy arrays, the JAX side of the bridge whose PyTorch side is
-``safe_exploration_tpu_torch.models.convert``; the JAX runners' initial-data
-and Lipschitz-region draws rebuilt from their keys; and one torch thread."""
+``safe_exploration_tpu_torch.models.convert``; the JAX runners' initial-data,
+Lipschitz-region and fleet draws rebuilt from their keys; and one torch
+thread."""
 
 import jax
 import jax.numpy as jnp
@@ -25,25 +26,51 @@ def jax_gpssm_to_numpy(ssm) -> dict:
     }
 
 
-def jax_init_draws(key, n, dtype=jnp.float64) -> dict:
+def jax_init_draws(key, n, dtype=jnp.float64, n_s=2, n_u=1) -> dict:
     """``collect_initial_data``'s draws from its key (JAX
     runtime/episode.py): states and controls uniform on [-1, 1), plant
     noise N(0, 1) per point."""
     kx, ku, kn = jax.random.split(key, 3)
     return {
-        "init_x": np.asarray(jax.random.uniform(kx, (n, 2), dtype, -1.0, 1.0)),
-        "init_u": np.asarray(jax.random.uniform(ku, (n, 1), dtype, -1.0, 1.0)),
+        "init_x": np.asarray(jax.random.uniform(kx, (n, n_s), dtype, -1.0,
+                                                1.0)),
+        "init_u": np.asarray(jax.random.uniform(ku, (n, n_u), dtype, -1.0,
+                                                1.0)),
         "init_noise": np.asarray(jax.vmap(
-            lambda k: jax.random.normal(k, (2,), dtype))(
+            lambda k: jax.random.normal(k, (n_s,), dtype))(
                 jax.random.split(kn, n))),
     }
 
 
-def jax_region(n, dtype=jnp.float64):
+def jax_region(n, dtype=jnp.float64, n_s=2, n_u=1):
     """``calibrate_lipschitz``'s region draws from its PRNGKey(0)."""
     kx, ku = jax.random.split(jax.random.PRNGKey(0))
-    return (np.array(jax.random.uniform(kx, (n, 2), dtype)),
-            np.array(jax.random.uniform(ku, (n, 1), dtype)))
+    return (np.array(jax.random.uniform(kx, (n, n_s), dtype)),
+            np.array(jax.random.uniform(ku, (n, n_u), dtype)))
+
+
+def jax_batch_draws(cfg, lanes, dtype=jnp.float64, n_s=2, n_u=1) -> dict:
+    """The JAX CLI's batch-task draws as numpy arrays, rebuilt from its key
+    splits (runtime/main.py's batch task, runtime/batch.py's
+    run_batched_learning and run_batched_episodes_lanes)."""
+    k1, _, _, key = jax.random.split(jax.random.PRNGKey(cfg.seed), 4)
+    draws = jax_init_draws(k1, cfg.n_init_samples, dtype, n_s, n_u)
+    draws["region_x"], draws["region_u"] = jax_region(128 * (n_s + n_u),
+                                                      dtype, n_s, n_u)
+    reset, step = [], []
+    for _ in range(cfg.n_ep):
+        key, k_reset, k_roll = jax.random.split(key, 3)
+        reset.append(np.stack([
+            np.asarray(jax.random.normal(k, (n_s,), dtype))
+            for k in jax.random.split(k_reset, lanes)]))
+        per_lane = [
+            np.stack([np.asarray(jax.random.normal(
+                jax.random.split(k)[1], (n_s,), dtype))
+                for k in jax.random.split(k_lane, cfg.n_steps)])
+            for k_lane in jax.random.split(k_roll, lanes)]
+        step.append(np.stack(per_lane, axis=1))         # (n_steps, B, n_s)
+    draws.update(reset=np.stack(reset), step=np.stack(step))
+    return draws
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -478,6 +478,122 @@ def test_run_b_first_episode_matches_jax_with_its_draws(monkeypatch, dtype):
         assert out[k] == ref[k], k
 
 
+class _Built(Exception):
+    """Stops the JAX runner once its model is built."""
+
+
+@pytest.mark.slow
+def test_run_b_step0_cem_sample_flags_match_jax_f32(monkeypatch):
+    """Run (b)'s first divergence in f32 without the episode: JAX's model
+    (the build of ``pendulum_episode --set n_max=2048 n_init_samples=1024
+    hyp_iters=60``, taken from the JAX runner as it hands it to the
+    episode), JAX's x0 and step-0 draws, the JAX side with x64 off as its
+    CLI runs. The portable CEM's first-iteration samples are scored by both
+    packages' tube + violation (JAX's jitted and vmapped over the samples,
+    as its CEM runs them), and their feasibility flags must agree. Outside
+    tier-1 (``-m slow``: the build is minutes).
+
+    Fails today, ROADMAP Queue 3: a handful of the 128 flags differ. The
+    first quantity that differs is the stage-0 posterior variance, by
+    less than the f32 rounding of its own terms: the test prints both
+    values and eps * |kv|^T |K^-1| |kv|, the rounding scale of
+    sf2 - kv^T K^-1 kv, which is ~10x the variance at n = 1,024."""
+    from safe_exploration_tpu.envs import env_reset as jax_reset
+    from safe_exploration_tpu.reachability.onestep import (
+        multistep_reachability as jax_msr,
+    )
+    from safe_exploration_tpu.runtime import episode as jep
+    from safe_exploration_tpu.solvers.cem import (
+        tube_violation as jax_tube_violation,
+    )
+    from safe_exploration_tpu_torch.reachability.onestep import (
+        multistep_reachability,
+    )
+    from safe_exploration_tpu_torch.solvers.cem import tube_violation
+
+    models = {}
+    bucketed = jssm_mod.ssm_bucketed
+
+    def built(ssm):
+        models["jax"] = bucketed(ssm)
+        raise _Built
+
+    monkeypatch.setattr(jssm_mod, "ssm_bucketed", built)
+    cfg = _apply_overrides(CONFIGS["pendulum_episode"], RUN_B_SET)
+    texp = build_experiment(cfg, dtype=torch.float32, device="cpu")
+    t_len, m = cfg.n_safe, cfg.cem_samples
+    with jax.enable_x64(False):           # the JAX CLI's f32 programs
+        jexp = jax_build(dataclasses.replace(
+            JAX_CONFIGS["pendulum_episode"], **dataclasses.asdict(cfg)),
+            dtype=jnp.float32)
+        with pytest.raises(_Built):
+            jep.run_episodic(
+                jexp["env"], jexp["init_state"], jexp["get_action"],
+                jexp["a"], jexp["b"], jexp["k_fb"],
+                key=jax.random.PRNGKey(cfg.seed), l_mu=jexp["l_mu"],
+                l_sigma=jexp["l_sigma"], make_ssm=jexp["make_ssm"],
+                n_max=cfg.n_max, n_ep=1, n_steps=cfg.n_steps,
+                n_init_samples=cfg.n_init_samples, hyp_iters=cfg.hyp_iters,
+                opt_hyp_every=0, kern_types=KT)
+        jm = models["jax"]
+        # run_episodic's and rollout_episode's key splits to step 0's plan
+        _, _, key = jax.random.split(jax.random.PRNGKey(cfg.seed), 3)
+        k_reset, k_roll, _ = jax.random.split(key, 3)
+        x0 = jax_reset(jexp["env"], k_reset)
+        k_plan, _ = jax.random.split(jax.random.split(k_roll,
+                                                      cfg.n_steps)[0])
+        eps0 = np.asarray(jax.random.normal(jax.random.split(
+            k_plan, cfg.cem_iterations)[0], (m, t_len, 1), jnp.float32))
+        spec = jexp["env"].spec
+        u_min, u_max = np.asarray(spec.u_min), np.asarray(spec.u_max)
+        std0 = 0.4 * (u_max - u_min) * 0.5   # CemConfig.init_std, mean 0
+        samples = np.clip(std0 * eps0, u_min, u_max).astype(np.float32)
+        samples[0] = 0.0
+
+        def jax_scores(seqs):
+            def one(seq):
+                p, q, var = jax_msr(
+                    jm, x0, seq, jnp.tile(jexp["k_fb"][None], (t_len, 1, 1)),
+                    jexp["a"], jexp["b"], cfg.c_safety)
+                return p, q, var, jax_tube_violation(
+                    p, q, spec.h_mat_obs, spec.h_obs, spec.h_mat_safe,
+                    spec.h_safe)
+            return jax.vmap(one)(seqs)
+
+        jp, jq, jvar, jviol = (np.asarray(v) for v in jax.jit(jax_scores)(
+            jnp.asarray(samples)))
+        tm = gpssm_from_numpy(jax_gpssm_to_numpy(jm), KT, device="cpu",
+                              dtype=torch.float32)
+        x0 = np.asarray(x0)
+    ts = texp["env"].spec
+    tx0 = torch.tensor(x0).expand(m, 2)
+    tp, tq, tvar = multistep_reachability(
+        tm, tx0, torch.tensor(samples), texp["k_fb"].expand(t_len, 1, 2),
+        texp["a"], texp["b"], cfg.c_safety)
+    tviol = tube_violation(tp, tq, ts.h_mat_obs, ts.h_obs, ts.h_mat_safe,
+                           ts.h_safe).numpy()
+    diff = np.flatnonzero((jviol <= 1e-4) != (tviol <= 1e-4))
+    if diff.size:
+        i = int(diff[0])
+        print(f"sample {i}, stage 0: center JAX {jp[i, 0].tolist()}, port "
+              f"{tp[i, 0].tolist()}; Q JAX {jq[i, 0].ravel().tolist()}, port "
+              f"{tq[i, 0].ravel().tolist()}")
+        gp, z = tm.gp, torch.cat([tx0[i], torch.tensor(samples[i, 0])])
+        z = (z / tm.z_scale).double()
+        for d in range(2):
+            kv = (tgp.gram("rbf", {k: v.double() for k, v in
+                                   gp.params[d].items()}, z[None],
+                           gp.x.double())[0] * gp.mask.double()).abs()
+            scale = torch.finfo(torch.float32).eps * float(
+                kv @ (gp.kinv[d].double().abs() @ kv))
+            print(f"sample {i}, stage 0, dim {d}: posterior variance JAX "
+                  f"{jvar[i, 0, d]:.6e}, port {tvar[i, 0, d].item():.6e}; "
+                  f"f32 rounding scale of sf2 - kv^T K^-1 kv {scale:.3e}")
+    print(f"violation JAX {jviol[diff].tolist()}, port "
+          f"{tviol[diff].tolist()} at samples {diff.tolist()}")
+    assert diff.size == 0, f"flags differ at samples {diff.tolist()}"
+
+
 def test_main_on_cpu_prints_the_summary(capsys):
     rc = main(["--config", "pendulum_episode", "--device", "cpu", "--set",
                "n_ep=1", "n_steps=2", "n_max=32", "n_init_samples=10",

@@ -143,10 +143,9 @@ def test_rollout_lanes_tube_matches_jax(fitted):
     jout = jl._rollout_lanes(
         jssm, jnp.asarray(u), [jnp.asarray(r) for r in x0s.T],
         jexp["k_fb"], jexp["a"], jexp["b"], cfg_j, jnp.asarray(bmat))
-    tout = tl._rollout_lanes(
-        tssm, _t(u), [_t(r) for r in x0s.T], texp["k_fb"], texp["a"],
-        texp["b"], cfg_t, _t(bmat))
-    jy, ty = jl._pack_y(*jout), tl._pack_y(*tout)
+    ty = tl._rollout_y_lanes(tssm, _t(u), _t(x0s.T), texp["k_fb"],
+                             texp["a"], texp["b"], cfg_t, _t(bmat))
+    jy = jl._pack_y(*jout)
     assert ty.shape == jy.shape == (5 * (2 + 4 + 2), 8)
     for block, rows in (("p", slice(0, 10)), ("q", slice(10, 30)),
                         ("var", slice(30, 40))):
@@ -166,8 +165,8 @@ def test_max_eig_lanes_matches_jax(n):
     a = rng.standard_normal((6, n, n))
     m = np.einsum("bij,bkj->ikb", a, a)          # PSD lane matrices
     jm = [[jnp.asarray(m[i, j]) for j in range(n)] for i in range(n)]
-    tm = [[_t(m[i, j]) for j in range(n)] for i in range(n)]
-    assert _rel(tl._max_eig_lanes(tm).numpy(), jl._max_eig_lanes(jm)) < 1e-9
+    assert _rel(tl._max_eig_lanes_array(_t(m)).numpy(),
+                jl._max_eig_lanes(jm)) < 1e-9
 
 
 def test_solve_spd_unrolled_matches_jax():
@@ -225,19 +224,36 @@ def test_solve_safempc_lanes_matches_jax_lane_solve(fitted, objective):
 
 
 def test_lanes_supported_covers_the_ported_slice(fitted):
+    """The lane SQP covers performance trajectories (either perf method)
+    and the cart-pole builds; the risk objective, its perf covariance
+    recursion (want_sigma), the quadrotor, sparse models and the portable
+    NLP raise naming their ROADMAP items."""
     _, tssm = fitted
     assert tl.lanes_supported(tssm, SqpConfig(), "tracking")
     assert tl.lanes_supported(tssm, SqpConfig(), "exploration")
     assert not tl.lanes_supported(tssm, SqpConfig(), "risk_tracking")
-    assert not tl.lanes_supported(tssm, SqpConfig(n_perf=3), "tracking")
+    for method in ("taylor", "mean_equivalent"):
+        assert tl.lanes_supported(
+            tssm, SqpConfig(n_perf=3, perf_method=method), "tracking")
     assert not tl.lanes_supported(tssm, SqpConfig(opt_k_fb=True), "tracking")
-    for kw in (dict(objective="risk_tracking"), dict(env="cartpole"),
-               dict(ssm="sparse_gp"), dict(n_perf=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(env="cartpole", kern_types=("rbf",)), dict(n_perf=3),
+               dict(env="cartpole", kern_types=("rbf",), n_perf=3,
+                    r_shared=2)):
+        for solver in ("cem", "sqp"):
+            exp = build_experiment(ExperimentConfig(solver=solver, **kw),
+                                   device="cpu")
+            assert exp["kern_types"] == ("rbf",) * exp["env"].spec.n_s
+    for kw, item in ((dict(objective="risk_tracking"), "item 10"),
+                     (dict(env="quadrotor", kern_types=("rbf",)), "item 10"),
+                     (dict(ssm="sparse_gp"), "items 11")):
+        with pytest.raises(NotImplementedError, match=item):
             build_experiment(ExperimentConfig(solver="cem", **kw),
                              device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tl._rollout_y_lanes(tssm, None, None, None, None, None,
+                            SqpConfig(n_perf=3), None, want_sigma=True)
     exp = build_experiment(ExperimentConfig(solver="sqp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         exp["planner"](None, tssm, None, None)
 
 
@@ -306,12 +322,10 @@ def test_lane_scorer_margins_match_cfg1_golden(cfg1, impl):
     s_lift = np.concatenate([np.eye(2), k_fb], 0)
     bmat = s_lift.T @ s_lift
     u = _t(g["k_ff_eval"].reshape(5, 1))
-    rows = [_t(x0[i:i + 1]) for i in range(2)]
-    y = tl._rollout_y_lanes(tssm, u, rows, k_fb.tolist(), a.tolist(),
-                            b.tolist(), _TubeCfg(5, 2.5, 0), bmat.tolist(),
-                            impl=impl)
-    polys = [np.asarray(v) for v in (spec.h_mat_obs, spec.h_obs,
-                                     spec.h_mat_safe, spec.h_safe)]
+    y = tl._rollout_y_lanes(tssm, u, _t(x0[:, None]), _t(k_fb), _t(a),
+                            _t(b), _TubeCfg(5, 2.5, 0), _t(bmat), impl=impl)
+    polys = [_t(v) for v in (spec.h_mat_obs, spec.h_obs, spec.h_mat_safe,
+                             spec.h_safe)]
     d = tl._dist_lanes(y, 5, 2, *polys)[:, 0].numpy()
     ref = np.concatenate([g["d_stage"].reshape(-1), g["d_term"]])
     assert np.max(np.abs(d - ref)) < 1e-4

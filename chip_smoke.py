@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``safe_exploration_tpu_torch/csrc``,
-holds each against its plain PyTorch version, drives the port's four paths
+holds each against its plain PyTorch version, drives the port's paths
 (the batched lane SQP safe-MPC on the pendulum at H=5, B=512, with GP refits
 through the kernels; the batched lane CEM at H=5, B=256, M=64, scoring
 through the cem_score and gp_predict kernels; the episodic closed loop of
@@ -11,10 +11,13 @@ refits take cholesky_hbm; the lane fleet of ``runtime.main --config
 pendulum_batch_sqp``, 256 per-lane models refitted by model-batched
 kernels; BASELINE config 2, the cart-pole, through ``--config
 cartpole_batch_sqp`` (128 lanes, 4-D states, the array-form tube and a
-performance trajectory) and ``--config cartpole_episode``) and checks the
-GPU against the CPU in f64.
+performance trajectory) and ``--config cartpole_episode``; the
+single-instance safe-MPC NLP behind ``--config pendulum_episode_sqp`` and
+``--config cartpole_episode_sqp``) and checks the GPU against the CPU in
+f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
+    python3 chip_smoke.py --phases nlp,episode-sqp   # a partial run
 
 Phases (any failure exits non-zero, without the final ``ok`` line):
   1. device   card name and power limit (nvidia-smi), CUDA and torch versions
@@ -74,10 +77,11 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
   9. batch-parity  f64, 8 lanes, 3 steps, 2 episodes: GPU against CPU on one
               set of draws
      cartpole-batch  the same for cartpole_batch_sqp as registered (128
-              lanes, n_max 128, 40 initial points, 16 steps, n_safe 6,
-              n_perf 10, r_shared 2, the SQP at 4 x 3), 2 of its 4 episodes,
-              f32: the same series, times, step split, busy share and gates
-     cartpole-batch-parity  f64, 2 lanes, 2 steps, 2 episodes of
+              lanes, n_max 128, 40 initial points, n_safe 6, n_perf 10,
+              r_shared 2, the SQP at 4 x 3), 2 of its 4 episodes and 5 of
+              its 16 steps an episode, f32: the same series, times, step
+              split, busy share and gates
+     cartpole-batch-parity  f64, 2 lanes, 1 step, 2 episodes of
               cartpole_batch_sqp: GPU against CPU on one set of draws
  10. hbm      cholesky_hbm against its plain version at n = 1300, 2048 and
               4096 (e=2, f32 within 3e-4 of the f64 factor, f64 at 1e-9), NaN
@@ -100,6 +104,21 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               samples, n_safe 10, n_perf 10, n_max 512), 1 of its 6
               episodes, f32: series, seconds per step, the refit split and
               launches
+ 14. nlp      one single-instance NLP solve (solvers/sqp.py, the planner of
+              pendulum_episode_sqp: Gauss-Newton AL at 12 x 6 + 3 polish,
+              H = 5) on that run's first model, on the CPU in f64 and on the
+              card in f64 and f32: k_ff, lam and g of the card's f64 solve
+              within 1e-9 of the CPU's, feasible flags equal, no host read
+              inside a card solve (sync debug mode "error"); ms per solve,
+              CUDA kernels per solve and per Gauss-Newton step
+ 15. episode-sqp  the episodic CLI's run_experiment for
+              pendulum_episode_sqp (1 of its 6 episodes, NLP_PEND_STEPS of
+              its 50 steps) and cartpole_episode_sqp (n_safe 10 + n_perf
+              10, r_shared 2; 1 of its 6 episodes, NLP_CART_STEPS of its 50
+              steps), f32: the gates and prints of the episode phase
+ 16. episode-sqp-parity  f64, pendulum_episode_sqp for one episode of 3
+              steps (3 hyperparameter steps): GPU against CPU on one set of
+              draws
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -1404,9 +1423,13 @@ def phase_episode(seed: int, runs: tuple = RUNS_PENDULUM,
                       if cfg.n_max > MAX_N
                       else ("cholesky_blocked", "cholesky_hbm"))
         step_s = [t / cfg.n_steps for t in series["episode_time_s"]]
+        knobs = (("sqp_outer", "sqp_inner", "sqp_polish", "n_safe", "n_perf",
+                  "r_shared") if cfg.solver == "sqp" else
+                 ("cem_samples", "cem_elites", "cem_iterations"))
         r = {"config": {k: getattr(cfg, k) for k in (
-                 "n_max", "n_init_samples", "hyp_iters", "n_ep", "n_steps",
-                 "cem_samples", "cem_elites", "cem_iterations")},
+                 "n_max", "n_init_samples", "hyp_iters", "n_ep", "n_steps")
+                 + knobs},
+             "config_name": cfg.name,
              "series": series, "wall_s": wall, "launches": launches,
              "refits": n_refits, "fit_s": spans["fit"],
              "calibrate_s": spans["calibrate"], "update_s": spans["update"],
@@ -1448,21 +1471,26 @@ def phase_episode(seed: int, runs: tuple = RUNS_PENDULUM,
     return out
 
 
-def phase_episode_parity(seed: int) -> dict:
-    """f64, one episode of 3 steps at n_max 2048 with 1,100 initial points
-    and 3 hyperparameter steps, on the GPU (kernels) and on the CPU (plain
-    versions) with one set of draws from a CPU generator: the series equal
-    (counts exactly, floats at 1e-9 relative) and the final factors within
-    1e-9."""
+PARITY_SETS = ["n_max=2048", "n_init_samples=1100", "hyp_iters=3", "n_ep=1",
+               "n_steps=3", "cem_samples=32", "cem_elites=8",
+               "cem_iterations=2"]
+
+
+def phase_episode_parity(seed: int, config: str = "pendulum_episode",
+                         sets: tuple = tuple(PARITY_SETS),
+                         label: str = "episode-parity") -> dict:
+    """f64, one episode of ``config`` (pendulum_episode: 3 steps at n_max
+    2048 with 1,100 initial points, 3 hyperparameter steps and a small
+    CEM), on the GPU (kernels) and on the CPU (plain versions) with one set
+    of draws from a CPU generator: the series equal (counts exactly, floats
+    at 1e-9 relative) and the final factors within 1e-9."""
     from safe_exploration_tpu_torch.runtime.config import build_experiment
     from safe_exploration_tpu_torch.runtime.episode import (
         episode_draws,
         run_episodic,
     )
 
-    cfg = _episode_cfg("pendulum_episode", [
-        "n_max=2048", "n_init_samples=1100", "hyp_iters=3", "n_ep=1",
-        "n_steps=3", "cem_samples=32", "cem_elites=8", "cem_iterations=2"])
+    cfg = _episode_cfg(config, list(sets))
     out = {}
     for dev in ("cuda", "cpu"):
         exp = build_experiment(cfg, dtype=torch.float64, device=dev)
@@ -1493,16 +1521,172 @@ def phase_episode_parity(seed: int) -> dict:
     res = {"counts_equal": counts_equal, "series_rel": floats,
            "factors_rel": factors, "series_cpu": cs, "gpu_s": g["s"],
            "cpu_s": c["s"]}
-    print(f"[episode-parity] f64 n_max 2048, 1,100 points, 3 steps: series "
+    print(f"[{label}] f64 {cfg.name}, n_max {cfg.n_max}, "
+          f"{cfg.n_init_samples} points, {cfg.n_steps} steps: series "
           f"counts equal {counts_equal} (feasibility {cs['feasibility_rate']}"
           f", n_data {cs['n_data']}), float series rel {floats} (tol 1e-9), "
           f"final factors rel {factors} (tol 1e-9); GPU {g['s']:.1f} s, CPU "
           f"{c['s']:.1f} s", flush=True)
     if not counts_equal or max(floats.values()) > 1e-9:
-        _fail(f"episode series differ GPU vs CPU: {gs} vs {cs}")
+        _fail(f"[{label}] episode series differ GPU vs CPU: {gs} vs {cs}")
     if max(factors.values()) > 1e-9:
-        _fail(f"final GP factors differ GPU vs CPU: {factors}")
+        _fail(f"[{label}] final GP factors differ GPU vs CPU: {factors}")
     return res
+
+
+# the single-instance NLP (solvers/sqp.py) behind the two SQP episode
+# configurations, each cut to 1 of its 6 episodes and a few of its 50
+# steps to keep the script's time (the eager solve takes 5-9 s a step on
+# the pendulum, 20-36 s on the cart-pole)
+NLP_X0 = (0.25, 0.65)
+NLP_PEND_STEPS = 10
+NLP_CART_STEPS = 3
+RUNS_SQP = (("pendulum", "pendulum_episode_sqp",
+             ["n_ep=1", f"n_steps={NLP_PEND_STEPS}"]),
+            ("cartpole", "cartpole_episode_sqp",
+             ["n_ep=1", f"n_steps={NLP_CART_STEPS}"]))
+SQP_PARITY_SETS = ("n_ep=1", "n_steps=3", "hyp_iters=3")
+
+
+def _rel0(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, 0 where both are all zero."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def _nlp_instance(seed: int):
+    """pendulum_episode_sqp's first model, made on the card in f64 as its
+    run makes it (40 initial points from a CPU generator seeded ``seed``,
+    120 hyperparameter steps, the Lipschitz calibration), bucketed as the
+    planner sees it; returned as numpy arrays with the configuration."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_to_numpy
+    from safe_exploration_tpu_torch.models.ssm import (
+        calibrate_lipschitz,
+        ssm_bucketed,
+        ssm_fit,
+    )
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.runtime.episode import (
+        collect_initial_data,
+    )
+
+    cfg = _episode_cfg("pendulum_episode_sqp", [f"seed={seed}"])
+    exp = build_experiment(cfg, dtype=torch.float64, device="cuda")
+    gen = torch.Generator().manual_seed(seed)
+    xs, us, resid = collect_initial_data(
+        exp["env"], cfg.n_init_samples, exp["a"], exp["b"], exp["k_fb"],
+        generator=gen)
+    ssm = ssm_fit(exp["make_ssm"](xs, us, resid), iters=cfg.hyp_iters)
+    ssm = calibrate_lipschitz(ssm, exp["env"].spec, gen)
+    return cfg, gpssm_to_numpy(ssm_bucketed(ssm))
+
+
+def _solve_launches(fn) -> tuple[int, float]:
+    """CUDA kernels launched by one call of ``fn`` and their device ms,
+    read from torch.profiler's raw trace (device activity only)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, ms = 0, 0.0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            n += 1
+            ms += e.duration_ns() / 1e6
+    return n, ms
+
+
+def phase_nlp(seed: int) -> dict:
+    """One single-instance NLP solve (``build_experiment``'s SQP planner,
+    ``make_sqp_planner`` over ``solve_safempc_nlp``: the Gauss-Newton AL
+    core at pendulum_episode_sqp's full budget, 12 x 6 with 3 polish steps,
+    H = 5) from NLP_X0 on pendulum_episode_sqp's first model: on the CPU
+    in f64 (plain PyTorch), on the card in f64 and in f32. Gates: the
+    card's f64 k_ff, lam and g within 1e-9 of the CPU's, feasible flags
+    equal in both dtypes, and no host read inside a solve (each card solve
+    runs under ``torch.cuda.set_sync_debug_mode("error")``, which raises on
+    any synchronizing call). Reports ms per solve (host, synchronized; the
+    first call, which the kernels' build and the fit have warmed), the CUDA
+    kernels a second, profiled solve launches and their count per
+    Gauss-Newton step, and the device's busy share."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, sqp_n_duals
+
+    cfg, arrays = _nlp_instance(seed)
+    tube = SqpConfig(n_safe=cfg.n_safe, c_safety=cfg.c_safety)
+    n_steps = cfg.sqp_outer * cfg.sqp_inner + cfg.sqp_polish
+    out = {}
+    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float64),
+                       ("cuda", torch.float32)):
+        exp = build_experiment(cfg, dtype=dtype, device=dev)
+        n_u = exp["env"].spec.n_u
+        ssm = gpssm_from_numpy(arrays, exp["kern_types"], device=dev,
+                               dtype=dtype)
+        x0 = torch.tensor(NLP_X0, dtype=dtype, device=dev)
+        warm = torch.zeros((cfg.n_safe, n_u), dtype=dtype, device=dev)
+        lam = torch.zeros((sqp_n_duals(exp["env"], tube),), dtype=dtype,
+                          device=dev)
+
+        def solve():
+            return exp["planner"](None, ssm, x0, warm, lam)
+
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            k_ff, feasible, violation, info = solve()
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+        r = {"k_ff": k_ff.double().cpu(), "lam": info["lam"].double().cpu(),
+             "feasible": bool(feasible), "violation": float(violation),
+             "cost": float(info["cost"]),
+             "ms": (time.perf_counter() - t0) * 1e3}
+        r["g"] = _margins(exp, tube, ssm, x0, k_ff).double().cpu()
+        if dev == "cuda":
+            r["launches"], r["device_ms"] = _solve_launches(solve)
+            r["launches_per_gn_step"] = r["launches"] / n_steps
+            r["busy"] = r["device_ms"] / r["ms"]
+        out[f"{dev}_{str(dtype)[6:]}"] = r
+    ref = out["cpu_float64"]
+    for key in ("cuda_float64", "cuda_float32"):
+        r = out[key]
+        r["rel"] = {k: _rel0(r[k], ref[k]) for k in ("k_ff", "lam", "g")}
+        print(f"[nlp] {key}: {r['ms']:.1f} ms a solve (the first call),"
+              f" {r['launches']} CUDA kernels ({r['launches_per_gn_step']:.1f}"
+              f" per GN step of {n_steps}), device {r['device_ms']:.2f} ms "
+              f"(busy {r['busy']:.3f}); feasible {r['feasible']} (CPU "
+              f"{ref['feasible']}), violation {r['violation']:.3e}, cost "
+              f"{r['cost']:.6g}; vs CPU f64 rel {r['rel']}", flush=True)
+        if r["feasible"] != ref["feasible"]:
+            _fail(f"[nlp] {key} feasible {r['feasible']}, CPU f64 "
+                  f"{ref['feasible']}")
+    print(f"[nlp] cpu_float64: {ref['ms']:.1f} ms a solve, feasible "
+          f"{ref['feasible']}, violation {ref['violation']:.3e}, cost "
+          f"{ref['cost']:.6g}, max lam {float(ref['lam'].max()):.4g}, "
+          f"max g {float(ref['g'].max()):.4g}; budget {cfg.sqp_outer} x "
+          f"{cfg.sqp_inner} + {cfg.sqp_polish} polish", flush=True)
+    worst = max(out["cuda_float64"]["rel"].values())
+    if not worst <= 1e-9:
+        _fail(f"[nlp] f64 card vs CPU: {out['cuda_float64']['rel']} > 1e-9")
+    return {k: {kk: (vv.tolist() if isinstance(vv, torch.Tensor) else vv)
+                for kk, vv in v.items()} for k, v in out.items()}
+
+
+def _margins(exp, tube, ssm, x0, k_ff):
+    """The NLP's constraint margins g (stage and terminal) at the plan
+    ``k_ff``, from the solver's own closures."""
+    from safe_exploration_tpu_torch.solvers.sqp import _build_constraint_fn
+
+    spec, k_fb = exp["env"].spec, exp["k_fb"]
+    _, constraints, _, _, _ = _build_constraint_fn(
+        ssm, x0, k_fb.expand(tube.n_safe, *k_fb.shape), exp["a"], exp["b"],
+        tube, spec.h_mat_obs, spec.h_obs, spec.h_mat_safe, spec.h_safe,
+        exp["cost_fn"])
+    return constraints(k_ff.reshape(-1))
 
 
 L_BATCH = 256   # lanes of pendulum_batch_sqp: its refit is L * E Grams
@@ -1746,8 +1930,10 @@ def _self_distance_and_lmu(ssm) -> dict:
 
 
 # the cart-pole fleet runs 2 of cartpole_batch_sqp's 4 episodes (the second
-# on per-lane hyperparameters), its only cut
-RUN_CART_BATCH = ["n_ep=2"]
+# on per-lane hyperparameters) and 5 of its 16 steps an episode (since the
+# single-instance NLP's phases came)
+RUN_CART_BATCH = ["n_ep=2", "n_steps=5"]
+CART_PARITY = (2, 1)   # [cartpole-batch-parity]: lanes, steps an episode
 
 
 def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
@@ -1755,8 +1941,8 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
     """run_experiment on a fleet configuration at full width on the card,
     f32, printed under ``[label]``: pendulum_batch_sqp (256 lanes, n_max
     128, 24 initial points, 20 steps per episode, n_safe 3) or
-    cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 16 steps,
-    n_safe 6, n_perf 10, r_shared 2), both with the lane SQP at 4 outer x
+    cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 5 of its
+    16 steps, n_safe 6, n_perf 10, r_shared 2), both with the lane SQP at 4 outer x
     3 inner and a per-lane fit and calibration after every episode (120
     steps), 2 of their 4 episodes. Counts are zeroed just before the run
     and read just after; the fits, calibrations and unstack refits are
@@ -1969,7 +2155,7 @@ def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
                        label: str = "batch-parity") -> dict:
     """f64, ``lanes`` lanes, ``steps`` steps, 2 episodes of a fleet
     configuration (pendulum_batch_sqp at 8 lanes and 3 steps,
-    cartpole_batch_sqp at 2 and 2) on the GPU
+    cartpole_batch_sqp at 2 and 1) on the GPU
     (kernels) and on the CPU (plain versions) with one set of draws from a
     CPU generator: counts and feasible flags equal; the model that enters
     the fleet (the build and first fit: no solve has run yet) within 1e-9;
@@ -2080,11 +2266,50 @@ KERNELS = (
 )
 
 
+def _partial_run(args, timed, t_start) -> int:
+    """Run the phases named in ``--phases`` (after device and build) and
+    write their record; a partial run prints no kernels or ok line."""
+    table = {
+        "kernels": (phase_kernels,), "batch-kernels": (phase_batch_kernels,),
+        "cem-kernels": (phase_cem_kernels,), "path": (phase_path,),
+        "parity": (phase_parity,), "cem": (phase_cem_path,),
+        "cem-parity": (phase_cem_parity,), "batch": (phase_batch,),
+        "batch-parity": (phase_batch_parity,),
+        "cartpole-batch": (phase_batch, "cartpole_batch_sqp",
+                           tuple(RUN_CART_BATCH), "cartpole-batch"),
+        "cartpole-batch-parity": (phase_batch_parity, "cartpole_batch_sqp",
+                                  *CART_PARITY, "cartpole-batch-parity"),
+        "hbm": (phase_hbm_kernels,), "episode": (phase_episode,),
+        "episode-parity": (phase_episode_parity,),
+        "cartpole-episode": (phase_episode, RUNS_CARTPOLE,
+                             "cartpole-episode"),
+        "nlp": (phase_nlp,),
+        "episode-sqp": (phase_episode, RUNS_SQP, "episode-sqp"),
+        "episode-sqp-parity": (phase_episode_parity, "pendulum_episode_sqp",
+                               SQP_PARITY_SETS, "episode-sqp-parity"),
+    }
+    record = {}
+    for label in args.phases.split(","):
+        fn, *rest = table[label]
+        record[label] = timed(label, fn, args.seed, *rest)
+    record["failures"] = FAILURES
+    record["seconds"] = time.perf_counter() - t_start
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    print(f"[done] partial run of {args.phases}: {record['seconds']:.1f} s; "
+          f"{len(FAILURES)} failure(s); record in {args.out}", flush=True)
+    return 1 if FAILURES else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke.json"),
                     help="where the full JSON record is written")
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run after device and "
+                    "build, for a partial run (no kernels or ok line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke test "
@@ -2109,6 +2334,8 @@ def main() -> int:
 
     smi = timed("device", phase_device)
     timed("build", phase_build)
+    if args.phases:
+        return _partial_run(args, timed, t_start)
     kern = timed("kernels", phase_kernels, args.seed)
     batch_kern = timed("batch-kernels", phase_batch_kernels, args.seed)
     cem_kern = timed("cem-kernels", phase_cem_kernels, args.seed)
@@ -2122,13 +2349,19 @@ def main() -> int:
                        "cartpole_batch_sqp", tuple(RUN_CART_BATCH),
                        "cartpole-batch")
     cart_parity = timed("cartpole-batch-parity", phase_batch_parity,
-                        args.seed, "cartpole_batch_sqp", 2, 2,
+                        args.seed, "cartpole_batch_sqp", *CART_PARITY,
                         "cartpole-batch-parity")
     hbm = timed("hbm", phase_hbm_kernels, args.seed)
     episode = timed("episode", phase_episode, args.seed)
     episode_parity = timed("episode-parity", phase_episode_parity, args.seed)
     cart_episode = timed("cartpole-episode", phase_episode, args.seed,
                          RUNS_CARTPOLE, "cartpole-episode")["cartpole"]
+    nlp = timed("nlp", phase_nlp, args.seed)
+    episode_sqp = timed("episode-sqp", phase_episode, args.seed, RUNS_SQP,
+                        "episode-sqp")
+    sqp_parity = timed("episode-sqp-parity", phase_episode_parity, args.seed,
+                       "pendulum_episode_sqp", SQP_PARITY_SETS,
+                       "episode-sqp-parity")
 
     # each kernel's launches are those of the path that runs it: the refit
     # kernels' from the fleet (pendulum_batch_sqp, PR 8's main path), the
@@ -2178,6 +2411,10 @@ def main() -> int:
                 cart_episode["launches"].get(w, 0) for w in wrappers)
             entry["cartpole_episode_max_abs_err"] = batch_kern[
                 "errs_cartpole_episode"][short]
+            entry["episode_sqp_launches"] = {
+                episode_sqp[tag]["config_name"]: sum(
+                    episode_sqp[tag]["launches"].get(w, 0) for w in wrappers)
+                for tag in episode_sqp}
         kernels.append(entry)
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels,
@@ -2192,7 +2429,9 @@ def main() -> int:
               "batch_kernel_times_cartpole": batch_kern["timings_cartpole"],
               "cartpole_batch": cart_batch,
               "cartpole_batch_parity": cart_parity,
-              "cartpole_episode": cart_episode, "phase_s": phase_s,
+              "cartpole_episode": cart_episode, "nlp": nlp,
+              "episode_sqp": episode_sqp, "episode_sqp_parity": sqp_parity,
+              "phase_s": phase_s,
               "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

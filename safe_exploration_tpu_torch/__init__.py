@@ -16,9 +16,10 @@ counterpart, and runs on an NVIDIA GPU (Hopper, ``sm_90a``):
   models/                RBF kernels, the padded GP, the GP state-space model
   reachability/          one- and multi-step ellipsoid reachability, the
                          ellipsoid-vs-polytope safety margins
-  solvers/               tracking and exploration costs, the lane-major
+  solvers/               tracking and exploration costs, the safe-MPC NLP
+                         (single instance, GN or exact Hessian), the lane-major
                          Gauss-Newton AL SQP, the portable and the lane-major
-                         constrained CEM, the batched SafeMPC state machine
+                         constrained CEM, the SafeMPC state machines
   runtime/config.py      ExperimentConfig + build_experiment
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no

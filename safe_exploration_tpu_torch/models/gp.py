@@ -321,15 +321,12 @@ def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
     return gp_refit(gp.replace(params=params, log_noise=log_noise))
 
 
-def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Posterior mean and latent variance at inputs z (..., d_in) ->
-    (mean (..., e), var (..., e)); solve-free through kinv, with the
-    conditioning-aware variance floor of the JAX package."""
-    _require_single(gp, "gp_predict")
-    lead = z.shape[:-1]
-    z2 = z.reshape(-1, z.shape[-1])
-    eps = torch.finfo(z.dtype).eps
-    means, vars_ = [], []
+def _posterior(gp: GP, z2: torch.Tensor, with_jac: bool):
+    """Per output dim: the posterior mean, the floored latent variance and
+    (``with_jac``) the closed-form mean Jacobian at the inputs z2 (m,
+    d_in), from one cross-covariance ``kv`` per dim."""
+    eps = torch.finfo(z2.dtype).eps
+    means, vars_, jacs = [], [], []
     for d in range(gp.n_out):
         kt, params = gp.kern_types[d], gp.params[d]
         kv = gram(kt, params, z2, gp.x) * gp.mask            # (m, n_max)
@@ -338,6 +335,23 @@ def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         floor = torch.clamp(8.0 * eps * kzz, min=1e-12)
         quad = torch.sum(kv * (kv @ gp.kinv[d].T), dim=-1)
         vars_.append(torch.maximum(kzz - quad, floor))
+        if with_jac:
+            # RBF: d/dz sum_i c_i k(z, x_i) = (sum_i c_i k_i x_i
+            # - z sum_i c_i k_i) / ls^2 with c = mask * beta
+            w = kv * gp.beta[d]
+            ls2 = torch.exp(2.0 * params["log_lengthscales"])
+            jacs.append((w @ gp.x - torch.sum(w, dim=-1, keepdim=True) * z2)
+                        / ls2)
+    return means, vars_, jacs
+
+
+def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Posterior mean and latent variance at inputs z (..., d_in) ->
+    (mean (..., e), var (..., e)); solve-free through kinv, with the
+    conditioning-aware variance floor of the JAX package."""
+    _require_single(gp, "gp_predict")
+    lead = z.shape[:-1]
+    means, vars_, _ = _posterior(gp, z.reshape(-1, z.shape[-1]), False)
     mean = torch.stack(means, dim=-1).reshape(lead + (gp.n_out,))
     var = torch.stack(vars_, dim=-1).reshape(lead + (gp.n_out,))
     return mean, var
@@ -345,20 +359,13 @@ def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def gp_predict_mean_jac(gp: GP, z: torch.Tensor):
     """Posterior mean, latent variance and the closed-form mean Jacobian at
-    inputs z (..., d_in) -> (mean (..., e), var (..., e), jac (..., e, d_in)).
-
-    RBF: d/dz sum_i c_i k(z, x_i) = (sum_i c_i k_i x_i - z sum_i c_i k_i)
-    / ls^2 with c = mask * beta (``kernels.weighted_mean_jac``)."""
+    inputs z (..., d_in) -> (mean (..., e), var (..., e), jac (..., e, d_in))
+    (``kernels.weighted_mean_jac`` of the JAX package), on the same
+    cross-covariance as the mean and variance."""
     _require_single(gp, "gp_predict_mean_jac")
     lead = z.shape[:-1]
-    z2 = z.reshape(-1, z.shape[-1])
-    mean, var = gp_predict(gp, z2)
-    jacs = []
-    for d in range(gp.n_out):
-        kt, params = gp.kern_types[d], gp.params[d]
-        w = gram(kt, params, z2, gp.x) * (gp.mask * gp.beta[d])   # (m, n_max)
-        ls2 = torch.exp(2.0 * params["log_lengthscales"])
-        jacs.append((w @ gp.x - torch.sum(w, dim=-1, keepdim=True) * z2) / ls2)
+    means, vars_, jacs = _posterior(gp, z.reshape(-1, z.shape[-1]), True)
     jac = torch.stack(jacs, dim=-2)
-    return (mean.reshape(lead + (gp.n_out,)), var.reshape(lead + (gp.n_out,)),
+    return (torch.stack(means, dim=-1).reshape(lead + (gp.n_out,)),
+            torch.stack(vars_, dim=-1).reshape(lead + (gp.n_out,)),
             jac.reshape(lead + jac.shape[-2:]))

@@ -21,7 +21,10 @@ __all__ = [
 
 
 def _trace(q: torch.Tensor) -> torch.Tensor:
-    return torch.diagonal(q, dim1=-2, dim2=-1).sum(-1)
+    """tr Q as a (..., 1, 1) tensor. Keeping the dims matters under forward
+    mode: a 0-d dual tensor combined with a Python scalar gets a float64
+    tangent (torch.func), which then clashes with the float32 primal."""
+    return torch.diagonal(q, dim1=-2, dim2=-1).sum(-1, keepdim=True)[..., None]
 
 
 def sum_two_ellipsoids(p1: torch.Tensor, q1: torch.Tensor, p2: torch.Tensor,
@@ -31,7 +34,7 @@ def sum_two_ellipsoids(p1: torch.Tensor, q1: torch.Tensor, p2: torch.Tensor,
     ``c = sqrt(tr Q1 / tr Q2)`` (a 1e-30 floor on both traces keeps a
     degenerate side finite)."""
     eps = 1e-30
-    c = torch.sqrt((_trace(q1) + eps) / (_trace(q2) + eps))[..., None, None]
+    c = torch.sqrt((_trace(q1) + eps) / (_trace(q2) + eps))
     return p1 + p2, (1.0 + 1.0 / c) * q1 + (1.0 + c) * q2
 
 

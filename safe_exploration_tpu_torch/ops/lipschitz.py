@@ -15,21 +15,31 @@ import torch
 __all__ = ["max_eig_psd_product", "compute_remainder_overapproximations"]
 
 
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``, whose derivative at 0 is 1/2 (``clamp``'s is
+    1): the safe-MPC NLP differentiates through the eigenvalue."""
+    return torch.maximum(x, torch.zeros_like(x))
+
+
 def max_eig_psd_product(m: torch.Tensor, iters: int = 30) -> torch.Tensor:
     """Dominant eigenvalue of ``M = Q B`` (Q, B PSD; M (..., n, n)).
 
     n <= 2 in closed form; above, the JAX package's repeated squaring (three
     trace-normalized squarings) and ``max(2, ceil(iters / 8))`` power steps,
-    finished by the Rayleigh quotient on the original M.
+    finished by the Rayleigh quotient on the original M. The arithmetic
+    keeps a trailing axis until the end: under forward mode a 0-d dual
+    tensor combined with a Python scalar gets a float64 tangent.
     """
     n = m.shape[-1]
     if n == 1:
-        return torch.clamp(m[..., 0, 0], min=0.0)
+        return _relu(m[..., 0, 0])
     if n == 2:
-        tr = m[..., 0, 0] + m[..., 1, 1]
-        det = m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
-        disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
-        return torch.clamp(0.5 * (tr + disc), min=0.0)
+        m00, m01 = m[..., 0, 0:1], m[..., 0, 1:2]
+        m10, m11 = m[..., 1, 0:1], m[..., 1, 1:2]
+        tr = m00 + m11
+        det = m00 * m11 - m01 * m10
+        disc = torch.sqrt(_relu(tr * tr - 4.0 * det))
+        return _relu(0.5 * (tr + disc))[..., 0]
 
     def trace(a):
         return torch.diagonal(a, dim1=-2, dim2=-1).sum(-1)[..., None, None]
@@ -45,8 +55,8 @@ def max_eig_psd_product(m: torch.Tensor, iters: int = 30) -> torch.Tensor:
     for _ in range(n_refine):
         w = mn @ v
         v = w / (torch.linalg.norm(w, dim=-2, keepdim=True) + 1e-30)
-    num = (v * (m @ v)).sum((-2, -1))
-    return torch.clamp(num / ((v * v).sum((-2, -1)) + 1e-30), min=0.0)
+    num = (v * (m @ v)).sum(-2)
+    return _relu(num / ((v * v).sum(-2) + 1e-30))[..., 0]
 
 
 def compute_remainder_overapproximations(
@@ -55,8 +65,10 @@ def compute_remainder_overapproximations(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Box half-widths (u_mu, u_sigma), each (..., n_out), bounding the GP
     linearization remainders over E(0, Q) (q (..., n_s, n_s), k_fb
-    (n_u, n_s))."""
+    (..., n_u, n_s))."""
     n_s = q.shape[-1]
-    s = torch.cat([torch.eye(n_s, dtype=q.dtype, device=q.device), k_fb], 0)
-    r_sqr = max_eig_psd_product(q @ (s.T @ s), iters=iters)[..., None]
+    eye = torch.eye(n_s, dtype=q.dtype, device=q.device)
+    s = torch.cat([eye.expand(k_fb.shape[:-2] + (n_s, n_s)), k_fb], -2)
+    r_sqr = max_eig_psd_product(q @ (s.transpose(-1, -2) @ s),
+                                iters=iters)[..., None]
     return 0.5 * l_mu * r_sqr, l_sigma * torch.sqrt(r_sqr)

@@ -70,20 +70,22 @@ def onestep_reachability(ssm: GPSSM, p, q, k_ff, k_fb, a, b, c_safety):
 def multistep_reachability(ssm: GPSSM, p0, k_ff_all, k_fb_all, a, b,
                            c_safety, q0=None):
     """Fold the one-step map over the horizon with per-stage controls
-    k_ff_all (..., T, n_u) and gains k_fb_all (T, n_u, n_s) (stage 0's gain
-    is unused from a point). Returns (p_traj (..., T, n_s), q_traj
-    (..., T, n_s, n_s), var_traj (..., T, n_s)); stage t is the state after
-    t + 1 steps."""
+    k_ff_all (..., T, n_u) and gains k_fb_all (..., T, n_u, n_s) (leading
+    dims optional; stage 0's gain is unused from a point). Returns
+    (p_traj (..., T, n_s), q_traj (..., T, n_s, n_s), var_traj
+    (..., T, n_s)); stage t is the state after t + 1 steps."""
     if q0 is None:
         p, q, var = onestep_reachability_point(
             ssm, p0, k_ff_all[..., 0, :], a, b, c_safety)
     else:
         p, q, var = onestep_reachability(
-            ssm, p0, q0, k_ff_all[..., 0, :], k_fb_all[0], a, b, c_safety)
+            ssm, p0, q0, k_ff_all[..., 0, :], k_fb_all[..., 0, :, :], a, b,
+            c_safety)
     ps, qs, vs = [p], [q], [var]
     for t in range(1, k_ff_all.shape[-2]):
         p, q, var = onestep_reachability(
-            ssm, p, q, k_ff_all[..., t, :], k_fb_all[t], a, b, c_safety)
+            ssm, p, q, k_ff_all[..., t, :], k_fb_all[..., t, :, :], a, b,
+            c_safety)
         ps.append(p)
         qs.append(q)
         vs.append(var)

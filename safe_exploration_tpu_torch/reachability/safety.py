@@ -24,8 +24,8 @@ def lin_ellipsoid_safety_distance(p, q, h_mat, h_vec):
     """Signed margins ``h_i^T p + sqrt(h_i^T Q h_i) - h_i`` of E(p, Q)
     against {x : H x <= h}, for p (..., n), Q (..., n, n) -> (..., m); all
     <= 0 iff the ellipsoid is inside the polytope."""
-    support = torch.sqrt(torch.clamp(
-        torch.sum((h_mat @ q) * h_mat, dim=-1), min=0.0))
+    hqh = torch.sum((h_mat @ q) * h_mat, dim=-1)
+    support = torch.sqrt(torch.maximum(hqh, torch.zeros_like(hqh)))
     return p @ h_mat.T + support - h_vec
 
 

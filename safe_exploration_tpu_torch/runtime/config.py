@@ -6,17 +6,19 @@
 same thing on both sides. :func:`build_experiment` wires what the port
 carries: the pendulum and the cart-pole (with or without a performance
 trajectory), the exact GP state-space model, the tracking and
-exploration objectives, and the two solvers — the lane SQP and the CEM (the
-single-instance ``planner`` on the portable or the lane backend with the
-single-instance SafeMPC machine, the batched ``batch_planner`` on the lane
-CEM) — with the batched SafeMPC machine, and for the SQP the fleet
-runner's test ``lane_batch_supported``. Other choices raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+exploration objectives, and the two solvers with the single-instance and
+the batched SafeMPC machines — the SQP (the single-instance ``planner`` on
+the portable NLP, the batched ``batch_planner`` on the lane SQP, and the
+fleet runner's test ``lane_batch_supported``) and the CEM (the
+single-instance ``planner`` on the portable or the lane backend, the
+batched one on the lane CEM). Other choices raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from functools import partial
 
 import torch
@@ -49,6 +51,7 @@ from safe_exploration_tpu_torch.solvers.safempc import (
 )
 from safe_exploration_tpu_torch.solvers.sqp import (
     SqpConfig,
+    make_sqp_planner,
     shift_duals,
     sqp_n_duals,
     sqp_warm_len,
@@ -151,6 +154,17 @@ def _require_ported(cfg: ExperimentConfig) -> None:
             )
 
 
+def _warn_ignored_knobs(cfg: ExperimentConfig, ignored: tuple) -> None:
+    """Warn when a config sets a knob the selected solver or objective never
+    reads away from its default (almost certainly a config bug)."""
+    defaults = ExperimentConfig()
+    for name in ignored:
+        if getattr(cfg, name) != getattr(defaults, name):
+            warnings.warn(
+                f"config '{cfg.name}': field '{name}'={getattr(cfg, name)!r} "
+                f"is ignored by solver='{cfg.solver}'", stacklevel=3)
+
+
 def _kern_tuple(cfg: ExperimentConfig, n_s: int) -> tuple:
     kt = tuple(cfg.kern_types)
     if len(kt) == 1:
@@ -164,10 +178,10 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                      device=None) -> dict:
     """Wire the experiment on ``device`` (CUDA unless ``"cpu"`` is given;
     raises when CUDA is meant and absent). Returns the single-instance
-    ``planner(generator, ssm, x0, warm_mean, noise=None)`` with its
+    ``planner(generator, ssm, x0, warm_mean[, lam], noise=None)`` with its
     SafeMPC machine ``init_state`` / ``get_action`` and the shape of one
-    solve's draws ``planner_noise_shape`` (CEM only; the SQP's is the
-    unported portable NLP), the batch entries (``batch_planner``,
+    solve's draws ``planner_noise_shape`` (None for the SQP, which draws
+    nothing), the batch entries (``batch_planner``,
     ``init_state_batch``, ``get_action_batch``, ``lane_batch_supported``:
     None for the CEM), ``make_ssm``, ``env``,
     ``a``, ``b``, ``k_fb``, ``cost_fn``, ``kern_types``, ``l_mu``,
@@ -188,9 +202,12 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         cost_fn, cost_args = tracking_cost(spec.target), {"target": spec.target}
     else:
         cost_fn, cost_args = exploration_cost(), {}
+    _warn_ignored_knobs(cfg, ignored=("w_sigma",))
     n_duals, dual_shift = 0, None
     lane_batch_supported = None
     if cfg.solver == "cem":
+        _warn_ignored_knobs(cfg, ignored=("sqp_outer", "sqp_inner", "sqp_polish",
+                                          "sqp_rescue", "sqp_polish_extra"))
         cem_cfg = CemConfig(
             n_safe=cfg.n_safe, n_samples=cfg.cem_samples,
             n_elites=cfg.cem_elites, n_iterations=cfg.cem_iterations,
@@ -233,6 +250,8 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                     spec.h_mat_obs, spec.h_obs, spec.h_mat_safe, spec.h_safe,
                     cfg.c_safety, cost_fn, cem_cfg, warm_mean, noise=noise)
     else:
+        _warn_ignored_knobs(cfg, ignored=("cem_samples", "cem_elites",
+                                          "cem_iterations", "cem_backend"))
         sqp_cfg = SqpConfig(
             n_safe=cfg.n_safe, c_safety=cfg.c_safety,
             n_outer=cfg.sqp_outer, n_inner=cfg.sqp_inner,
@@ -241,6 +260,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             n_perf=cfg.n_perf, r_shared=cfg.r_shared,
             perf_method=cfg.perf_trajectory, feas_tol=cfg.feas_tol,
         )
+        planner = make_sqp_planner(env, k_fb, a, b, cost_fn, sqp_cfg)
         warm_len = sqp_warm_len(sqp_cfg)
         n_duals = sqp_n_duals(env, sqp_cfg)
         dual_shift = partial(shift_duals, n_safe=cfg.n_safe,
@@ -258,8 +278,9 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                     "(opt_k_fb/non-GN/ff-precision) — the stacked fleet "
                     "runner is not ported yet (ROADMAP Queue 1, item 7)")
             raise NotImplementedError(
-                "this model/solver combination needs the portable NLP, "
-                "which is not ported yet (ROADMAP Queue 1, item 8)"
+                "this model/solver combination needs the portable NLP vmapped "
+                "over the batch, which is not ported yet (ROADMAP Queue 1, "
+                "item 7)"
             )
 
         def lane_batch_supported(ssm):
@@ -268,12 +289,6 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             LaneGPSSM, on a configuration the lane SQP covers (the port's
             lane SQP takes no other model)."""
             return lanes_supported(ssm, sqp_cfg, cfg.objective)
-
-        def planner(*args, **kwargs):
-            raise NotImplementedError(
-                "the single-instance SQP planner is the portable NLP, which is "
-                "not ported yet (ROADMAP Queue 1, item 8)"
-            )
 
         noise_shape = None
 

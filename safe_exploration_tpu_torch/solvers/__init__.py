@@ -1,1 +1,2 @@
-"""L3 safe-MPC solvers: the lane-major GN-AL SQP and the batched SafeMPC."""
+"""L3 safe-MPC solvers: the single-instance NLP, the lane-major GN-AL SQP,
+the CEM planners and the SafeMPC state machines."""

@@ -12,6 +12,13 @@ import torch
 __all__ = ["tracking_cost", "exploration_cost"]
 
 
+def _total(x: torch.Tensor) -> torch.Tensor:
+    """Sum of all elements as a (1,) tensor: the costs are differentiated in
+    forward mode (the safe-MPC NLP), where a 0-d dual tensor combined with a
+    Python scalar gets a float64 tangent."""
+    return torch.sum(x.reshape(-1), dim=0, keepdim=True)
+
+
 def tracking_cost(target: torch.Tensor, w_x: float = 1.0, w_u: float = 0.1,
                   w_terminal: float = 5.0):
     """Quadratic tracking toward ``target`` with control effort and a
@@ -19,10 +26,10 @@ def tracking_cost(target: torch.Tensor, w_x: float = 1.0, w_u: float = 0.1,
 
     def cost_fn(p_traj, q_traj, var_traj, k_ff_all):
         dx = p_traj - target
-        stage = w_x * torch.sum(dx[:-1] * dx[:-1]) + w_u * torch.sum(
+        stage = w_x * _total(dx[:-1] * dx[:-1]) + w_u * _total(
             k_ff_all * k_ff_all
         )
-        return stage + w_terminal * torch.sum(dx[-1] * dx[-1])
+        return (stage + w_terminal * _total(dx[-1] * dx[-1]))[0]
 
     return cost_fn
 
@@ -32,6 +39,6 @@ def exploration_cost(scale: float = 1.0):
     trajectory, negated (costs are minimized)."""
 
     def cost_fn(p_traj, q_traj, var_traj, k_ff_all):
-        return -scale * torch.sum(torch.sqrt(var_traj))
+        return (-scale * _total(torch.sqrt(var_traj)))[0]
 
     return cost_fn

@@ -463,7 +463,8 @@ def solve_safempc_lanes(
     if cfg.opt_k_fb or cfg.hessian != "gn" or cfg.linesearch != "exact":
         raise NotImplementedError(
             "the lane backend covers fixed k_fb, GN Hessian and exact line "
-            "search; the portable NLP is not ported (ROADMAP Queue 1, item 8)"
+            "search; the others take the portable NLP (solvers/sqp.py), whose "
+            "batched form is not ported yet (ROADMAP Queue 1, item 7)"
         )
     t_len = cfg.n_safe
     n_u = k_fb.shape[0]

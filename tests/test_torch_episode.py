@@ -62,6 +62,7 @@ from safe_exploration_tpu_torch.runtime.main import (  # noqa: E402
     run_experiment,
 )
 from test_torch_bridge import (  # noqa: E402,F401
+    jax_episode_draws,
     jax_gpssm_to_numpy,
     jax_init_draws as _jax_init_draws,
     jax_region as _jax_region,
@@ -309,27 +310,12 @@ def test_collect_initial_data_matches_jax(pendulum):
 
 def _jax_run_draws(cfg, dtype=F64) -> dict:
     """The JAX runner's draws in ``dtype``, rebuilt from its key splits
-    (runtime/episode.py: run_episodic, collect_initial_data,
-    rollout_episode; cem_plan's per-iteration keys; calibrate_lipschitz's
-    PRNGKey(0))."""
-    key = jax.random.PRNGKey(cfg.seed)
-    k_init, _, key = jax.random.split(key, 3)
-    draws = _jax_init_draws(k_init, cfg.n_init_samples, dtype)
-    draws["region_x"], draws["region_u"] = _jax_region(N_REGION, dtype)
-    reset, plan, step = [], [], []
-    for _ in range(cfg.n_ep):
-        k_reset, k_roll, key = jax.random.split(key, 3)
-        reset.append(np.asarray(jax.random.normal(k_reset, (2,), dtype)))
-        pl, st = [], []
-        for k in jax.random.split(k_roll, cfg.n_steps):
-            k_plan, k_step = jax.random.split(k)
-            pl.append(_jax_draws(k_plan, cfg.cem_iterations,
-                                 (cfg.cem_samples, cfg.n_safe, 1), dtype))
-            st.append(np.asarray(jax.random.normal(k_step, (2,), dtype)))
-        plan.append(np.stack(pl))
-        step.append(np.stack(st))
-    draws.update(reset=np.stack(reset), plan=np.stack(plan),
-                 step=np.stack(step))
+    (test_torch_bridge.jax_episode_draws, with cem_plan's per-iteration
+    keys)."""
+    draws = jax_episode_draws(
+        cfg, N_REGION, plan=lambda k: _jax_draws(
+            k, cfg.cem_iterations, (cfg.cem_samples, cfg.n_safe, 1), dtype),
+        dtype=dtype)
     return {k: _t(v) for k, v in draws.items()}
 
 
@@ -625,8 +611,5 @@ def test_registry_matches_jax_and_unported_choices_raise():
                      exp["a"], exp["b"], exp["k_fb"], kern_types=KT,
                      n_max=16, l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
                      ckpt_dir="ckpt")
-    sqp = build_experiment(ExperimentConfig(solver="sqp"),
-                           dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sqp["get_action"](None, sqp["init_state"](), None,
-                          torch.zeros(2, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_experiment(CONFIGS["cartpole_risk_sqp"], device="cpu")

@@ -226,8 +226,8 @@ def test_solve_safempc_lanes_matches_jax_lane_solve(fitted, objective):
 def test_lanes_supported_covers_the_ported_slice(fitted):
     """The lane SQP covers performance trajectories (either perf method)
     and the cart-pole builds; the risk objective, its perf covariance
-    recursion (want_sigma), the quadrotor, sparse models and the portable
-    NLP raise naming their ROADMAP items."""
+    recursion (want_sigma), the quadrotor, sparse models and the batched
+    fallback to the portable NLP raise naming their ROADMAP items."""
     _, tssm = fitted
     assert tl.lanes_supported(tssm, SqpConfig(), "tracking")
     assert tl.lanes_supported(tssm, SqpConfig(), "exploration")
@@ -253,8 +253,10 @@ def test_lanes_supported_covers_the_ported_slice(fitted):
         tl._rollout_y_lanes(tssm, None, None, None, None, None,
                             SqpConfig(n_perf=3), None, want_sigma=True)
     exp = build_experiment(ExperimentConfig(solver="sqp"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        exp["planner"](None, tssm, None, None)
+    ff = tssm.replace(gp=tssm.gp.replace(precision="ff"))
+    assert not tl.lanes_supported(ff, SqpConfig(), "tracking")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        exp["batch_planner"](ff, None, None)
 
 
 def test_numpy_bridge_round_trip(cfg1_state):

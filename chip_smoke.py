@@ -13,8 +13,10 @@ kernels; BASELINE config 2, the cart-pole, through ``--config
 cartpole_batch_sqp`` (128 lanes, 4-D states, the array-form tube and a
 performance trajectory) and ``--config cartpole_episode``; the
 single-instance safe-MPC NLP behind ``--config pendulum_episode_sqp`` and
-``--config cartpole_episode_sqp``) and checks the GPU against the CPU in
-f64.
+``--config cartpole_episode_sqp``; BASELINE config 5, the 6-D planar
+quadrotor, through ``--config quadrotor_batch_sqp`` and ``--config
+quadrotor_episode``; the risk-priced objective of ``--config
+cartpole_risk_sqp``) and checks the GPU against the CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
     python3 chip_smoke.py --phases nlp,episode-sqp   # a partial run
@@ -42,8 +44,11 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               2e-4 (f32) / 1e-10 (f64), zero above the diagonal; those
               kernels timed there: CUDA-event and device ms, plain,
               library, bound; the same checks and times at the cart-pole
-              fleet's shape (L = 128, e = 4, d = 5, n = 128: 512 Grams),
-              each Gram held against gram_plain matrix by matrix
+              fleet's shape (L = 128, e = 4, d = 5, n = 128: 512 Grams)
+              and the quadrotor fleet's (L = 64, e = 6, d = 8, n = 96: 384
+              Grams, a partial 64-wide tile), each Gram held against
+              gram_plain matrix by matrix; the episodes' single models at
+              n = 512 (e = 4, d = 5 and e = 6, d = 8) held the same way
      cem      gp_predict (its prepared call against the plain version on
               the same prepared posterior) and cem_score against their
               plain versions at n = 64 (H 5) and 128 (H 3, pendulum_batch's
@@ -52,7 +57,10 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               exploration; CUDA-event times of kernel and plain version;
               both kernels' calls with a prepared object (as the CEM path
               calls them), the preparation alone and the call without one,
-              and their device times (profiler)
+              and their device times (profiler); gp_predict at the
+              quadrotor's e = 6, d = 8 (DMAX), n = 512, with and without
+              the Jacobian, at L = 16,384, 1,000 and 64, f32 and f64, and
+              timed at L = 16,384
   4. path     build_experiment at the headline budget, a GP refit, two batched
               get_action_batch calls around a plant step and an ssm_update
               (a second refit); launch counts are zeroed just before and read
@@ -68,7 +76,8 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
   7. cemparity  f64, B=16: one get_action_batch on the GPU (kernels) and on
               the CPU (plain versions) with the draws of one CPU generator
   8. batch    the fleet CLI's run_experiment on pendulum_batch_sqp at full
-              width (256 lanes, n_max 128, 20 steps, 2 of its 4 episodes),
+              width (256 lanes, n_max 128, 5 of its 20 steps, 2 of its 4
+              episodes),
               f32: per-episode series, steps/s, fit / calibration / unstack
               refit times, the batched refit's split beside one lane's,
               launches (one per refit kernel per refit), the model's
@@ -78,7 +87,7 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               set of draws
      cartpole-batch  the same for cartpole_batch_sqp as registered (128
               lanes, n_max 128, 40 initial points, n_safe 6, n_perf 10,
-              r_shared 2, the SQP at 4 x 3), 2 of its 4 episodes and 5 of
+              r_shared 2, the SQP at 4 x 3), 2 of its 4 episodes and 2 of
               its 16 steps an episode, f32: the same series, times, step
               split, busy share and gates
      cartpole-batch-parity  f64, 2 lanes, 1 step, 2 episodes of
@@ -92,7 +101,8 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               2048 and 4096, and cholesky_hbm's device time per kernel
               (profiler)
  11. episode  the episodic CLI's run_experiment on the card: (a)
-              pendulum_episode (1 of its 6 episodes), (b) the same with
+              pendulum_episode (1 of its 6 episodes, 25 of its 50 steps),
+              (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
               launch counts zeroed just before each run and read just after;
               per-episode series and fit / calibration / refit times, and the
@@ -102,7 +112,8 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               CPU on one set of draws
  13. cartpole-episode  cartpole_episode as registered (portable CEM, 192
               samples, n_safe 10, n_perf 10, n_max 512), 1 of its 6
-              episodes, f32: series, seconds per step, the refit split and
+              episodes, 10 of its 50 steps, f32: series, seconds per step,
+              the refit split and
               launches
  14. nlp      one single-instance NLP solve (solvers/sqp.py, the planner of
               pendulum_episode_sqp: Gauss-Newton AL at 12 x 6 + 3 polish,
@@ -119,6 +130,26 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
  16. episode-sqp-parity  f64, pendulum_episode_sqp for one episode of 3
               steps (3 hyperparameter steps): GPU against CPU on one set of
               draws
+ 17. quadrotor-batch  the fleet phase for quadrotor_batch_sqp as registered
+              (64 lanes, n_max 96, 40 initial points, n_safe 3 + n_perf 5,
+              r_shared 1, 4 x 3, 2 episodes of 8 steps), f32, with its
+              gates
+ 18. quadrotor-batch-parity  f64, 2 lanes, 1 step, 2 episodes of
+              quadrotor_batch_sqp: GPU against CPU on one set of draws
+ 19. quadrotor-episode  quadrotor_episode (portable CEM, 256 samples, n_safe
+              5 + n_perf 12, n_max 512), 1 of its 6 episodes, f32: the
+              episode phase's gates and prints
+ 20. quadrotor-cem  one batched lane-CEM solve (cem_backend "lanes", B 64)
+              on quadrotor_episode's first model: "auto" (gp_predict at
+              d = 8 with the Jacobian) against "xla" in f32, the card's f64
+              against the CPU's on 8 lanes
+ 21. risk     cartpole_risk_sqp's NLP planner solved once as in ``nlp`` (cut
+              to 5 safety stages and a 4 x 3 + 3 budget), then the lane SQP
+              under the risk objective at cartpole_batch_sqp's width (128
+              lanes), f32 and f64, the card's f64 against the CPU's on 4
+              lanes; f64 gates 1e-9 (NLP) and RISK_LANE_TOL (lane SQP)
+ 22. episode-risk  one episode of cartpole_risk_sqp cut to 1 step: the
+              episode phase's gates
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -700,21 +731,23 @@ def _cem_plant(dtype, device):
             spec.target)
 
 
-def _gp_prep_ops(n: int) -> int:
+def _gp_prep_ops(n: int, e: int = E, d: int = D_IN) -> int:
     """Operations of the posterior made once per call: the scaled support
     rows x/ls and c_j = log sf2 - |x_j/ls|^2 / 2 (3 d + 2 per row and dim)."""
-    return E * n * (3 * D_IN + 2)
+    return e * n * (3 * d + 2)
 
 
-def _gp_lane_ops(n: int, jac: bool) -> int:
+def _gp_lane_ops(n: int, jac: bool, d: int = D_IN) -> int:
     """Operations of the posterior per lane and output dim, counted as the
     least the function needs (an FMA is 2, an add, multiply, divide, sqrt,
     exp or compare 1): z' = z/ls and |z'|^2 / 2 (3 d + 1); per support row
     the exponent c_j - |z'|^2 / 2 + x_j/ls . z' and its exp (2 d + 2); the
-    mean (2 n); the quadratic form and the floor (2 n^2 + 2 n + 2); with the
-    Jacobian, X^T (kv w) - z sum(kv w) over ls^2 (2 n d + 3 d)."""
-    return (2 * n * n + n * (2 * D_IN + 6) + 3 * D_IN + 3
-            + (2 * n * D_IN + 3 * D_IN if jac else 0))
+    mean (2 n); the quadratic form k^T K^-1 k on the symmetric K^-1, one
+    FMA per entry of its lower triangle with the off-diagonal sum doubled
+    (n^2 + 3 n), and the floor (2); with the Jacobian, X^T (kv w) -
+    z sum(kv w) over ls^2 (2 n d + 3 d)."""
+    return (n * n + n * (2 * d + 7) + 3 * d + 3
+            + (2 * n * d + 3 * d if jac else 0))
 
 
 def _tube_ops(t_len: int, m_obs: int, m_safe: int) -> int:
@@ -869,17 +902,123 @@ def phase_cem_kernels(seed: int) -> dict:
     (timings["cem_score"]["device_ms"],
      timings["cem_score"]["device_ms_by_kernel"]) = _device_ms(
         lambda: tube_score_prepared(prep, *args[1:3]))
+    quad = _quad_gp_predict(rng, seed)
+    abs_err["gp_predict_quadrotor"] = quad.pop("max_abs_err")
+    worst["gp_predict_quadrotor"] = quad.pop("worst_rel_f32")
+    timings["gp_predict_quadrotor"] = quad
     for name, r in timings.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         extra = (f" (device {r['device_ms']:.4f}: "
                  f"{ {k: round(v, 4) for k, v in r['device_ms_by_kernel'].items()} }"
                  f"; without a prepared object {r['unprepared_ms']:.4f} ms"
                  f", the prepare alone {r['prepare_ms']:.4f} ms)")
-        print(f"[cem-kernels] time f32 n={N_CEM} {name}: kernel {r['ms']:.4f} "
+        print(f"[cem-kernels] time f32 {r.get('shape', f'n={N_CEM}')} {name}: "
+              f"kernel {r['ms']:.4f} "
               f"ms{extra}, plain {r['plain_ms']:.4f} ms, library null (no one "
               f"PyTorch call computes it), bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})", flush=True)
     return {"worst_rel_f32": worst, "errs": abs_err, "timings": timings}
+
+
+# quadrotor_episode's lane CEM (``--set cem_backend=lanes``, the batched
+# planner at the quadrotor): B instances of M = 256 samples score on one
+# lane axis; its posterior is a 6-output GP over d = 8 inputs (gp_lanes.cuh's
+# DMAX) at n_max 512, with the mean Jacobian for the tube and the perf
+# trajectory's covariance recursion
+B_QCEM, M_QCEM, N_QEP = 64, 256, 512
+
+
+def _quad_model(seed: int, n: int, k: int) -> dict:
+    """A quadrotor GP-SSM (6 outputs over the 6 states and 2 thrusts, the
+    env's input normalization, log noise -4.5 as quadrotor_batch_sqp) with
+    n_max n and k points spread over the operating box, built in f64 on the
+    CPU and handed over as numpy arrays."""
+    from safe_exploration_tpu_torch.envs import make_quadrotor
+    from safe_exploration_tpu_torch.models import make_gp_ssm
+    from safe_exploration_tpu_torch.models.convert import gpssm_to_numpy
+
+    spec = make_quadrotor(dtype=torch.float64, device="cpu").spec
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.uniform(-1.0, 1.0, (k, 6))) * spec.norm_x
+    u = torch.tensor(rng.uniform(-1.0, 1.0, (k, 2))) * spec.norm_u
+    w = torch.tensor(rng.normal(size=(8, 6)))
+    z = torch.cat([x / spec.norm_x, u / spec.norm_u], 1)
+    y = 0.01 * torch.sin(2.0 * z @ w)
+    full = torch.full((6,), 0.05, dtype=torch.float64)
+    ssm = make_gp_ssm(("rbf",) * 6, x, u, y, n_max=n, l_mu=full,
+                      l_sigma=0.4 * full, log_noise=-4.5,
+                      z_scale=torch.cat([spec.norm_x, spec.norm_u]))
+    return gpssm_to_numpy(ssm)
+
+
+def _quad_gp_predict(rng, seed: int) -> dict:
+    """gp_predict at the quadrotor's shapes (e 6, d 8 = DMAX, n 512) against
+    its plain version on the same prepared posterior, with and without the
+    Jacobian, in f32 (the n <= 128 checks' 3e-5 scaled by n / 128) and f64
+    (1e-10), at the wide scoring pass's L = M B = 16,384, a ragged 1,000
+    and the final passes' B = 64; then the f32 times with the Jacobian at
+    L = 16,384: CUDA-event ms of the prepared call, the plain version's,
+    the bound at the least work, device ms."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
+    from safe_exploration_tpu_torch.ops.kernels import (
+        gp_predict_prepared,
+        posterior_plain,
+        prepare_posterior,
+    )
+
+    from safe_exploration_tpu_torch.solvers.sqp_lanes import _gp_predict_lanes
+
+    e, d, n, wide = 6, 8, N_QEP, M_QCEM * B_QCEM
+    arr = _quad_model(seed + 5, n, n - 12)
+    # queries over the operating box in raw coordinates (the env's norm_x,
+    # norm_u)
+    box = np.array([0.75, 1.2, 0.75, 1.2, 0.45, 2.25, 1.5, 1.5])[:, None]
+    worst, out = 0.0, {}
+    for L in (wide, 1000, B_QCEM):
+        zz = rng.uniform(-1.0, 1.0, (d, L)) * box
+        for dtype in (torch.float32, torch.float64):
+            post = prepare_posterior(gpssm_from_numpy(
+                arr, ("rbf",) * e, device="cuda", dtype=dtype))
+            z = torch.tensor(zz, dtype=dtype, device="cuda")
+            errs, abs_errs = [], []
+            for jac in (False, True):
+                got = gp_predict_prepared(post, z, want_jac=jac)
+                ref = posterior_plain(post, z, want_jac=jac)
+                errs.append(max(_rel(o, r) for o, r in zip(got, ref)))
+                abs_errs.append(max(_abs(o, r) for o, r in zip(got, ref)))
+            f64 = dtype == torch.float64
+            # the f32 tolerance of the n <= 128 checks above, scaled by the
+            # n-term sums' length (their f32 rounding grows with n)
+            tol = 1e-10 if f64 else 3e-5 * n / 128
+            print(f"[cem-kernels] {str(dtype)[6:]} quadrotor e={e} d={d} "
+                  f"n={n} L={L}: gp_predict rel {max(errs):.2e} without / "
+                  f"with the Jacobian {errs} (tol {tol:g})", flush=True)
+            if max(errs) > tol:
+                _fail(f"gp_predict disagrees with plain at {dtype} e={e} "
+                      f"d={d} n={n} L={L}: {errs}")
+            if not f64:
+                worst = max(worst, max(errs))
+                if L == wide:
+                    out["max_abs_err"] = abs_errs[1]
+    dt, sz = torch.float32, 4
+    ssm = gpssm_from_numpy(arr, ("rbf",) * e, device="cuda", dtype=dt)
+    post = prepare_posterior(ssm)
+    z = torch.tensor(rng.uniform(-1.0, 1.0, (d, wide)) * box, dtype=dt,
+                     device="cuda")
+    n_bytes = sz * (n * d + e * n + e * n * n + e * (d + 1) + d * wide
+                    + 2 * e * wide + e * d * wide)
+    ops = _gp_prep_ops(n, e, d) + e * wide * _gp_lane_ops(n, True, d)
+    out.update(
+        shape=f"quadrotor e={e} d={d} n={n} L={wide}",
+        ms=_time_ms(lambda: gp_predict_prepared(post, z, want_jac=True), 20),
+        plain_ms=_time_ms(lambda: posterior_plain(post, z, want_jac=True), 3),
+        prepare_ms=_time_ms(lambda: prepare_posterior(ssm), 20),
+        unprepared_ms=_time_ms(lambda: _gp_predict_lanes(
+            ssm, z, want_jac=True, impl="pallas"), 20),
+        library_ms=None, bound=_bound_ms(n_bytes, ops, dt), worst_rel_f32=worst)
+    out["device_ms"], out["device_ms_by_kernel"] = _device_ms(
+        lambda: gp_predict_prepared(post, z, want_jac=True))
+    return out
 
 
 def _cem_exp(dtype, dev, gp_impl="auto"):
@@ -1348,13 +1487,15 @@ def _episode_cfg(name: str, sets: list[str]):
 
 
 # (a) runs 1 of the registered 6 episodes (2 until the cart-pole's phases
-# came) to keep the script's time; (b) runs its whole schedule; the
-# cart-pole's episodic run 1 of its 6
-RUN_A = ["n_ep=1"]
+# came) and 25 of its 50 steps (since the quadrotor's phases came) to keep
+# the script's time; (b) runs its whole schedule; the cart-pole's episodic
+# run 1 of its 6 episodes and 10 of its 50 steps (25 until the quadrotor
+# fleet ran its 8 steps)
+RUN_A = ["n_ep=1", "n_steps=25"]
 RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60"]
 RUNS_PENDULUM = (("a", "pendulum_episode", RUN_A),
                  ("b", "pendulum_episode", RUN_B))
-RUNS_CARTPOLE = (("cartpole", "cartpole_episode", ["n_ep=1"]),)
+RUNS_CARTPOLE = (("cartpole", "cartpole_episode", ["n_ep=1", "n_steps=10"]),)
 
 
 def phase_episode(seed: int, runs: tuple = RUNS_PENDULUM,
@@ -1537,10 +1678,12 @@ def phase_episode_parity(seed: int, config: str = "pendulum_episode",
 # the single-instance NLP (solvers/sqp.py) behind the two SQP episode
 # configurations, each cut to 1 of its 6 episodes and a few of its 50
 # steps to keep the script's time (the eager solve takes 5-9 s a step on
-# the pendulum, 20-36 s on the cart-pole)
+# the pendulum, 20-36 s on the cart-pole; 10 and 3 steps until the
+# quadrotor's and the risk objective's phases came, then 3 and 1 until the
+# quadrotor fleet ran its 8 steps)
 NLP_X0 = (0.25, 0.65)
-NLP_PEND_STEPS = 10
-NLP_CART_STEPS = 3
+NLP_PEND_STEPS = 1
+NLP_CART_STEPS = 1
 RUNS_SQP = (("pendulum", "pendulum_episode_sqp",
              ["n_ep=1", f"n_steps={NLP_PEND_STEPS}"]),
             ("cartpole", "cartpole_episode_sqp",
@@ -1554,11 +1697,13 @@ def _rel0(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
-def _nlp_instance(seed: int):
-    """pendulum_episode_sqp's first model, made on the card in f64 as its
-    run makes it (40 initial points from a CPU generator seeded ``seed``,
-    120 hyperparameter steps, the Lipschitz calibration), bucketed as the
-    planner sees it; returned as numpy arrays with the configuration."""
+def _first_model(seed: int, config: str = "pendulum_episode_sqp",
+                 sets: tuple = ()):
+    """An episodic configuration's first model, made on the card in f64 as
+    its run makes it (its initial points from a CPU generator seeded
+    ``seed``, its hyperparameter steps, the Lipschitz calibration), bucketed
+    as the planner sees it; returned as numpy arrays with the
+    configuration."""
     from safe_exploration_tpu_torch.models.convert import gpssm_to_numpy
     from safe_exploration_tpu_torch.models.ssm import (
         calibrate_lipschitz,
@@ -1570,7 +1715,7 @@ def _nlp_instance(seed: int):
         collect_initial_data,
     )
 
-    cfg = _episode_cfg("pendulum_episode_sqp", [f"seed={seed}"])
+    cfg = _episode_cfg(config, list(sets) + [f"seed={seed}"])
     exp = build_experiment(cfg, dtype=torch.float64, device="cuda")
     gen = torch.Generator().manual_seed(seed)
     xs, us, resid = collect_initial_data(
@@ -1596,25 +1741,34 @@ def _solve_launches(fn) -> tuple[int, float]:
     return n, ms
 
 
-def phase_nlp(seed: int) -> dict:
+def phase_nlp(seed: int, config: str = "pendulum_episode_sqp",
+              x0_vals: tuple = NLP_X0, sets: tuple = (),
+              label: str = "nlp") -> dict:
     """One single-instance NLP solve (``build_experiment``'s SQP planner,
     ``make_sqp_planner`` over ``solve_safempc_nlp``: the Gauss-Newton AL
-    core at pendulum_episode_sqp's full budget, 12 x 6 with 3 polish steps,
-    H = 5) from NLP_X0 on pendulum_episode_sqp's first model: on the CPU
-    in f64 (plain PyTorch), on the card in f64 and in f32. Gates: the
-    card's f64 k_ff, lam and g within 1e-9 of the CPU's, feasible flags
-    equal in both dtypes, and no host read inside a solve (each card solve
-    runs under ``torch.cuda.set_sync_debug_mode("error")``, which raises on
-    any synchronizing call). Reports ms per solve (host, synchronized; the
-    first call, which the kernels' build and the fit have warmed), the CUDA
-    kernels a second, profiled solve launches and their count per
-    Gauss-Newton step, and the device's busy share."""
+    core; pendulum_episode_sqp's full budget, 12 x 6 with 3 polish steps,
+    H = 5, or cartpole_risk_sqp's objective at the horizon and budget
+    ``sets`` give) from ``x0_vals`` on the configuration's first model: on
+    the CPU in f64 (plain PyTorch), on the card in f64 and in f32. Gates:
+    the card's f64 k_ff, lam and g within 1e-9 of the CPU's, feasible
+    flags equal in both dtypes, and no host read inside a solve (each card
+    solve runs under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises on any synchronizing call). Reports ms per solve (host,
+    synchronized; the first call, which the kernels' build and the fit have
+    warmed), the CUDA kernels a second, profiled solve launches and their
+    count per Gauss-Newton step, and the device's busy share."""
     from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
     from safe_exploration_tpu_torch.runtime.config import build_experiment
-    from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, sqp_n_duals
+    from safe_exploration_tpu_torch.solvers.sqp import (
+        SqpConfig,
+        sqp_n_duals,
+        sqp_warm_len,
+    )
 
-    cfg, arrays = _nlp_instance(seed)
+    cfg, arrays = _first_model(seed, config, sets)
     tube = SqpConfig(n_safe=cfg.n_safe, c_safety=cfg.c_safety)
+    n_warm = sqp_warm_len(SqpConfig(n_safe=cfg.n_safe, n_perf=cfg.n_perf,
+                                    r_shared=cfg.r_shared))
     n_steps = cfg.sqp_outer * cfg.sqp_inner + cfg.sqp_polish
     out = {}
     for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float64),
@@ -1623,8 +1777,8 @@ def phase_nlp(seed: int) -> dict:
         n_u = exp["env"].spec.n_u
         ssm = gpssm_from_numpy(arrays, exp["kern_types"], device=dev,
                                dtype=dtype)
-        x0 = torch.tensor(NLP_X0, dtype=dtype, device=dev)
-        warm = torch.zeros((cfg.n_safe, n_u), dtype=dtype, device=dev)
+        x0 = torch.tensor(x0_vals, dtype=dtype, device=dev)
+        warm = torch.zeros((n_warm, n_u), dtype=dtype, device=dev)
         lam = torch.zeros((sqp_n_duals(exp["env"], tube),), dtype=dtype,
                           device=dev)
 
@@ -1655,23 +1809,25 @@ def phase_nlp(seed: int) -> dict:
     for key in ("cuda_float64", "cuda_float32"):
         r = out[key]
         r["rel"] = {k: _rel0(r[k], ref[k]) for k in ("k_ff", "lam", "g")}
-        print(f"[nlp] {key}: {r['ms']:.1f} ms a solve (the first call),"
+        print(f"[{label}] {key}: {r['ms']:.1f} ms a solve (the first call),"
               f" {r['launches']} CUDA kernels ({r['launches_per_gn_step']:.1f}"
               f" per GN step of {n_steps}), device {r['device_ms']:.2f} ms "
               f"(busy {r['busy']:.3f}); feasible {r['feasible']} (CPU "
               f"{ref['feasible']}), violation {r['violation']:.3e}, cost "
               f"{r['cost']:.6g}; vs CPU f64 rel {r['rel']}", flush=True)
         if r["feasible"] != ref["feasible"]:
-            _fail(f"[nlp] {key} feasible {r['feasible']}, CPU f64 "
+            _fail(f"[{label}] {key} feasible {r['feasible']}, CPU f64 "
                   f"{ref['feasible']}")
-    print(f"[nlp] cpu_float64: {ref['ms']:.1f} ms a solve, feasible "
+    print(f"[{label}] {cfg.name} cpu_float64: {ref['ms']:.1f} ms a solve, "
+          f"feasible "
           f"{ref['feasible']}, violation {ref['violation']:.3e}, cost "
           f"{ref['cost']:.6g}, max lam {float(ref['lam'].max()):.4g}, "
           f"max g {float(ref['g'].max()):.4g}; budget {cfg.sqp_outer} x "
           f"{cfg.sqp_inner} + {cfg.sqp_polish} polish", flush=True)
     worst = max(out["cuda_float64"]["rel"].values())
     if not worst <= 1e-9:
-        _fail(f"[nlp] f64 card vs CPU: {out['cuda_float64']['rel']} > 1e-9")
+        _fail(f"[{label}] f64 card vs CPU: {out['cuda_float64']['rel']} > "
+              "1e-9")
     return {k: {kk: (vv.tolist() if isinstance(vv, torch.Tensor) else vv)
                 for kk, vv in v.items()} for k, v in out.items()}
 
@@ -1691,8 +1847,10 @@ def _margins(exp, tube, ssm, x0, k_ff):
 
 L_BATCH = 256   # lanes of pendulum_batch_sqp: its refit is L * E Grams
 # the fleet runs 2 of pendulum_batch_sqp's 4 episodes (the second on
-# per-lane hyperparameters) to keep the script's time
-RUN_BATCH = ["n_ep=2"]
+# per-lane hyperparameters) and 5 of its 20 steps an episode (10 from the
+# quadrotor's phases until its fleet ran its 8 steps) to keep the script's
+# time
+RUN_BATCH = ["n_ep=2", "n_steps=5"]
 
 
 def _lane_gram_args(rng, lanes, n, dtype, mask_lane, e=E, d=D_IN):
@@ -1755,22 +1913,28 @@ def _batched_factor_errors(rng, dtype, lanes=L_BATCH, e=E, d=D_IN,
 # the cart-pole fleet (cartpole_batch_sqp): 128 lanes of 4-output GPs over
 # 4-D states and a 1-D force, n_max 128 -- 512 Grams of n = 128 at d = 5
 L_CART, E_CART, D_CART = 128, 4, 5
-# the fleet refit shapes: (label, lanes, e, d)
-FLEET_SHAPES = (("pendulum", L_BATCH, E, D_IN), ("cartpole", L_CART, E_CART,
-                                                 D_CART))
+# the quadrotor fleet (quadrotor_batch_sqp): 64 lanes of 6-output GPs over
+# 6-D states and 2 thrusts, n_max 96 -- 384 Grams of n = 96 at d = 8, the
+# first refit size on a path that is not a multiple of the 64-wide tile
+L_QUAD, E_QUAD, D_QUAD, N_QUAD = 64, 6, 8, 96
+# the fleet refit shapes: (label, lanes, e, d, n)
+FLEET_SHAPES = (("pendulum", L_BATCH, E, D_IN, N_PATH),
+                ("cartpole", L_CART, E_CART, D_CART, N_PATH),
+                ("quadrotor", L_QUAD, E_QUAD, D_QUAD, N_QUAD))
 # the refit shapes held against the plain versions: (label, lanes, e, d, n),
-# the fleets' and the cart-pole episode's (cartpole_episode: one 4-output
-# GP at n_max 512, 4 Grams in one launch)
+# the fleets' and the episodes' (cartpole_episode: one 4-output GP at n_max
+# 512, 4 Grams in one launch; quadrotor_episode: one 6-output GP over 8
+# inputs at n_max 512)
 N_CART_EPISODE = 512
-REFIT_SHAPES = tuple((label, lanes, e, d, N_PATH)
-                     for label, lanes, e, d in FLEET_SHAPES) + (
-    ("cartpole-episode", 1, E_CART, D_CART, N_CART_EPISODE),)
+REFIT_SHAPES = FLEET_SHAPES + (
+    ("cartpole-episode", 1, E_CART, D_CART, N_CART_EPISODE),
+    ("quadrotor-episode", 1, E_QUAD, D_QUAD, N_CART_EPISODE))
 
 
-def _fleet_refit_times(rng, lanes: int, e: int, d: int) -> dict:
+def _fleet_refit_times(rng, lanes: int, e: int, d: int, n: int) -> dict:
     """A fleet refit's kernels timed at its shape (f32, L * e matrices of
-    n = 128): CUDA-event ms, device ms (profiler), the plain version's and
-    the library's ms, and the bound at the least work (as
+    n): CUDA-event ms, device ms (profiler), the plain version's and the
+    library's ms, and the bound at the least work (as
     ``_refit_kernel_times``); ``trsm`` sums beta's and K^-1's solves, the
     kernels line's entry."""
     from safe_exploration_tpu_torch.ops.kernels import (
@@ -1781,7 +1945,7 @@ def _fleet_refit_times(rng, lanes: int, e: int, d: int) -> dict:
         trsm_plain,
     )
 
-    dt, n, m = torch.float32, N_PATH, lanes * e
+    dt, m = torch.float32, lanes * e
     sz = 4
     args = _lane_gram_args(rng, lanes, n, dt, True, e, d)
     k = rbf_gram_masked(*args)
@@ -1841,7 +2005,8 @@ def phase_batch_kernels(seed: int) -> dict:
     """The model-batched Gram against gram_plain matrix by matrix, f32 and
     f64, at the refits' shapes (``REFIT_SHAPES``: the pendulum fleet's
     L = 256, e = 2, d = 3 and the cart-pole fleet's L = 128, e = 4, d = 5 at
-    n = 128; the cart-pole episode's L = 1, e = 4, d = 5 at n = 512) and at
+    n = 128; the quadrotor fleet's L = 64, e = 6, d = 8 at n = 96; the
+    episodes' L = 1 at n = 512, e = 4, d = 5 and e = 6, d = 8) and at
     L = 2, n = 2048, with per-lane and shared masks: one launch, exactly
     symmetric. Each refit's Cholesky, solve_psd and tri_inv_lower at its
     shape against their f64 plain versions, each matrix within 2e-4 in f32
@@ -1891,12 +2056,15 @@ def phase_batch_kernels(seed: int) -> dict:
                       f"with plain at {dtype}: {fe}")
             if dtype == torch.float32:
                 errs[label].update(fe["abs"])
-    timings = {label: _fleet_refit_times(rng, lanes, e, d)
-               for label, lanes, e, d in FLEET_SHAPES}
+    timings = {label: _fleet_refit_times(rng, lanes, e, d, n)
+               for label, lanes, e, d, n in FLEET_SHAPES}
     return {"errs": errs["pendulum"], "timings": timings["pendulum"],
             "errs_cartpole": errs["cartpole"],
             "timings_cartpole": timings["cartpole"],
-            "errs_cartpole_episode": errs["cartpole-episode"]}
+            "errs_cartpole_episode": errs["cartpole-episode"],
+            "errs_quadrotor": errs["quadrotor"],
+            "timings_quadrotor": timings["quadrotor"],
+            "errs_quadrotor_episode": errs["quadrotor-episode"]}
 
 
 def _self_distance_and_lmu(ssm) -> dict:
@@ -1930,9 +2098,10 @@ def _self_distance_and_lmu(ssm) -> dict:
 
 
 # the cart-pole fleet runs 2 of cartpole_batch_sqp's 4 episodes (the second
-# on per-lane hyperparameters) and 5 of its 16 steps an episode (since the
-# single-instance NLP's phases came)
-RUN_CART_BATCH = ["n_ep=2", "n_steps=5"]
+# on per-lane hyperparameters) and 1 of its 16 steps an episode (5 from
+# the single-instance NLP's phases until the quadrotor's came, then 2 until
+# the quadrotor fleet ran its 8 steps)
+RUN_CART_BATCH = ["n_ep=2", "n_steps=1"]
 CART_PARITY = (2, 1)   # [cartpole-batch-parity]: lanes, steps an episode
 
 
@@ -1940,11 +2109,12 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
                 sets: tuple = tuple(RUN_BATCH), label: str = "batch") -> dict:
     """run_experiment on a fleet configuration at full width on the card,
     f32, printed under ``[label]``: pendulum_batch_sqp (256 lanes, n_max
-    128, 24 initial points, 20 steps per episode, n_safe 3) or
-    cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 5 of its
-    16 steps, n_safe 6, n_perf 10, r_shared 2), both with the lane SQP at 4 outer x
-    3 inner and a per-lane fit and calibration after every episode (120
-    steps), 2 of their 4 episodes. Counts are zeroed just before the run
+    128, 24 initial points, 5 of its 20 steps, n_safe 3) or
+    cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 1 of its
+    16 steps, n_safe 6, n_perf 10, r_shared 2) or quadrotor_batch_sqp (64
+    lanes, n_max 96, 40 initial points, 8 steps, n_safe 3, n_perf 5), each
+    with the lane SQP at 4 outer x 3 inner and a per-lane fit and
+    calibration after every episode (120 steps), 2 episodes (of 4, 4, 2). Counts are zeroed just before the run
     and read just after; the fits, calibrations and unstack refits are
     timed inside it. Gates: 0 violations, finite series but model_error (a
     non-finite model error only in lanes whose lane model left the episode
@@ -2041,6 +2211,7 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
          "lanes_nan_model_error": nan_err, "lanes_nonfinite_model": bad_models,
          "predict_s": spans["predict"], "append_s": spans["append"],
          "step_split": step,
+         "log_noise_first_fit": captured["initial"].gp.log_noise.tolist(),
          "refit_split_one_lane_ms": split_one, **probe}
     print(f"[{label}] {cfg.name} {r['config']} f32: wall {wall:.1f} s",
           flush=True)
@@ -2072,7 +2243,10 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
     print(f"[{label}]   lanes with a non-finite model error per episode "
           f"{nan_err}, lanes whose lane model left the episode non-finite "
           f"{bad_models} (of {lanes}); non-finite model errors outside "
-          f"those lanes: {nan_outside}", flush=True)
+          f"those lanes: {nan_outside}; the first fit's log noise "
+          f"{[round(v, 3) for v in r['log_noise_first_fit']]} (the f32 "
+          "append diverges below the jitter's 0.5 log 1e-6 = -6.908)",
+          flush=True)
     print(f"[{label}]   model's self-pair |z - x_i|^2 max {probe['self_d2_max']}"
           f"; f32 l_mu at the buffer: card {probe['l_mu_gpu']}, CPU "
           f"{probe['l_mu_cpu']} (rel {probe['l_mu_rel']:.2e}, tol 1e-5)",
@@ -2244,6 +2418,201 @@ def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
     return res
 
 
+# BASELINE config 5: the quadrotor fleet as registered (quadrotor_batch_sqp:
+# 64 lanes, n_max 96, 40 initial points, 2 episodes of 8 steps), and its
+# f64 parity at 2 lanes, 1 step an episode; quadrotor_episode for 1 of its
+# 6 episodes (the portable CEM with 256 samples, n_safe 5 + n_perf 12)
+RUN_QUAD_BATCH = ()
+QUAD_PARITY = (2, 1)
+RUNS_QUAD = (("quadrotor", "quadrotor_episode", ["n_ep=1"]),)
+# the risk objective: cartpole_risk_sqp's planner (the NLP with the perf
+# trajectory's covariance in the cost) solved once from RISK_X0 on its
+# first model, cut to RISK_NLP_SETS: a 4 x 3 + 3 budget and 5 of its 10
+# safety stages (at 10 the first model's tube grows to 1e21 and the AL's
+# multipliers to 1e27, where no two roundings agree); the lane SQP with the
+# same objective at cartpole_batch_sqp's width, and one episode of
+# cartpole_risk_sqp cut to 1 step (25-35 s a step on the card). The lane
+# SQP's f64 card-vs-CPU gate: its fixed-budget risk solve answers relative
+# changes of x0 of 1e-13 to 1e-12 with up to 5.8e-8 in k_ff on the CPU
+# (the slow test test_cartpole_risk_lane_sqp_spread), so two devices'
+# roundings need agree no better than that
+RISK_X0 = (0.02, 0.05, 0.01, 0.02)
+RISK_NLP_SETS = ("n_safe=5", "sqp_outer=4", "sqp_inner=3")
+RISK_LANE_SETS = ("objective=risk_tracking", "w_sigma=5.0")
+RUNS_RISK = (("risk", "cartpole_risk_sqp", ["n_ep=1", "n_steps=1"]),)
+RISK_LANE_TOL = 1e-7
+
+
+def _spread_x0s(spec, lanes: int, seed: int, scale: float, dtype, dev):
+    """``lanes`` initial states uniform over ``scale`` times the safe box."""
+    hi = spec.h_safe[:spec.n_s].double().cpu().numpy()
+    x = np.random.default_rng(seed).uniform(-1.0, 1.0, (lanes, spec.n_s))
+    return torch.tensor(x * scale * hi, dtype=dtype, device=dev)
+
+
+def phase_risk_lanes(seed: int, lanes: int = L_CART,
+                     n_parity: int = 4) -> dict:
+    """The lane SQP under the risk objective (cartpole_batch_sqp's solver:
+    n_safe 6 + n_perf 10, r_shared 2, 4 x 3, with objective risk_tracking
+    and w_sigma 5, so the perf trajectory carries its covariance
+    recursion and the GN Jacobian its n_perf n_s^2 = 160 more rows) on
+    cartpole_risk_sqp's first model, one solve over ``lanes`` initial
+    states spread over 0.3 of the safe box, on the card in f32 and f64,
+    and on the CPU in f64 over the first ``n_parity`` lanes. Gates: finite
+    plans, the card's f64 flags equal to the CPU's and k_ff within
+    RISK_LANE_TOL of the CPU's on those lanes. Reports
+    the host ms of each solve and the flags' agreement between f32 and
+    f64."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, sqp_warm_len
+
+    _, arrays = _first_model(seed, "cartpole_risk_sqp")
+    cfg = _episode_cfg("cartpole_batch_sqp", list(RISK_LANE_SETS))
+    n_warm = sqp_warm_len(SqpConfig(n_safe=cfg.n_safe, n_perf=cfg.n_perf,
+                                    r_shared=cfg.r_shared))
+    out = {}
+    for key, dev, dtype, b in (("card_f32", "cuda", torch.float32, lanes),
+                               ("card_f64", "cuda", torch.float64, lanes),
+                               ("cpu_f64", "cpu", torch.float64, n_parity)):
+        exp = build_experiment(cfg, dtype=dtype, device=dev)
+        ssm = gpssm_from_numpy(arrays, exp["kern_types"], device=dev,
+                               dtype=dtype)
+        x0s = _spread_x0s(exp["env"].spec, lanes, seed + 11, 0.3, dtype,
+                          dev)[:b]
+        warm = torch.zeros((b, n_warm, 1), dtype=dtype, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_ff, feas, viol, info = exp["batch_planner"](ssm, x0s, warm)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[key] = {
+            "s": time.perf_counter() - t0, "k_ff": k_ff.double().cpu(),
+            "feasible": feas.cpu(), "finite": bool(torch.isfinite(k_ff).all())
+            and bool(torch.isfinite(info["cost"]).all())}
+    g32, g64, c64 = (out[k] for k in ("card_f32", "card_f64", "cpu_f64"))
+    flags_equal = bool(torch.equal(g64["feasible"][:n_parity],
+                                   c64["feasible"]))
+    kff = _rel0(g64["k_ff"][:n_parity], c64["k_ff"])
+    agree = int((g32["feasible"] == g64["feasible"]).sum())
+    res = {"lanes": lanes, "seconds": {k: v["s"] for k, v in out.items()},
+           "feasible_frac": {k: float(v["feasible"].double().mean())
+                             for k, v in out.items()},
+           "f64_flags_equal_cpu": flags_equal, "f64_k_ff_rel_cpu": kff,
+           "f64_tol": RISK_LANE_TOL,
+           "f32_f64_flags_agree": agree}
+    print(f"[risk] lane SQP, risk_tracking (w_sigma 5) at cartpole_batch_sqp's"
+          f" solver, {lanes} lanes: card f32 {g32['s'] * 1e3:.1f} ms, card "
+          f"f64 {g64['s'] * 1e3:.1f} ms, CPU f64 ({n_parity} lanes) "
+          f"{c64['s'] * 1e3:.1f} ms; feasible share {res['feasible_frac']}; "
+          f"f32 and f64 flags agree on {agree} of {lanes}; f64 card vs CPU on "
+          f"{n_parity} lanes: flags equal {flags_equal}, k_ff rel {kff:.2e} "
+          f"(tol {RISK_LANE_TOL:.0e})", flush=True)
+    if not all(v["finite"] for v in out.values()):
+        _fail("[risk] non-finite lane plan")
+    if not flags_equal or not kff <= RISK_LANE_TOL:
+        _fail(f"[risk] lane SQP f64 card vs CPU: flags equal {flags_equal}, "
+              f"k_ff rel {kff}")
+    return res
+
+
+def phase_risk(seed: int) -> dict:
+    """The risk objective: one NLP planner solve of cartpole_risk_sqp (as
+    ``[nlp]``, cut to RISK_NLP_SETS), then the lane SQP under it."""
+    nlp = phase_nlp(seed, "cartpole_risk_sqp", RISK_X0, RISK_NLP_SETS, "risk")
+    return {"nlp": nlp, "lanes": phase_risk_lanes(seed)}
+
+
+def phase_quadrotor_cem(seed: int, batch: int = B_QCEM,
+                        n_parity: int = 8) -> dict:
+    """One batched lane-CEM solve (quadrotor_episode's solver with
+    ``cem_backend="lanes"``: 256 samples, 6 iterations, n_safe 5 + n_perf
+    12, r_shared 1, so the wide pass scores M B = 16,384 lanes of the 6-D
+    tube and perf trajectory) on quadrotor_episode's first model, over
+    ``batch`` initial states spread over 0.3 of the safe box, with one set
+    of draws from a CPU generator. In f32 under "auto" (the tube's and the
+    perf stages' posterior through the gp_predict kernel at d = 8, e = 6,
+    with the Jacobian; cem_score's envelope is n_s 2) and "xla" (the plain
+    posterior): gp_predict launched under "auto" and not under "xla", the
+    flags agreeing on at least 95 % of the lanes (as ``[cem]``). In f64
+    over the first ``n_parity`` lanes, the card ("auto") against the CPU:
+    flags equal, k_ff within 1e-9."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
+    from safe_exploration_tpu_torch.ops.kernels import gp_predict_prepared
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.solvers.cem import CemConfig, cem_warm_len
+
+    base, arrays = _first_model(seed, "quadrotor_episode")
+    n_warm = cem_warm_len(CemConfig(n_safe=base.n_safe, n_perf=base.n_perf,
+                                    r_shared=base.r_shared))
+    n_var = n_warm * 2
+    gen = torch.Generator().manual_seed(seed + 13)
+    noise = torch.randn((base.cem_iterations, base.cem_samples, n_var, batch),
+                        generator=gen, dtype=torch.float64)
+    runs = {}
+    for key, impl, dev, dtype, b in (
+            ("auto_card_f32", "auto", "cuda", torch.float32, batch),
+            ("xla_card_f32", "xla", "cuda", torch.float32, batch),
+            ("auto_card_f64", "auto", "cuda", torch.float64, n_parity),
+            ("cpu_f64", "auto", "cpu", torch.float64, n_parity)):
+        cfg = _episode_cfg("quadrotor_episode", [
+            "cem_backend=lanes", f"cem_gp_impl={impl}"])
+        exp = build_experiment(cfg, dtype=dtype, device=dev)
+        ssm = gpssm_from_numpy(arrays, exp["kern_types"], device=dev,
+                               dtype=dtype)
+        x0s = _spread_x0s(exp["env"].spec, batch, seed + 17, 0.3, dtype,
+                          dev)[:b]
+        warm = torch.zeros((b, n_warm, 2), dtype=dtype, device=dev)
+        before = gp_predict_prepared.launches
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k_ff, feas, viol, info = exp["batch_planner"](
+            ssm, x0s, warm, noise=noise[..., :b])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[key] = {
+            "s": time.perf_counter() - t0, "k_ff": k_ff.double().cpu(),
+            "feasible": feas.cpu(), "cost": info["cost"].double().cpu(),
+            "gp_predict_launches": gp_predict_prepared.launches - before,
+            "finite": bool(torch.isfinite(k_ff).all())}
+    a32, x32 = runs["auto_card_f32"], runs["xla_card_f32"]
+    g64, c64 = runs["auto_card_f64"], runs["cpu_f64"]
+    agree = int((a32["feasible"] == x32["feasible"]).sum())
+    flags_equal = bool(torch.equal(g64["feasible"], c64["feasible"]))
+    kff = _rel0(g64["k_ff"], c64["k_ff"])
+    res = {"batch": batch, "samples": base.cem_samples,
+           "seconds": {k: v["s"] for k, v in runs.items()},
+           "feasible_frac": {k: float(v["feasible"].double().mean())
+                             for k, v in runs.items()},
+           "gp_predict_launches": {k: v["gp_predict_launches"]
+                                   for k, v in runs.items()},
+           "auto_xla_flags_agree": agree, "f64_flags_equal_cpu": flags_equal,
+           "f64_k_ff_rel_cpu": kff}
+    print(f"[quadrotor-cem] lane CEM on quadrotor_episode's first model, "
+          f"B={batch} M={base.cem_samples} ({batch * base.cem_samples} "
+          f"scoring lanes), f32: auto {a32['s'] * 1e3:.1f} ms a solve "
+          f"({a32['gp_predict_launches']} gp_predict launches), xla "
+          f"{x32['s'] * 1e3:.1f} ms ({x32['gp_predict_launches']}); feasible "
+          f"share {res['feasible_frac']}; auto vs xla flags agree on {agree} "
+          f"of {batch} (gate {int(np.ceil(0.95 * batch))}); f64 card vs CPU "
+          f"on {n_parity} lanes: flags equal {flags_equal}, k_ff rel "
+          f"{kff:.2e} (tol 1e-9); card f64 {g64['s'] * 1e3:.1f} ms, CPU f64 "
+          f"{c64['s'] * 1e3:.1f} ms", flush=True)
+    if not all(v["finite"] for v in runs.values()):
+        _fail("[quadrotor-cem] non-finite plan")
+    if a32["gp_predict_launches"] == 0 or x32["gp_predict_launches"] \
+            or c64["gp_predict_launches"]:
+        _fail(f"[quadrotor-cem] gp_predict launches {res['gp_predict_launches']}")
+    if agree < 0.95 * batch:
+        _fail(f"[quadrotor-cem] auto and xla flags agree on only {agree}")
+    if not flags_equal or not kff <= 1e-9:
+        _fail(f"[quadrotor-cem] f64 card vs CPU: flags equal {flags_equal}, "
+              f"k_ff rel {kff}")
+    return res
+
+
 # the kernels line: per Pallas kernel its name, CUDA source, the Pallas
 # kernel it replaces and the wrappers whose launches count for it (trsm's
 # three entries replace _trsm_kernel together)
@@ -2287,6 +2656,14 @@ def _partial_run(args, timed, t_start) -> int:
         "episode-sqp": (phase_episode, RUNS_SQP, "episode-sqp"),
         "episode-sqp-parity": (phase_episode_parity, "pendulum_episode_sqp",
                                SQP_PARITY_SETS, "episode-sqp-parity"),
+        "quadrotor-batch": (phase_batch, "quadrotor_batch_sqp",
+                            RUN_QUAD_BATCH, "quadrotor-batch"),
+        "quadrotor-batch-parity": (phase_batch_parity, "quadrotor_batch_sqp",
+                                   *QUAD_PARITY, "quadrotor-batch-parity"),
+        "quadrotor-episode": (phase_episode, RUNS_QUAD, "quadrotor-episode"),
+        "quadrotor-cem": (phase_quadrotor_cem,),
+        "risk": (phase_risk,),
+        "episode-risk": (phase_episode, RUNS_RISK, "episode-risk"),
     }
     record = {}
     for label in args.phases.split(","):
@@ -2362,6 +2739,18 @@ def main() -> int:
     sqp_parity = timed("episode-sqp-parity", phase_episode_parity, args.seed,
                        "pendulum_episode_sqp", SQP_PARITY_SETS,
                        "episode-sqp-parity")
+    quad_batch = timed("quadrotor-batch", phase_batch, args.seed,
+                       "quadrotor_batch_sqp", RUN_QUAD_BATCH,
+                       "quadrotor-batch")
+    quad_parity = timed("quadrotor-batch-parity", phase_batch_parity,
+                        args.seed, "quadrotor_batch_sqp", *QUAD_PARITY,
+                        "quadrotor-batch-parity")
+    quad_episode = timed("quadrotor-episode", phase_episode, args.seed,
+                         RUNS_QUAD, "quadrotor-episode")["quadrotor"]
+    quad_cem = timed("quadrotor-cem", phase_quadrotor_cem, args.seed)
+    risk = timed("risk", phase_risk, args.seed)
+    episode_risk = timed("episode-risk", phase_episode, args.seed, RUNS_RISK,
+                         "episode-risk")["risk"]
 
     # each kernel's launches are those of the path that runs it: the refit
     # kernels' from the fleet (pendulum_batch_sqp, PR 8's main path), the
@@ -2370,7 +2759,10 @@ def main() -> int:
     # refit's 512 matrices of n = 128; gp_predict: the final B-lane passes;
     # cholesky_hbm: n = 2048, f32). The refit kernels also carry the
     # cart-pole fleet's launches, errors and times at its shape
-    # ("cartpole_fleet"), and the cart-pole episode's launches.
+    # ("cartpole_fleet"), and the cart-pole episode's launches; the
+    # quadrotor fleet's the same at its shape ("quadrotor_fleet": 384
+    # matrices of n = 96), the quadrotor and risk episodes' launches, and
+    # gp_predict the quadrotor lane CEM's at d 8, e 6 ("quadrotor_cem").
     t_hbm = hbm["times"][f"float32_n{N_HBM}"]
     times = {**batch_kern["timings"],
              "gp_predict": cem_kern["timings"][f"gp_predict_L{B_CEM}"],
@@ -2415,6 +2807,26 @@ def main() -> int:
                 episode_sqp[tag]["config_name"]: sum(
                     episode_sqp[tag]["launches"].get(w, 0) for w in wrappers)
                 for tag in episode_sqp}
+            rq = batch_kern["timings_quadrotor"][short]
+            entry["quadrotor_fleet"] = {
+                "launches": sum(quad_batch["launches"].get(w, 0)
+                                for w in wrappers),
+                "max_abs_err": batch_kern["errs_quadrotor"][short],
+                **{k: rq[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
+            entry["quadrotor_episode_launches"] = sum(
+                quad_episode["launches"].get(w, 0) for w in wrappers)
+            entry["quadrotor_episode_max_abs_err"] = batch_kern[
+                "errs_quadrotor_episode"][short]
+            entry["episode_risk_launches"] = sum(
+                episode_risk["launches"].get(w, 0) for w in wrappers)
+        if short == "gp_predict":
+            rq = cem_kern["timings"]["gp_predict_quadrotor"]
+            entry["quadrotor_cem"] = {
+                "launches": quad_cem["gp_predict_launches"]["auto_card_f32"],
+                "max_abs_err": cem_kern["errs"]["gp_predict_quadrotor"],
+                **{k: rq[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
         kernels.append(entry)
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "kernels": kernels,
@@ -2431,6 +2843,11 @@ def main() -> int:
               "cartpole_batch_parity": cart_parity,
               "cartpole_episode": cart_episode, "nlp": nlp,
               "episode_sqp": episode_sqp, "episode_sqp_parity": sqp_parity,
+              "batch_kernel_times_quadrotor": batch_kern["timings_quadrotor"],
+              "quadrotor_batch": quad_batch,
+              "quadrotor_batch_parity": quad_parity,
+              "quadrotor_episode": quad_episode, "quadrotor_cem": quad_cem,
+              "risk": risk, "episode_risk": episode_risk,
               "phase_s": phase_s,
               "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}

@@ -4,9 +4,9 @@
 :class:`ExperimentConfig` has the JAX package's fields and defaults, and
 :data:`CONFIGS` its registry of named configurations, so a name means the
 same thing on both sides. :func:`build_experiment` wires what the port
-carries: the pendulum and the cart-pole (with or without a performance
-trajectory), the exact GP state-space model, the tracking and
-exploration objectives, and the two solvers with the single-instance and
+carries: the pendulum, the cart-pole and the planar quadrotor (with or
+without a performance trajectory), the exact GP state-space model, the
+tracking, exploration and risk-priced tracking objectives, and the two solvers with the single-instance and
 the batched SafeMPC machines — the SQP (the single-instance ``planner`` on
 the portable NLP, the batched ``batch_planner`` on the lane SQP, and the
 fleet runner's test ``lane_batch_supported``) and the CEM (the
@@ -28,6 +28,7 @@ from safe_exploration_tpu_torch.envs import (
     linearize_discretize,
     make_cartpole,
     make_pendulum,
+    make_quadrotor,
 )
 from safe_exploration_tpu_torch.models.gp_lanes import LaneGPSSM
 from safe_exploration_tpu_torch.ops.linalg import dlqr
@@ -42,6 +43,7 @@ from safe_exploration_tpu_torch.solvers.cem_lanes import (
 )
 from safe_exploration_tpu_torch.solvers.costs import (
     exploration_cost,
+    risk_tracking_cost,
     tracking_cost,
 )
 from safe_exploration_tpu_torch.solvers.safempc import (
@@ -64,7 +66,8 @@ from safe_exploration_tpu_torch.solvers.sqp_lanes import (
 __all__ = ["ExperimentConfig", "CONFIGS", "build_experiment",
            "register_config"]
 
-ENV_FACTORIES = {"pendulum": make_pendulum, "cartpole": make_cartpole}
+ENV_FACTORIES = {"pendulum": make_pendulum, "cartpole": make_cartpole,
+                 "quadrotor": make_quadrotor}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,18 +143,14 @@ def _require_ported(cfg: ExperimentConfig) -> None:
     """Raise for the choices the port does not carry yet."""
     if cfg.solver not in ("sqp", "cem"):
         raise ValueError(f"unknown solver {cfg.solver!r} (sqp|cem)")
-    todo = {
-        "env": (tuple(ENV_FACTORIES), "quadrotor: ROADMAP Queue 1, item 10"),
-        "objective": (("tracking", "exploration"),
-                      "risk_tracking: ROADMAP Queue 1, item 10"),
-        "ssm": (("gp",), "sparse and MC-dropout models: ROADMAP Queue 1, "
-                "items 11 and 12"),
-    }
-    for field, (ported, where) in todo.items():
-        if getattr(cfg, field) not in ported:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r} is not ported yet ({where})"
-            )
+    if cfg.env not in ENV_FACTORIES:
+        raise ValueError(f"unknown env {cfg.env!r} ({'|'.join(ENV_FACTORIES)})")
+    if cfg.objective not in ("tracking", "exploration", "risk_tracking"):
+        raise ValueError(f"unknown objective {cfg.objective!r}")
+    if cfg.ssm != "gp":
+        raise NotImplementedError(
+            f"ssm={cfg.ssm!r} is not ported yet (sparse and MC-dropout "
+            "models: ROADMAP Queue 1, items 11 and 12)")
 
 
 def _warn_ignored_knobs(cfg: ExperimentConfig, ignored: tuple) -> None:
@@ -200,9 +199,13 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
 
     if cfg.objective == "tracking":
         cost_fn, cost_args = tracking_cost(spec.target), {"target": spec.target}
+    elif cfg.objective == "risk_tracking":
+        cost_fn = risk_tracking_cost(spec.target, w_sigma=cfg.w_sigma)
+        cost_args = {"target": spec.target, "w_sigma": cfg.w_sigma}
     else:
         cost_fn, cost_args = exploration_cost(), {}
-    _warn_ignored_knobs(cfg, ignored=("w_sigma",))
+    if cfg.objective != "risk_tracking":
+        _warn_ignored_knobs(cfg, ignored=("w_sigma",))
     n_duals, dual_shift = 0, None
     lane_batch_supported = None
     if cfg.solver == "cem":

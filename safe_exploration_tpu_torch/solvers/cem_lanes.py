@@ -97,11 +97,7 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
     t_len, n_u = cfg.n_safe, u_min.shape[0]
     t_total = cem_warm_len(cfg)
     bsz, n_s = x0s.shape
-    if n_s > 2 or cfg.n_perf > 0:
-        raise NotImplementedError(
-            "the lane CEM covers n_s <= 2 with no performance trajectory; "
-            "larger states and perf trajectories on it are not ported yet "
-            "(ROADMAP Queue 1, item 10; the portable CEM carries both)")
+    r = min(cfg.r_shared, t_len, cfg.n_perf) if cfg.n_perf > 0 else 0
     m = cfg.n_samples
     dtype, device = x0s.dtype, x0s.device
     n_var = t_total * n_u
@@ -136,11 +132,11 @@ def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,
         def score(u_flat):
             y = _rollout_y_lanes(ssm, u_flat, x0_cols, *consts[:3], tube_cfg,
                                  consts[3], impl=gp_impl,
-                                 want_sigma=want_sigma, post=post)
+                                 want_sigma=want_sigma, post=post, r=r)
             g = _dist_lanes(y, t_len, n_s, *polys)
             viol = torch.sum(_relu0(g), dim=0)
             cost = _cost_lanes(cost_kind, cost_args, y, u_flat, t_len,
-                               n_s, n_u)
+                               n_s, n_u, n_perf=cfg.n_perf, r=r)
             return cost + cfg.penalty * viol, viol, cost, y
 
         return score

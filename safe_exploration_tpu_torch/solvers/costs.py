@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["tracking_cost", "exploration_cost"]
+__all__ = ["tracking_cost", "exploration_cost", "risk_tracking_cost"]
 
 
 def _total(x: torch.Tensor) -> torch.Tensor:
@@ -30,6 +30,28 @@ def tracking_cost(target: torch.Tensor, w_x: float = 1.0, w_u: float = 0.1,
             k_ff_all * k_ff_all
         )
         return (stage + w_terminal * _total(dx[-1] * dx[-1]))[0]
+
+    return cost_fn
+
+
+def risk_tracking_cost(target: torch.Tensor, w_x: float = 1.0,
+                       w_u: float = 0.1, w_terminal: float = 5.0,
+                       w_sigma: float = 1.0):
+    """Risk-sensitive tracking: the quadratic tracking objective plus a
+    variance price ``w_sigma * sum_t trace(Sigma_t)`` on the propagated
+    state covariance (the performance trajectory's Sigma, which differs
+    between ``taylor`` and ``mean_equivalent``). With ``n_perf = 0`` the
+    same functional reads the safety tube's shapes q_traj, so trace(Q_t)
+    prices the tube's growth."""
+
+    def cost_fn(p_traj, q_traj, var_traj, k_ff_all):
+        dx = p_traj - target
+        stage = w_x * _total(dx[:-1] * dx[:-1]) + w_u * _total(
+            k_ff_all * k_ff_all
+        )
+        term = w_terminal * _total(dx[-1] * dx[-1])
+        risk = w_sigma * _total(torch.diagonal(q_traj, dim1=-2, dim2=-1))
+        return (stage + term + risk)[0]
 
     return cost_fn
 

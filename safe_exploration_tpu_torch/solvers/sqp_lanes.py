@@ -18,13 +18,13 @@ Covered here: a shared :class:`GPSSM` or per-lane :class:`LaneGPSSM`
 (the fleet runner's models, each lane querying its own posterior through
 ``models/gp_lanes.lane_predict``) with the RBF kernel menu, any state
 dimension (the JAX package's array-form tube; its scalar unroll at n_s <= 2
-is not kept, see :func:`_rollout_y_lanes`), the joint performance trajectory on its Sigma-free branch (the first
-``r_shared`` controls shared with the safety block, the rest from the free
-perf tail of the decision vector), the tracking and exploration objectives,
-GN Hessian, exact line search and fixed feedback gains. The perf
-trajectory's covariance recursion (``want_sigma``, which only the risk
-objective reads), the risk objective and sparse models are still to port
-(ROADMAP Queue 1, items 10 and 11).
+is not kept, see :func:`_rollout_y_lanes`), the joint performance
+trajectory (the first ``r_shared`` controls shared with the safety block,
+the rest from the free perf tail of the decision vector) with its
+covariance recursion where the objective reads it (``want_sigma``), the
+tracking, exploration and risk-priced tracking objectives, GN Hessian,
+exact line search and fixed feedback gains. Sparse models are still to
+port (ROADMAP Queue 1, item 11).
 
 The tube rollout also serves the lane CEM (solvers/cem_lanes.py), which
 scores without derivatives: there ``impl="pallas"`` routes the posterior
@@ -61,9 +61,10 @@ from safe_exploration_tpu_torch.solvers.sqp import SqpConfig, _solve_spd_unrolle
 __all__ = ["lanes_supported", "gp_pallas_supported", "solve_safempc_lanes",
            "make_sqp_lane_solver"]
 
-# the Sigma-free stock objectives; a Sigma-consuming one (risk_tracking, not
-# ported) must be added to _wants_sigma as well
-_LANE_COSTS = ("tracking", "exploration")
+# the lane objectives: tracking and exploration read only stage means and
+# variances; risk_tracking reads the perf trajectory's covariance, so a new
+# Sigma-consuming cost must be added to _wants_sigma as well
+_LANE_COSTS = ("tracking", "exploration", "risk_tracking")
 
 # ----------------------------------------------------------------- GP (lanes)
 
@@ -272,27 +273,50 @@ def _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
 
 
 def _rollout_perf_lanes(ssm, u_flat, x0, a, b, cfg, r, n_u, t_len,
-                        impl="xla", post=None):
-    """Performance-trajectory stages, lane-major: the Sigma-free branch of
-    the JAX package's ``_rollout_perf_lanes`` (its
-    ``reachability/propagation.multi_step_propagation`` means and GP
-    variances, open loop). The tracking and exploration objectives read
-    only these, so ``taylor`` and ``mean_equivalent`` coincide here.
+                        impl="xla", post=None, want_sigma=False):
+    """Performance-trajectory stages, lane-major: the JAX package's
+    ``_rollout_perf_lanes`` (``reachability/propagation.
+    multi_step_propagation``, open loop). The tracking and exploration
+    objectives read only the means and GP variances, so ``taylor`` and
+    ``mean_equivalent`` coincide for them and the covariance is skipped. A
+    Sigma-consuming cost sets ``want_sigma``, which runs the covariance
+    recursion on (n_s, n_s, B) lanes:
+
+      * ``taylor``:          Sigma+ = H Sigma H^T + diag(var + noise),
+        H = a + J_mu,x (the posterior's mean Jacobian at each stage);
+      * ``mean_equivalent``: Sigma+ = Sigma + diag(var + noise).
 
     Stage t's control is k_ff[t] (``u_flat`` rows t n_u ...) for t < r,
     shared with the safety block, and the free perf tail of ``u_flat``
     (rows t_len n_u + (t - r) n_u ...) after. x0 (n_s, B). Returns
-    (p_perf, var_perf), each (n_perf, n_s, B)."""
+    (p_perf, var_perf), each (n_perf, n_s, B), and with ``want_sigma``
+    also sig_perf (n_perf, n_s, n_s, B)."""
+    n_s, width = x0.shape
+    taylor = getattr(cfg, "perf_method", "taylor") == "taylor"
+    want_jac = want_sigma and taylor
+    if want_sigma:
+        eye = torch.eye(n_s, dtype=x0.dtype, device=x0.device)[:, :, None]
+        noise = _lane_col(torch.exp(2.0 * _gp_of(ssm).log_noise), width)
+        sig = torch.zeros((n_s, n_s, width), dtype=x0.dtype, device=x0.device)
     p = x0
-    p_perf, var_perf = [], []
+    p_perf, var_perf, sig_perf = [], [], []
     for t in range(cfg.n_perf):
         base = t * n_u if t < r else t_len * n_u + (t - r) * n_u
         ut = u_flat[base:base + n_u]
-        mu, var = _gp_predict_lanes(ssm, torch.cat([p, ut], 0),
-                                    want_jac=False, impl=impl, post=post)
+        mu, var, *jac = _gp_predict_lanes(ssm, torch.cat([p, ut], 0),
+                                          want_jac=want_jac, impl=impl,
+                                          post=post)
         p = a @ p + b @ ut + mu
         p_perf.append(p)
         var_perf.append(var)
+        if want_sigma:
+            if taylor:
+                h = a[:, :, None] + jac[0][:, :n_s]
+                sig = torch.einsum("ikb,klb,jlb->ijb", h, sig, h)
+            sig = sig + eye * (var + noise)[:, None, :]
+            sig_perf.append(sig)
+    if want_sigma:
+        return torch.stack(p_perf), torch.stack(var_perf), torch.stack(sig_perf)
     return torch.stack(p_perf), torch.stack(var_perf)
 
 
@@ -304,25 +328,22 @@ def _rollout_y_lanes(ssm, u_flat, x0, k_fb, a, b, cfg, bmat, impl="xla",
     PyTorch does not have; on the H100 the array form is the faster one at
     n_s = 2 as well). With ``cfg.n_perf > 0`` the perf stages
     (:func:`_rollout_perf_lanes`, ``r`` shared controls) follow the tube's
-    rows. The perf covariance (``want_sigma``) is not ported."""
-    if want_sigma:
-        raise NotImplementedError(
-            "the performance trajectory's covariance recursion (the "
-            "risk_tracking objective) is not ported yet (ROADMAP Queue 1, "
-            "item 10)")
+    rows, and with ``want_sigma`` the perf covariance's after them."""
     y = _rollout_lanes_array(ssm, u_flat, x0, k_fb, a, b, cfg, bmat,
                              impl=impl, post=post)
     if cfg.n_perf == 0:
         return y
     perf = _rollout_perf_lanes(ssm, u_flat, x0, a, b, cfg, r, len(k_fb),
-                               cfg.n_safe, impl=impl, post=post)
+                               cfg.n_safe, impl=impl, post=post,
+                               want_sigma=want_sigma)
     return torch.cat([y] + [blk.reshape(-1, blk.shape[-1]) for blk in perf])
 
 
-def _unpack_y(y, t_len, n_s, n_perf=0):
+def _unpack_y(y, t_len, n_s, n_perf=0, with_sigma=False):
     """The packed y's stages: centers p (t_len, n_s, B), shapes q (t_len,
     n_s, n_s, B), variances var (t_len, n_s, B); with ``n_perf > 0`` also
-    (p_perf, var_perf), each (n_perf, n_s, B)."""
+    (p_perf, var_perf), each (n_perf, n_s, B), and ``with_sigma`` adds the
+    perf covariance sig_perf (n_perf, n_s, n_s, B) to that tuple."""
     blk_p, blk_q = t_len * n_s, t_len * n_s * n_s
     p = y[:blk_p].reshape(t_len, n_s, -1)
     q = y[blk_p:blk_p + blk_q].reshape(t_len, n_s, n_s, -1)
@@ -333,7 +354,11 @@ def _unpack_y(y, t_len, n_s, n_perf=0):
     idx, blk = idx + blk_p, n_perf * n_s
     p_perf = y[idx:idx + blk].reshape(n_perf, n_s, -1)
     var_perf = y[idx + blk:idx + 2 * blk].reshape(n_perf, n_s, -1)
-    return p, q, var, (p_perf, var_perf)
+    if not with_sigma:
+        return p, q, var, (p_perf, var_perf)
+    idx += 2 * blk
+    sig_perf = y[idx:idx + blk * n_s].reshape(n_perf, n_s, n_s, -1)
+    return p, q, var, (p_perf, var_perf, sig_perf)
 
 
 def _dist_lanes(y, t_len, n_s, h_mat_obs, h_obs, h_mat_safe, h_safe):
@@ -352,40 +377,45 @@ def _dist_lanes(y, t_len, n_s, h_mat_obs, h_obs, h_mat_safe, h_safe):
 
 def _wants_sigma(cost_kind: str, n_perf: int) -> bool:
     """Whether the lane rollout must carry the perf-trajectory covariance
-    recursion for this objective (the JAX package's risk cost with a
-    performance trajectory; neither is ported)."""
+    recursion for this objective (with n_perf == 0 the risk cost reads the
+    safety tube's q, which the tube rollout always carries)."""
     return cost_kind == "risk_tracking" and n_perf > 0
 
 
 def _cost_lanes(cost_kind: str, cost_args: dict, y, u_flat, t_len, n_s, n_u,
                 n_perf=0, r=0):
-    """Lane forms of the tracking and exploration objectives -> (B,), on
-    the tube's stages, or with ``n_perf > 0`` on the performance
+    """Lane forms of the stock objectives (``solvers/costs.py``) -> (B,),
+    on the tube's stages, or with ``n_perf > 0`` on the performance
     trajectory's (the perf blocks of ``y``) with the control penalty over
     u_perf_all = the shared k_ff[:r] plus the free perf controls, the JAX
-    package's ``ctrl_idx``."""
+    package's ``ctrl_idx``. The risk cost's variance price reads the perf
+    covariance, or with ``n_perf == 0`` the tube's shapes."""
     if cost_kind not in _LANE_COSTS:
-        raise NotImplementedError(
-            f"lane cost {cost_kind!r} is not ported yet (ROADMAP Queue 1, "
-            "item 10); the port carries 'tracking' and 'exploration'"
-        )
+        raise ValueError(f"lane backend has no cost {cost_kind!r}")
     if n_perf > 0:
-        *_, (p_cost, var_cost) = _unpack_y(y, t_len, n_s, n_perf)
+        *_, perf = _unpack_y(y, t_len, n_s, n_perf,
+                             with_sigma=_wants_sigma(cost_kind, n_perf))
+        p_cost, var_cost = perf[:2]
+        sig_cost = perf[2] if len(perf) > 2 else None
         u_cost = torch.cat([u_flat[:r * n_u],
                             u_flat[t_len * n_u:(t_len + n_perf - r) * n_u]])
     else:
-        p_cost, _, var_cost = _unpack_y(y, t_len, n_s)
+        p_cost, sig_cost, var_cost = _unpack_y(y, t_len, n_s)
         u_cost = u_flat[:t_len * n_u]
     if cost_kind == "exploration":
         return -cost_args.get("scale", 1.0) * torch.sqrt(var_cost).sum((0, 1))
     target = torch.as_tensor(cost_args["target"], dtype=y.dtype,
                              device=y.device)
     dx = p_cost - target[None, :, None]                     # (T, n_s, B)
-    return (cost_args.get("w_x", 1.0) * torch.sum(dx[:-1] * dx[:-1],
+    cost = (cost_args.get("w_x", 1.0) * torch.sum(dx[:-1] * dx[:-1],
                                                   dim=(0, 1))
             + cost_args.get("w_u", 0.1) * torch.sum(u_cost * u_cost, dim=0)
             + cost_args.get("w_terminal", 5.0) * torch.sum(dx[-1] * dx[-1],
                                                            dim=0))
+    if cost_kind == "risk_tracking":
+        trace = torch.diagonal(sig_cost, dim1=1, dim2=2).sum((0, -1))
+        cost = cost + cost_args.get("w_sigma", 1.0) * trace
+    return cost
 
 
 # ------------------------------------------------------------------- GN-AL
@@ -475,6 +505,7 @@ def solve_safempc_lanes(
     t_total = t_len + (cfg.n_perf - r if cfg.n_perf > 0 else 0)
     n_var = t_total * n_u
     n_con = t_len * h_obs.shape[0] + h_safe.shape[0]
+    want_sigma = _wants_sigma(cost_kind, cfg.n_perf)
 
     s_lift = torch.cat([torch.eye(n_s, dtype=dtype, device=device), k_fb], 0)
     bmat = s_lift.T @ s_lift
@@ -489,7 +520,7 @@ def solve_safempc_lanes(
 
     def rollout_at(u_flat, x0_wide):
         return _rollout_y_lanes(ssm, u_flat, x0_wide, k_fb, a, b, cfg, bmat,
-                                r=r)
+                                r=r, want_sigma=want_sigma)
 
     def rollout_y(u_flat):
         return rollout_at(u_flat, x0)
@@ -643,7 +674,8 @@ def lanes_supported(ssm, cfg: SqpConfig, cost_kind: str) -> bool:
     :class:`GPSSM` (one model, B initial states) or a :class:`LaneGPSSM`
     (B per-lane models, the fleet runner's), any state dimension, with or
     without a performance trajectory (either ``perf_method``: the Sigma-free
-    objectives read the same stages under both)."""
+    objectives read the same stages under both, the risk cost the
+    covariance recursion of each), any lane objective."""
     return (
         isinstance(ssm, (GPSSM, LaneGPSSM))
         and all(kt in _KERNEL_PARTS for kt in ssm.gp.kern_types)

@@ -50,26 +50,29 @@ def jax_region(n, dtype=jnp.float64, n_s=2, n_u=1):
             np.array(jax.random.uniform(ku, (n, n_u), dtype)))
 
 
-def jax_episode_draws(cfg, n_region, plan=None, dtype=jnp.float64) -> dict:
+def jax_episode_draws(cfg, n_region, plan=None, dtype=jnp.float64, n_s=2,
+                      n_u=1) -> dict:
     """The JAX episodic runner's draws as numpy arrays, rebuilt from its key
     splits (runtime/episode.py: run_episodic, collect_initial_data,
-    rollout_episode; calibrate_lipschitz's PRNGKey(0)) for the pendulum.
-    ``plan(k_plan)`` gives one solve's planner draws (the CEM's); without
-    it the run has none (the SQP draws nothing)."""
+    rollout_episode; calibrate_lipschitz's PRNGKey(0)) for a plant of n_s
+    states and n_u controls (the pendulum's by default). ``plan(k_plan)``
+    gives one solve's planner draws (the CEM's); without it the run has
+    none (the SQP draws nothing)."""
     key = jax.random.PRNGKey(cfg.seed)
     k_init, _, key = jax.random.split(key, 3)
-    draws = jax_init_draws(k_init, cfg.n_init_samples, dtype)
-    draws["region_x"], draws["region_u"] = jax_region(n_region, dtype)
+    draws = jax_init_draws(k_init, cfg.n_init_samples, dtype, n_s, n_u)
+    draws["region_x"], draws["region_u"] = jax_region(n_region, dtype, n_s,
+                                                      n_u)
     reset, plans, step = [], [], []
     for _ in range(cfg.n_ep):
         k_reset, k_roll, key = jax.random.split(key, 3)
-        reset.append(np.asarray(jax.random.normal(k_reset, (2,), dtype)))
+        reset.append(np.asarray(jax.random.normal(k_reset, (n_s,), dtype)))
         pl, st = [], []
         for k in jax.random.split(k_roll, cfg.n_steps):
             k_plan, k_step = jax.random.split(k)
             if plan is not None:
                 pl.append(plan(k_plan))
-            st.append(np.asarray(jax.random.normal(k_step, (2,), dtype)))
+            st.append(np.asarray(jax.random.normal(k_step, (n_s,), dtype)))
         plans.append(pl)
         step.append(np.stack(st))
     draws.update(reset=np.stack(reset), step=np.stack(step))

@@ -1,12 +1,10 @@
 """PyTorch port: the episodic closed loop against the JAX package, on the
-CPU, in f64.
+CPU, in f64 (the GP's refit and likelihood in tests/test_torch_gp_nll.py,
+its fit and the Lipschitz estimates in tests/test_torch_fit.py, which take
+this file's helpers: split so that each file's test count, by which
+pytest-xdist hands files out, places it well in the tier-1 run's
+schedule).
 
-  * ``gp_refit`` at n_max 1040, the large-matrix tier (``cholesky_hbm``'s
-    plain version), against the JAX refit: chol, beta and K^-1 at 1e-9;
-  * ``gp_nll`` value and gradient at 1e-10, and 10 steps of ``gp_fit``
-    (Adam in optax's order) with hyperparameters at 1e-8;
-  * ``estimate_lipschitz`` off data at 1e-8, and ``calibrate_lipschitz`` on
-    JAX's region probes;
   * the single-instance ``get_action`` on a success step and on a fallback
     step after it, fed the JAX planner's draws, at 1e-8;
   * ``collect_initial_data`` on JAX's draws at 1e-12;
@@ -65,7 +63,6 @@ from test_torch_bridge import (  # noqa: E402,F401
     jax_episode_draws,
     jax_gpssm_to_numpy,
     jax_init_draws as _jax_init_draws,
-    jax_region as _jax_region,
     one_torch_thread,
 )
 
@@ -121,138 +118,6 @@ def _gps(n, n_max, params=None):
 def _assert_factors(tg, jg, tol):
     for f in ("chol", "beta", "kinv"):
         assert _rel(getattr(tg, f).numpy(), getattr(jg, f)) < tol, f
-
-
-def test_gp_refit_hbm_tier_matches_jax():
-    """n_max 1040 > 1024 routes the port's refit to the left-looking tier
-    (plain version on the CPU); 1,000 points, identity on the rest."""
-    jg, tg = _gps(1000, 1040)
-    _assert_factors(tg, jg, 1e-9)
-    eye = np.eye(40)
-    np.testing.assert_array_equal(tg.chol[:, 1000:, 1000:].numpy(),
-                                  np.broadcast_to(eye, (2, 40, 40)))
-
-
-def test_gp_nll_value_and_gradient_match_jax():
-    params, log_noise = _params()
-    jg, tg = _gps(18, 24)
-    jp = tuple({k: jnp.asarray(v) for k, v in p.items()} for p in params)
-    jval, (jgp_, jgn) = jax.jit(jax.value_and_grad(jgp.gp_nll, argnums=(
-        0, 1)))(jp, jnp.asarray(log_noise), jg)
-    tp = tuple({k: _t(v).requires_grad_(True) for k, v in p.items()}
-               for p in params)
-    tn = _t(log_noise).requires_grad_(True)
-    val = tgp.gp_nll(tp, tn, tg)
-    val.backward()
-    assert abs(float(val) - float(jval)) <= 1e-10 * abs(float(jval))
-    for d in range(2):
-        for k in ("log_lengthscales", "log_sf"):
-            assert _rel(tp[d][k].grad.numpy(), jgp_[d][k]) < 1e-10, (d, k)
-    assert _rel(tn.grad.numpy(), jgn) < 1e-10
-
-
-def test_gp_nll_nan_instead_of_raising():
-    """An indefinite Gram (negative noise variance through a huge negative
-    jitter would be needed; here a duplicated point with no noise): the
-    factorization fails and the NLL is NaN, as JAX's, not an exception."""
-    x = np.array([[0.1, 0.2, 0.3]] * 4 + [[0.5, 0.1, -0.2]])
-    y = np.zeros((5, 2))
-    tg = tgp.gp_init(KT, _t(x), _t(y), n_max=8, log_noise=-3.0)
-    params = tuple({"log_lengthscales": _t(np.zeros(3)),
-                    "log_sf": _t(np.array(12.0))} for _ in range(2))
-    val = tgp.gp_nll(params, _t(np.array([-40.0, -40.0])), tg)
-    jg = jgp.gp_init(KT, jnp.asarray(x), jnp.asarray(y), n_max=8,
-                     log_noise=-3.0)
-    jval = jax.jit(jgp.gp_nll)(
-        tuple({k: jnp.asarray(v.numpy()) for k, v in p.items()}
-              for p in params), jnp.asarray([-40.0, -40.0]), jg)
-    assert np.isnan(float(jval)) and np.isnan(float(val))
-
-
-def test_gp_fit_matches_jax():
-    params, _ = _params()
-    jg, tg = _gps(18, 24, params)
-    jf = jgp.gp_fit(jg, iters=10)
-    tf = tgp.gp_fit(tg, iters=10)
-    for d in range(2):
-        for k in ("log_lengthscales", "log_sf"):
-            assert _rel(tf.params[d][k].numpy(), jf.params[d][k]) < 1e-8
-    assert _rel(tf.log_noise.numpy(), jf.log_noise) < 1e-8
-    _assert_factors(tf, jf, 1e-8)
-    assert int(tf.n_points) == int(jf.n_points) == 18
-
-
-def test_lipschitz_estimates_match_jax(pendulum):
-    """estimate_lipschitz at off-data points against the JAX estimate
-    (jitted) at 1e-8, and calibrate_lipschitz as that estimate over the
-    training buffer plus the region probes of JAX's PRNGKey(0). At training
-    inputs: :func:`test_lipschitz_at_training_inputs_matches_jitted_jax`."""
-    jexp, texp = pendulum
-    x, y = _data(20, seed=3)
-    spec = jexp["env"].spec
-    jssm = jssm_mod.make_gp_ssm(
-        KT, jnp.asarray(x[:, :2]), jnp.asarray(x[:, 2:]), jnp.asarray(y),
-        n_max=24, l_mu=jexp["l_mu"], l_sigma=jexp["l_sigma"], log_noise=-3.0,
-        z_scale=jnp.concatenate([spec.norm_x, spec.norm_u]))
-    jssm = jssm.replace(gp=jax.jit(jgp.gp_fit, static_argnames="iters")(
-        jssm.gp, iters=5))
-    tssm = gpssm_from_numpy(jax_gpssm_to_numpy(jssm), KT, device="cpu")
-    z = np.random.default_rng(4).uniform(-1, 1, (40, 3)) * [0.5, 2.0, 1.0]
-    je = jax.jit(jssm_mod.estimate_lipschitz)(jssm, jnp.asarray(z))
-    te = tssm_mod.estimate_lipschitz(tssm, _t(z))
-    assert _rel(te.l_mu.numpy(), je.l_mu) < 1e-8
-    assert _rel(te.l_sigma.numpy(), je.l_sigma) < 1e-8
-    region = tssm_mod.lipschitz_probe_set(
-        texp["env"].spec, n_samples=N_REGION, draws=_jax_region(N_REGION))
-    assert _rel(region.numpy(), jssm_mod.lipschitz_probe_set(
-        jexp["env"].spec, jax.random.PRNGKey(0), N_REGION)) < 1e-15
-    tc = tssm_mod.calibrate_lipschitz(tssm, texp["env"].spec,
-                                      draws=_jax_region(N_REGION))
-    ref = tssm_mod.estimate_lipschitz(
-        tssm, torch.cat([tssm_mod.ssm_probe_points(tssm), region]),
-        factor=1.2)
-    assert torch.equal(tc.l_mu, ref.l_mu)
-    assert torch.equal(tc.l_sigma, ref.l_sigma)
-
-
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)])
-def test_lipschitz_at_training_inputs_matches_jitted_jax(dtype, tol):
-    """estimate_lipschitz probed at the 20-point model's own buffer
-    (``ssm_probe_points``) against jitted JAX, in each precision. There
-    |z - x_i|^2 is exactly 0 in both (the cross term formed by the norms'
-    own arithmetic; the pendulum's z_scale round trip is exact), so the
-    floor's derivative is 1/2 in both and the Hessians agree. l_sigma is
-    held in f64 only: at a training input the f32 variance sf2 - kv^T K^-1
-    kv is a cancellation whose rounding follows each library's summation
-    order, and the std's gradient divides by it (2.6e-2 relative apart on
-    this model)."""
-    from safe_exploration_tpu_torch.models.kernels import _sq_dists
-
-    jdt, tdt = {"float32": (jnp.float32, torch.float32),
-                "float64": (F64, torch.float64)}[dtype]
-    jexp = jax_build(JaxConfig(), dtype=jdt)
-    spec = jexp["env"].spec
-    x, y = _data(20, seed=3)
-    jssm = jssm_mod.make_gp_ssm(
-        KT, jnp.asarray(x[:, :2], jdt), jnp.asarray(x[:, 2:], jdt),
-        jnp.asarray(y, jdt), n_max=24, l_mu=jexp["l_mu"],
-        l_sigma=jexp["l_sigma"], log_noise=-3.0,
-        z_scale=jnp.concatenate([spec.norm_x, spec.norm_u]))
-    jssm = jssm.replace(gp=jax.jit(jgp.gp_fit, static_argnames="iters")(
-        jssm.gp, iters=5))
-    tssm = gpssm_from_numpy(jax_gpssm_to_numpy(jssm), KT, device="cpu",
-                            dtype=tdt)
-    probes = tssm_mod.ssm_probe_points(tssm)
-    assert torch.equal(probes / tssm.z_scale, tssm.gp.x)
-    ls = torch.exp(tssm.gp.params[0]["log_lengthscales"])
-    d2 = _sq_dists(probes / tssm.z_scale / ls, tssm.gp.x / ls)
-    assert torch.all(torch.diagonal(d2) == 0.0)
-    je = jax.jit(jssm_mod.estimate_lipschitz)(
-        jssm, jssm_mod.ssm_probe_points(jssm))
-    te = tssm_mod.estimate_lipschitz(tssm, probes)
-    assert _rel(te.l_mu.numpy(), je.l_mu) < tol
-    if dtype == "float64":
-        assert _rel(te.l_sigma.numpy(), je.l_sigma) < tol
 
 
 def _jax_draws(key, n_it, shape, dtype=F64):
@@ -611,5 +476,9 @@ def test_registry_matches_jax_and_unported_choices_raise():
                      exp["a"], exp["b"], exp["k_fb"], kern_types=KT,
                      n_max=16, l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
                      ckpt_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_experiment(CONFIGS["cartpole_risk_sqp"], device="cpu")
+    for name in ("cartpole_risk_sqp", "quadrotor_batch_sqp",
+                 "quadrotor_episode"):
+        assert build_experiment(CONFIGS[name], device="cpu")["cfg"] == \
+            CONFIGS[name]
+    with pytest.raises(NotImplementedError, match="items 11 and 12"):
+        build_experiment(CONFIGS["pendulum_episode_mcdropout"], device="cpu")

@@ -224,34 +224,30 @@ def test_solve_safempc_lanes_matches_jax_lane_solve(fitted, objective):
 
 
 def test_lanes_supported_covers_the_ported_slice(fitted):
-    """The lane SQP covers performance trajectories (either perf method)
-    and the cart-pole builds; the risk objective, its perf covariance
-    recursion (want_sigma), the quadrotor, sparse models and the batched
+    """The lane SQP covers performance trajectories (either perf method),
+    the risk objective (its perf covariance recursion, want_sigma) and
+    the cart-pole and the quadrotor build; sparse models and the batched
     fallback to the portable NLP raise naming their ROADMAP items."""
     _, tssm = fitted
-    assert tl.lanes_supported(tssm, SqpConfig(), "tracking")
-    assert tl.lanes_supported(tssm, SqpConfig(), "exploration")
-    assert not tl.lanes_supported(tssm, SqpConfig(), "risk_tracking")
+    for kind in ("tracking", "exploration", "risk_tracking"):
+        assert tl.lanes_supported(tssm, SqpConfig(), kind)
     for method in ("taylor", "mean_equivalent"):
         assert tl.lanes_supported(
-            tssm, SqpConfig(n_perf=3, perf_method=method), "tracking")
+            tssm, SqpConfig(n_perf=3, perf_method=method), "risk_tracking")
+    assert not tl.lanes_supported(tssm, SqpConfig(), "unknown")
     assert not tl.lanes_supported(tssm, SqpConfig(opt_k_fb=True), "tracking")
     for kw in (dict(env="cartpole", kern_types=("rbf",)), dict(n_perf=3),
                dict(env="cartpole", kern_types=("rbf",), n_perf=3,
-                    r_shared=2)):
+                    r_shared=2),
+               dict(env="quadrotor", kern_types=("rbf",), n_perf=3),
+               dict(objective="risk_tracking", n_perf=3)):
         for solver in ("cem", "sqp"):
             exp = build_experiment(ExperimentConfig(solver=solver, **kw),
                                    device="cpu")
             assert exp["kern_types"] == ("rbf",) * exp["env"].spec.n_s
-    for kw, item in ((dict(objective="risk_tracking"), "item 10"),
-                     (dict(env="quadrotor", kern_types=("rbf",)), "item 10"),
-                     (dict(ssm="sparse_gp"), "items 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_experiment(ExperimentConfig(solver="cem", **kw),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tl._rollout_y_lanes(tssm, None, None, None, None, None,
-                            SqpConfig(n_perf=3), None, want_sigma=True)
+    with pytest.raises(NotImplementedError, match="items 11"):
+        build_experiment(ExperimentConfig(solver="cem", ssm="sparse_gp"),
+                         device="cpu")
     exp = build_experiment(ExperimentConfig(solver="sqp"), device="cpu")
     ff = tssm.replace(gp=tssm.gp.replace(precision="ff"))
     assert not tl.lanes_supported(ff, SqpConfig(), "tracking")

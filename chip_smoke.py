@@ -16,7 +16,10 @@ single-instance safe-MPC NLP behind ``--config pendulum_episode_sqp`` and
 ``--config cartpole_episode_sqp``; BASELINE config 5, the 6-D planar
 quadrotor, through ``--config quadrotor_batch_sqp`` and ``--config
 quadrotor_episode``; the risk-priced objective of ``--config
-cartpole_risk_sqp``) and checks the GPU against the CPU in f64.
+cartpole_risk_sqp``; BASELINE config 4, the sparse (inducing-point) GP,
+through ``--config pendulum_large_sparse`` and ``--config
+pendulum_episode_sparse``, the lane SQP and the lane CEM on it) and checks
+the GPU against the CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
     python3 chip_smoke.py --phases nlp,episode-sqp   # a partial run
@@ -130,9 +133,9 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
  16. episode-sqp-parity  f64, pendulum_episode_sqp for one episode of 3
               steps (3 hyperparameter steps): GPU against CPU on one set of
               draws
- 17. quadrotor-batch  the fleet phase for quadrotor_batch_sqp as registered
-              (64 lanes, n_max 96, 40 initial points, n_safe 3 + n_perf 5,
-              r_shared 1, 4 x 3, 2 episodes of 8 steps), f32, with its
+ 17. quadrotor-batch  the fleet phase for quadrotor_batch_sqp (64 lanes,
+              n_max 96, 40 initial points, n_safe 3 + n_perf 5, r_shared
+              1, 4 x 3, 2 episodes of 4 of its 8 steps), f32, with its
               gates
  18. quadrotor-batch-parity  f64, 2 lanes, 1 step, 2 episodes of
               quadrotor_batch_sqp: GPU against CPU on one set of draws
@@ -150,6 +153,31 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               lanes; f64 gates 1e-9 (NLP) and RISK_LANE_TOL (lane SQP)
  22. episode-risk  one episode of cartpole_risk_sqp cut to 1 step: the
               episode phase's gates
+ 23. sparse-kernels  gp_predict (with and without the Jacobian) and
+              cem_score on a sparse posterior (m inducing rows, alpha and
+              Kuu^-1 - Sigma^-1, no mask) at m = 256 (cem_score's streamed-W
+              tier) and m = 32, d 3, e 2, L 16,384 and 1,000, f32 and f64,
+              against their plain versions (the f32 variance relative to
+              sf2); f32 times at the CEM path's shapes
+ 24. sparse-refit  sparse_gp_refit at n 10,240, m 256, d 7, e 2 (CUDA
+              events, f32 and f64) and sparse_gp_predict; the card's f64
+              factors against the CPU's at 1e-9, the f32 factors finite
+ 25. sparse-batch  the lane SQP on bench_sparse_solves' model (N 10,240, m
+              256, c_safety 1.8) at B 512, H 5, f32: two get_action_batch
+              calls around a plant step and an ssm_update (solves/s,
+              feasible_frac, 0 violations); f64 on 16 lanes card vs CPU
+              (factors 1e-9, flags equal, k_ff 1e-4)
+ 26. sparse-cem  the lane CEM on that model at B 256, M 64: "auto" (both
+              kernels launched, counts zeroed just before) against "xla",
+              flags equal on every lane; the busy share; f64 card vs CPU on
+              16 lanes (flags equal, k_ff 1e-9)
+ 27. episode-sparse  pendulum_large_sparse as registered (n_max 10,240, m
+              256, 1,024 initial points, 60 fit steps, the NLP) for 1 of its
+              6 episodes and 2 of its 50 steps, pendulum_episode_sparse
+              (portable CEM, m 32) for 1 episode of 10 steps: wall, fit s, s
+              a step, feasibility, 0 violations; then f64 card vs CPU of
+              pendulum_episode_sparse, 3 steps at n_max 64 (counts equal,
+              floats and factors 1e-9)
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -1145,7 +1173,7 @@ def phase_cem_path(seed: int, batch: int = B_CEM, dev: str = "cuda") -> dict:
             "auto_xla_flags_agree": agree, **split}
 
 
-def _cem_split(exp, plan, x0, batch, dev) -> dict:
+def _cem_split(exp, plan, x0, batch, dev, label: str = "cem") -> dict:
     """Where an "auto" solve's time goes: the host time of one final B-lane
     scoring pass (tube rollout through gp_predict, margins, cost; a solve
     runs two), and the device's busy share over one solve from
@@ -1201,7 +1229,7 @@ def _cem_split(exp, plan, x0, batch, dev) -> dict:
                       e.count for e in events if f"{name}_kernel" in e.key))
         for name in ("cem_score", "gp_predict")}
     busy = device_ms / wall_ms
-    print(f"[cem] where an auto solve's time goes: one final B-lane scoring "
+    print(f"[{label}] where an auto solve's time goes: one final B-lane scoring "
           f"pass {pass_ms:.2f} ms (a solve runs two); under the profiler the "
           f"solve took {wall_ms:.2f} ms with {device_ms:.3f} ms of device time "
           f"(busy share {busy:.3f}, idle {1 - busy:.3f}); device ms per "
@@ -1619,12 +1647,13 @@ PARITY_SETS = ["n_max=2048", "n_init_samples=1100", "hyp_iters=3", "n_ep=1",
 
 def phase_episode_parity(seed: int, config: str = "pendulum_episode",
                          sets: tuple = tuple(PARITY_SETS),
-                         label: str = "episode-parity") -> dict:
+                         label: str = "episode-parity",
+                         factor_tol: float = 1e-9) -> dict:
     """f64, one episode of ``config`` (pendulum_episode: 3 steps at n_max
     2048 with 1,100 initial points, 3 hyperparameter steps and a small
     CEM), on the GPU (kernels) and on the CPU (plain versions) with one set
     of draws from a CPU generator: the series equal (counts exactly, floats
-    at 1e-9 relative) and the final factors within 1e-9."""
+    at 1e-9 relative) and the final factors within ``factor_tol``."""
     from safe_exploration_tpu_torch.runtime.config import build_experiment
     from safe_exploration_tpu_torch.runtime.episode import (
         episode_draws,
@@ -1657,8 +1686,12 @@ def phase_episode_parity(seed: int, config: str = "pendulum_episode",
     floats = {k: max(abs(x - y) / max(abs(y), 1e-300)
                      for x, y in zip(gs[k], cs[k]))
               for k in ("model_error", "mean_cost")}
-    factors = {f: _rel(getattr(g["ssm"].gp, f), getattr(c["ssm"].gp, f))
-               for f in ("chol", "beta", "kinv")}
+    if hasattr(g["ssm"], "sgp"):
+        gs_, cs_, names = g["ssm"].sgp, c["ssm"].sgp, ("luu", "lsig", "alpha",
+                                                       "vmat")
+    else:
+        gs_, cs_, names = g["ssm"].gp, c["ssm"].gp, ("chol", "beta", "kinv")
+    factors = {f: _rel(getattr(gs_, f), getattr(cs_, f)) for f in names}
     res = {"counts_equal": counts_equal, "series_rel": floats,
            "factors_rel": factors, "series_cpu": cs, "gpu_s": g["s"],
            "cpu_s": c["s"]}
@@ -1666,11 +1699,12 @@ def phase_episode_parity(seed: int, config: str = "pendulum_episode",
           f"{cfg.n_init_samples} points, {cfg.n_steps} steps: series "
           f"counts equal {counts_equal} (feasibility {cs['feasibility_rate']}"
           f", n_data {cs['n_data']}), float series rel {floats} (tol 1e-9), "
-          f"final factors rel {factors} (tol 1e-9); GPU {g['s']:.1f} s, CPU "
+          f"final factors rel {factors} (tol {factor_tol:g}); GPU "
+          f"{g['s']:.1f} s, CPU "
           f"{c['s']:.1f} s", flush=True)
     if not counts_equal or max(floats.values()) > 1e-9:
         _fail(f"[{label}] episode series differ GPU vs CPU: {gs} vs {cs}")
-    if max(factors.values()) > 1e-9:
+    if max(factors.values()) > factor_tol:
         _fail(f"[{label}] final GP factors differ GPU vs CPU: {factors}")
     return res
 
@@ -2112,8 +2146,8 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
     128, 24 initial points, 5 of its 20 steps, n_safe 3) or
     cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 1 of its
     16 steps, n_safe 6, n_perf 10, r_shared 2) or quadrotor_batch_sqp (64
-    lanes, n_max 96, 40 initial points, 8 steps, n_safe 3, n_perf 5), each
-    with the lane SQP at 4 outer x 3 inner and a per-lane fit and
+    lanes, n_max 96, 40 initial points, 4 of its 8 steps, n_safe 3, n_perf
+    5), each with the lane SQP at 4 outer x 3 inner and a per-lane fit and
     calibration after every episode (120 steps), 2 episodes (of 4, 4, 2). Counts are zeroed just before the run
     and read just after; the fits, calibrations and unstack refits are
     timed inside it. Gates: 0 violations, finite series but model_error (a
@@ -2418,11 +2452,12 @@ def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
     return res
 
 
-# BASELINE config 5: the quadrotor fleet as registered (quadrotor_batch_sqp:
-# 64 lanes, n_max 96, 40 initial points, 2 episodes of 8 steps), and its
-# f64 parity at 2 lanes, 1 step an episode; quadrotor_episode for 1 of its
-# 6 episodes (the portable CEM with 256 samples, n_safe 5 + n_perf 12)
-RUN_QUAD_BATCH = ()
+# BASELINE config 5: the quadrotor fleet (quadrotor_batch_sqp: 64 lanes,
+# n_max 96, 40 initial points, 2 episodes; 4 of its 8 steps an episode since
+# the sparse tier's phases came), and its f64 parity at 2 lanes, 1 step an
+# episode; quadrotor_episode for 1 of its 6 episodes (the portable CEM with
+# 256 samples, n_safe 5 + n_perf 12)
+RUN_QUAD_BATCH = ("n_steps=4",)
 QUAD_PARITY = (2, 1)
 RUNS_QUAD = (("quadrotor", "quadrotor_episode", ["n_ep=1"]),)
 # the risk objective: cartpole_risk_sqp's planner (the NLP with the perf
@@ -2613,6 +2648,556 @@ def phase_quadrotor_cem(seed: int, batch: int = B_QCEM,
     return res
 
 
+# BASELINE config 4, the sparse (VFE) tier: bench.py's bench_sparse_solves
+# model (N = 10,240 pendulum transitions, m = 256 inducing inputs, log noise
+# -4, log sf -3, l_mu 0.05, l_sigma 0.02, raw inputs; c_safety 1.8, where the
+# exact GP's 2.0 leaves every sparse tube infeasible) and
+# pendulum_episode_sparse's m = 32 (n_max 512); bench_large_gp's refit shape
+N_SPARSE, M_SPARSE = 10240, 256
+N_SPARSE_EP, M_SPARSE_EP = 512, 32
+REFIT_SHAPE = dict(n=10240, m=256, d=7, e=2)
+SPARSE_SQP = dict(solver="sqp", n_safe=5, n_max=N_SPARSE, c_safety=1.8,
+                  sqp_outer=14, sqp_inner=3, sqp_polish=6, sqp_rescue=4)
+SPARSE_CEM = dict(solver="cem", n_safe=H_CEM, n_max=N_SPARSE, c_safety=1.8,
+                  cem_samples=M_CEM, cem_elites=12, cem_iterations=4)
+# f32 gates of [sparse-kernels]: [cem-kernels]' 3e-5 (gp_predict) and 2e-4
+# (cem_score) at n <= 128, scaled by n / 128 above as [cem-kernels] scales
+# its n = 512 rows. The sparse posterior's sums cancel far more than the
+# exact GP's (|alpha| to 1e2 against a mean of 1e-3, |vmat| to 6e4: the
+# variance is ~1e-3 of sf2), so two f32 summation orders differ by ~n eps
+# times the sum of the terms' magnitudes, not of the result: gp_predict's
+# f32 error is held relative to that term scale (_posterior_scales), the
+# f64 error and cem_score's as [cem-kernels] holds them
+_SPARSE_CACHE: dict = {}
+
+
+def _sparse_exp(dtype, dev, **kw):
+    from safe_exploration_tpu_torch.runtime.config import (
+        ExperimentConfig,
+        build_experiment,
+    )
+
+    return build_experiment(ExperimentConfig(name="bsparse", **kw),
+                            dtype=dtype, device=dev)
+
+
+def _sparse_arrays(seed: int, n_data: int = N_SPARSE,
+                   m: int = M_SPARSE) -> dict:
+    """bench_sparse_solves' sparse GP-SSM on n_data transitions drawn with
+    numpy (bench.py's distributions), built in f64 on the CPU and handed over
+    as numpy arrays (made once per shape)."""
+    from safe_exploration_tpu_torch.models.convert import sparse_gpssm_to_numpy
+    from safe_exploration_tpu_torch.models.sparse_gp import (
+        make_sparse_gp_ssm,
+        sparse_gp_refit,
+    )
+
+    if (seed, n_data, m) not in _SPARSE_CACHE:
+        dt = torch.float64
+        exp = _sparse_exp(dt, "cpu", **{**SPARSE_SQP, "n_max": n_data})
+        xs, us, resid = _make_data(np.random.default_rng(seed + 21), n_data,
+                                   dt, "cpu", exp)
+        full = torch.full((2,), 0.05, dtype=dt)
+        ssm = make_sparse_gp_ssm(exp["kern_types"], xs, us, resid,
+                                 n_max=n_data, n_inducing=m, l_mu=full,
+                                 l_sigma=0.4 * full, log_noise=-4.0)
+        params = tuple({**p, "log_sf": torch.tensor(-3.0, dtype=dt)}
+                       for p in ssm.sgp.params)
+        _SPARSE_CACHE[seed, n_data, m] = sparse_gpssm_to_numpy(ssm.replace(
+            sgp=sparse_gp_refit(ssm.sgp.replace(params=params))))
+    return _SPARSE_CACHE[seed, n_data, m]
+
+
+def _sparse_ssm(arr: dict, dtype, dev, refit: bool = True):
+    """The sparse model of ``arr`` on ``dev`` in ``dtype``, refitted there
+    (the factors of that device and precision) unless ``refit`` is False."""
+    from safe_exploration_tpu_torch.models.convert import (
+        sparse_gpssm_from_numpy,
+    )
+    from safe_exploration_tpu_torch.models.sparse_gp import sparse_gp_refit
+
+    ssm = sparse_gpssm_from_numpy(arr, ("rbf", "rbf"), device=dev,
+                                  dtype=dtype)
+    return ssm.replace(sgp=sparse_gp_refit(ssm.sgp)) if refit else ssm
+
+
+def _posterior_scales(post, z: torch.Tensor):
+    """The magnitudes of the terms each posterior output sums, per lane, in
+    f64: sum_i |w_i| k_i (mean), sf2 + sum_ij k_i |W_ij| k_j (variance) and
+    sum_i |w_i| k_i (|x_i| + |z|) il^2 (Jacobian); the scale of two
+    summation orders' rounding difference."""
+    inv_ls, inv_ls2, sf2, _ = (h.double() for h in post.hyper)
+    x, zz = post.x.double(), z.double()
+    mus, vars_, jacs = [], [], []
+    for e in range(post.w_mean.shape[0]):
+        diff = post.x_il[e].double()[:, :, None] - zz[None] * inv_ls[e][
+            None, :, None]
+        kv = sf2[e] * torch.exp(-0.5 * torch.sum(diff * diff, dim=1))
+        w = post.w_mean[e].double().abs()[:, None]
+        mus.append(torch.sum(w * kv, dim=0))
+        vars_.append(sf2[e] + torch.sum(
+            kv * (post.w_var_t[e].double().abs().mT @ kv), dim=0))
+        jacs.append((x.abs().T @ (w * kv) + zz.abs() * torch.sum(
+            w * kv, dim=0)) * inv_ls2[e][:, None])
+    return torch.stack(mus), torch.stack(vars_), torch.stack(jacs)
+
+
+def _scaled_err(out, ref, scale) -> float:
+    """max |out - ref| / scale, elementwise."""
+    return float(((out.double() - ref.double()).abs() / scale).max())
+
+
+def phase_sparse_kernels(seed: int) -> dict:
+    """gp_predict (with and without the Jacobian) and cem_score on a sparse
+    posterior (the m inducing rows, alpha and Kuu^-1 - Sigma^-1, no mask)
+    prepared by prepare_posterior / prepare_tube_score, at m = 256
+    (bench_sparse_solves' model: cem_score's streamed-W tier) and m = 32
+    (pendulum_episode_sparse's), d 3, e 2, L = 16,384 and a ragged 1,000,
+    f32 and f64, against their plain versions; then the f32 times at the
+    CEM path's shapes (gp_predict at L = B with the Jacobian, cem_score at L
+    = M B, H 5)."""
+    from safe_exploration_tpu_torch.models.convert import sparse_gpssm_to_numpy
+    from safe_exploration_tpu_torch.ops.kernels import (
+        gp_predict_prepared,
+        posterior_plain,
+        prepare_posterior,
+        prepare_tube_score,
+        tube_score_plain,
+        tube_score_prepared,
+    )
+
+    rng = np.random.default_rng(seed + 22)
+    consts, polys, target = _cem_plant(torch.float64, "cuda")
+    shapes = {M_SPARSE: _sparse_arrays(seed),
+              M_SPARSE_EP: _sparse_arrays(seed, N_SPARSE_EP, M_SPARSE_EP)}
+
+    def score_args(ssm, u, x0, dtype):
+        t = {"dtype": dtype, "device": "cuda"}
+        return (ssm, torch.tensor(u, **t), torch.tensor(x0, **t),
+                *(c.to(dtype) for c in consts),
+                *(p.to(dtype) for p in polys), 1.8, u.shape[0], "tracking",
+                {"target": target.to(dtype)})
+
+    errs, worst, timings = {}, {}, {}
+    for m, arr in shapes.items():
+        scale = max(1.0, m / 128)
+        tol_gp, tol_cs = 3e-5 * scale, 2e-4 * scale
+        # the card's factors in each precision, carried to the plain side
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            ssm = _sparse_ssm(arr, dtype, "cuda", refit=not f64)
+            post = prepare_posterior(ssm)
+            for L in (M_CEM * B_CEM, 1000):
+                z = torch.tensor(rng.uniform(-1.0, 1.0, (D_IN, L))
+                                 * [[0.3], [1.0], [1.0]], dtype=dtype,
+                                 device="cuda")
+                scales = _posterior_scales(post, z)
+                e_rel, e_scaled = [], []
+                for jac in (False, True):
+                    out = gp_predict_prepared(post, z, want_jac=jac)
+                    ref = posterior_plain(post, z, want_jac=jac)
+                    e_rel += [_rel(o, r) for o, r in zip(out, ref)]
+                    e_scaled += [_scaled_err(o, r, s) for o, r, s in zip(
+                        out, ref, scales)]
+                u = (0.4 * rng.standard_normal((H_CEM, L))).astype(
+                    np.float64 if f64 else np.float32)
+                x0 = (rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]]).astype(
+                    u.dtype)
+                prep = prepare_tube_score(ssm, *score_args(ssm, u, x0,
+                                                           dtype)[3:])
+                out = tube_score_prepared(prep, *score_args(ssm, u, x0,
+                                                            dtype)[1:3])
+                # the plain reference in f64 on the model's own values
+                ref_ssm = _sparse_ssm(sparse_gpssm_to_numpy(ssm),
+                                      torch.float64, "cuda", refit=False)
+                ref = tube_score_plain(*score_args(ref_ssm, u.astype(
+                    np.float64), x0.astype(np.float64), torch.float64))
+                e_cs = max(_rel(o, r) for o, r in zip(out, ref))
+                e_gp = max(e_rel) if f64 else max(e_scaled)
+                tg, tc = (1e-10, 1e-10) if f64 else (tol_gp, tol_cs)
+                print(f"[sparse-kernels] {str(dtype)[6:]} m={m} d={D_IN} e={E}"
+                      f" L={L}: gp_predict rel {max(e_rel):.2e}, relative to "
+                      f"the terms' scale {max(e_scaled):.2e} (gate on the "
+                      f"{'first' if f64 else 'second'}, tol {tg:g}); "
+                      f"cem_score rel {e_cs:.2e} (tol {tc:g})", flush=True)
+                if e_gp > tg or e_cs > tc:
+                    _fail(f"[sparse-kernels] {dtype} m={m} L={L}: gp_predict "
+                          f"{e_gp}, cem_score {e_cs}")
+                if not f64:
+                    worst[f"gp_predict_m{m}"] = max(
+                        worst.get(f"gp_predict_m{m}", 0.0), e_gp)
+                    worst[f"cem_score_m{m}"] = max(
+                        worst.get(f"cem_score_m{m}", 0.0), e_cs)
+        # f32 times at the CEM path's shapes, on the card's f32 model
+        dt, sz = torch.float32, 4
+        ssm = _sparse_ssm(arr, dt, "cuda")
+        post = prepare_posterior(ssm)
+        z = torch.tensor(rng.uniform(-1.0, 1.0, (D_IN, B_CEM))
+                         * [[0.3], [1.0], [1.0]], dtype=dt, device="cuda")
+        out = gp_predict_prepared(post, z, want_jac=True)
+        ref = posterior_plain(post, z, want_jac=True)
+        errs[f"gp_predict_m{m}"] = max(_abs(o, r) for o, r in zip(out, ref))
+        n_bytes = sz * (m * D_IN + E * m + E * m * m + E * (D_IN + 1)
+                        + D_IN * B_CEM + 2 * E * B_CEM + E * D_IN * B_CEM)
+        ops = _gp_prep_ops(m) + E * B_CEM * _gp_lane_ops(m, True)
+        r = dict(shape=f"sparse m={m} d={D_IN} e={E} L={B_CEM}",
+                 ms=_time_ms(lambda: gp_predict_prepared(post, z,
+                                                         want_jac=True), 20),
+                 plain_ms=_time_ms(lambda: posterior_plain(post, z,
+                                                           want_jac=True), 5),
+                 library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
+        r["device_ms"], r["device_ms_by_kernel"] = _device_ms(
+            lambda: gp_predict_prepared(post, z, want_jac=True))
+        timings[f"gp_predict_m{m}"] = r
+        L = M_CEM * B_CEM
+        u = (0.4 * rng.standard_normal((H_CEM, L))).astype(np.float32)
+        x0 = (rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]]).astype(
+            np.float32)
+        args = score_args(ssm, u, x0, dt)
+        prep = prepare_tube_score(ssm, *args[3:])
+        out = tube_score_prepared(prep, *args[1:3])
+        ref = tube_score_plain(*args)
+        errs[f"cem_score_m{m}"] = max(_abs(o, r) for o, r in zip(out, ref))
+        ops = (_gp_prep_ops(m) + E * L * (_gp_lane_ops(m, False) + (
+            H_CEM - 1) * _gp_lane_ops(m, True))
+            + L * _tube_ops(H_CEM, len(polys[1]), len(polys[3])))
+        n_bytes = sz * (m * D_IN + E * m + E * m * m + (H_CEM + 2) * L + 2 * L)
+        r = dict(shape=f"sparse m={m} H={H_CEM} L={L}",
+                 ms=_time_ms(lambda: tube_score_prepared(prep, *args[1:3]),
+                             20),
+                 plain_ms=_time_ms(lambda: tube_score_plain(*args), 3),
+                 library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
+        r["device_ms"], r["device_ms_by_kernel"] = _device_ms(
+            lambda: tube_score_prepared(prep, *args[1:3]))
+        timings[f"cem_score_m{m}"] = r
+    for name, r in timings.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        print(f"[sparse-kernels] time f32 {r['shape']} {name}: kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, library null (no one PyTorch call "
+              f"computes it), bound {r['bound_ms']:.6f} ms ({r['bound_by']})",
+              flush=True)
+    return {"worst_rel_f32": worst, "errs": errs, "timings": timings}
+
+
+def phase_sparse_refit(seed: int) -> dict:
+    """sparse_gp_refit at bench_large_gp's shape (n 10,240 random normal
+    inputs, m 256, d 7, e 2, unit hyperparameters): CUDA-event ms in f32
+    and f64, sparse_gp_predict at one input in us; the card's f64 factors
+    against the CPU's at 1e-9, the f32 factors finite."""
+    from safe_exploration_tpu_torch.models.sparse_gp import (
+        sparse_gp_init,
+        sparse_gp_predict,
+        sparse_gp_refit,
+    )
+
+    n, m, d, e = (REFIT_SHAPE[k] for k in ("n", "m", "d", "e"))
+    rng = np.random.default_rng(seed + 23)
+    x, y = rng.standard_normal((n, d)), rng.standard_normal((n, e))
+    out, factors = {}, {}
+    for dev, dtype in (("cpu", torch.float64), ("cuda", torch.float64),
+                       ("cuda", torch.float32)):
+        kw = {"dtype": dtype, "device": dev}
+        sgp = sparse_gp_init(("rbf",) * e, torch.tensor(x, **kw),
+                             torch.tensor(y, **kw), n_max=n, n_inducing=m)
+        key = f"{dev}_{str(dtype)[6:]}"
+        factors[key] = {f: getattr(sgp, f) for f in ("luu", "lsig", "alpha",
+                                                     "vmat")}
+        if dev == "cuda":
+            zq = torch.zeros((d,), **kw)
+            out[key] = {"refit_ms": _time_ms(lambda: sparse_gp_refit(sgp), 10),
+                        "predict_us": 1e3 * _time_ms(
+                            lambda: sparse_gp_predict(sgp, zq), 50)}
+    rel = {f: _rel(factors["cuda_float64"][f], factors["cpu_float64"][f])
+           for f in factors["cpu_float64"]}
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in factors["cuda_float32"].values())
+    res = {"shape": REFIT_SHAPE, "times": out, "f64_factors_rel_cpu": rel,
+           "f32_finite": finite}
+    print(f"[sparse-refit] n={n} m={m} d={d} e={e}: refit "
+          f"{ {k: round(v['refit_ms'], 4) for k, v in out.items()} } ms "
+          f"(CUDA events), sparse_gp_predict "
+          f"{ {k: round(v['predict_us'], 1) for k, v in out.items()} } us; "
+          f"f64 factors card vs CPU rel { {k: f'{v:.1e}' for k, v in rel.items()} } "
+          f"(tol 1e-9); f32 factors finite {finite}", flush=True)
+    if max(rel.values()) > 1e-9:
+        _fail(f"[sparse-refit] f64 factors differ card vs CPU: {rel}")
+    if not finite:
+        _fail("[sparse-refit] non-finite f32 factors")
+    return res
+
+
+def phase_sparse_batch(seed: int, batch: int = 512, n_parity: int = 16
+                       ) -> dict:
+    """The lane SQP on bench_sparse_solves' model (build_experiment's
+    batch_planner at its configuration: n_safe 5, 14 x 3 + 6 polish + 4
+    rescue), f32 on the card at B = batch: the card's refit, two
+    get_action_batch calls around a plant step and an ssm_update (an O(N m^2)
+    refit); gates 0 violations and finite plans. Then f64 on ``n_parity``
+    lanes, the card against the CPU, each from its own refit of one model:
+    factors 1e-9, flags equal, k_ff 1e-4 ([parity]'s gates)."""
+    from safe_exploration_tpu_torch.envs import env_step
+    from safe_exploration_tpu_torch.models import ssm_bucketed, ssm_update
+
+    arr = _sparse_arrays(seed)
+    dtype, dev = torch.float32, "cuda"
+    rng = np.random.default_rng(seed + 24)
+    exp = _sparse_exp(dtype, dev, **SPARSE_SQP)
+    ssm = _sparse_ssm(arr, dtype, dev)
+    x0 = torch.tensor(rng.uniform(-1.0, 1.0, (batch, 2)) * [0.15, 0.4],
+                      dtype=dtype, device=dev)
+    noise = [torch.tensor(rng.standard_normal((batch, 2)), dtype=dtype,
+                          device=dev) for _ in range(2)]
+    state = exp["init_state_batch"](batch)
+    _sync(dev)
+    t0 = time.perf_counter()
+    u1, state, info1 = exp["get_action_batch"](state, ssm_bucketed(ssm), x0)
+    _sync(dev)
+    t_first = time.perf_counter() - t0
+    _, x1 = env_step(exp["env"], x0, u1, noise=noise[0])
+    k_new = 8
+    resid1 = x1[:k_new] - (x0[:k_new] @ exp["a"].T + u1[:k_new] @ exp["b"].T)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ssm = ssm_update(ssm, x0[:k_new], u1[:k_new], resid1)
+    _sync(dev)
+    update_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    u2, state, info2 = exp["get_action_batch"](state, ssm_bucketed(ssm), x1)
+    _sync(dev)
+    t_second = time.perf_counter() - t0
+    _, x2 = env_step(exp["env"], x1, u2, noise=noise[1])
+    feas = [float(i["feasible"].float().mean()) for i in (info1, info2)]
+    viol = _violations(exp, x1) + _violations(exp, x2)
+    finite = all(bool(torch.isfinite(o.float()).all()) for o in (
+        u1, u2, x1, x2, info1["cost"], info2["cost"], info1["warm_next"],
+        info2["warm_next"]))
+    res = {"feasible_frac": feas, "solves_per_s": batch / t_second,
+           "first_call_s": t_first, "second_call_s": t_second,
+           "ssm_update_ms": update_ms, "violations": viol, "finite": finite,
+           "n_points_after_update": int(ssm.sgp.n_points)}
+    print(f"[sparse-batch] lane SQP on the sparse model (N={N_SPARSE}, "
+          f"m={M_SPARSE}), B={batch} H=5 f32: feasible_frac per step {feas}, "
+          f"solves/s {res['solves_per_s']:.2f} (second call {t_second:.2f} s;"
+          f" first {t_first:.2f} s), ssm_update {update_ms:.1f} ms, "
+          f"violations {viol}, finite {finite}", flush=True)
+    if not finite:
+        _fail("[sparse-batch] non-finite output")
+    if viol:
+        _fail(f"[sparse-batch] {viol} state-constraint violations")
+
+    par = {}
+    for pdev in ("cuda", "cpu"):
+        pexp = _sparse_exp(torch.float64, pdev, **SPARSE_SQP)
+        pssm = _sparse_ssm(arr, torch.float64, pdev)
+        px0 = torch.tensor(np.asarray(x0[:n_parity].cpu(), np.float64),
+                           dtype=torch.float64, device=pdev)
+        warm = torch.zeros((n_parity, 5, 1), dtype=torch.float64, device=pdev)
+        t0 = time.perf_counter()
+        k_ff, feas_p, _, _ = pexp["batch_planner"](pssm, px0, warm)
+        _sync(pdev)
+        par[pdev] = dict(sgp=pssm.sgp, k_ff=k_ff, feasible=feas_p.cpu(),
+                         s=time.perf_counter() - t0)
+    g, c = par["cuda"], par["cpu"]
+    factors = {f: _rel(getattr(g["sgp"], f), getattr(c["sgp"], f))
+               for f in ("luu", "lsig", "alpha", "vmat")}
+    flags = bool(torch.equal(g["feasible"], c["feasible"]))
+    kff = _rel0(g["k_ff"], c["k_ff"])
+    res["parity"] = {"lanes": n_parity, "factors_rel": factors,
+                     "feasible_equal": flags, "k_ff_rel": kff,
+                     "feasible_frac": float(c["feasible"].double().mean()),
+                     "gpu_s": g["s"], "cpu_s": c["s"]}
+    print(f"[sparse-batch] f64 {n_parity} lanes, card vs CPU: factors rel "
+          f"{ {k: f'{v:.1e}' for k, v in factors.items()} } (tol 1e-9), "
+          f"flags equal {flags} (feasible {res['parity']['feasible_frac']}), "
+          f"k_ff rel {kff:.2e} (tol 1e-4); card {g['s']:.1f} s, CPU "
+          f"{c['s']:.1f} s", flush=True)
+    if max(factors.values()) > 1e-9 or not flags or kff > 1e-4:
+        _fail(f"[sparse-batch] f64 card vs CPU: {res['parity']}")
+    return res
+
+
+def phase_sparse_cem(seed: int, batch: int = B_CEM, n_parity: int = 16
+                     ) -> dict:
+    """The lane CEM on bench_sparse_solves' model (bench_cem_solves' budget:
+    B 256, M 64, 12 elites, 4 iterations, H 5; c_safety 1.8), f32 on the
+    card: solves under "auto" (cem_score for the wide passes, gp_predict
+    for the final ones, on the sparse posterior; the counts are zeroed just
+    before each solve and read just after) and "xla" (the plain lane form)
+    in turns (auto, xla, xla, auto), with one set of draws: both kernels
+    launched, the flags equal on every lane; solves/s from each one's
+    median. The busy share of an "auto" solve (profiler). Then f64 on
+    ``n_parity`` lanes, the card ("auto") against the CPU: flags equal,
+    k_ff within 1e-9."""
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+
+    arr = _sparse_arrays(seed)
+    rng = np.random.default_rng(seed + 25)
+    x0 = rng.uniform(-1.0, 1.0, (batch, 2)) * [0.15, 0.4]
+    gen = torch.Generator().manual_seed(seed + 26)
+    noise = torch.randn((4, M_CEM, H_CEM, batch), generator=gen,
+                        dtype=torch.float64)
+    runs, models = {}, {}
+    # the f32 solves in turns (auto, xla, xla, auto): solves/s from the
+    # median of each one's two; launches, flags and plans from its last
+    for key, impl, dev, dtype, b in (
+            ("auto_card_f32", "auto", "cuda", torch.float32, batch),
+            ("xla_card_f32", "xla", "cuda", torch.float32, batch),
+            ("xla_card_f32", "xla", "cuda", torch.float32, batch),
+            ("auto_card_f32", "auto", "cuda", torch.float32, batch),
+            ("auto_card_f64", "auto", "cuda", torch.float64, n_parity),
+            ("cpu_f64", "auto", "cpu", torch.float64, n_parity)):
+        if key not in models:
+            models[key] = (_sparse_exp(dtype, dev, **SPARSE_CEM,
+                                       cem_gp_impl=impl),
+                           _sparse_ssm(arr, dtype, dev))
+        exp, ssm = models[key]
+        xt = torch.tensor(x0[:b], dtype=dtype, device=dev)
+        warm = torch.zeros((b, H_CEM, 1), dtype=dtype, device=dev)
+        for w in KERNEL_WRAPPERS:
+            w.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        k_ff, feas, viol, info = exp["batch_planner"](
+            ssm, xt, warm, noise=noise[..., :b].to(dtype))
+        _sync(dev)
+        seconds = runs.get(key, {}).get("all_s", []) + [
+            time.perf_counter() - t0]
+        runs[key] = {
+            "s": float(np.median(seconds)), "all_s": seconds,
+            "k_ff": k_ff.double().cpu(), "feasible": feas.cpu(),
+            "launches": {w.__name__: w.launches for w in KERNEL_WRAPPERS
+                         if w.launches},
+            "finite": bool(torch.isfinite(k_ff).all())}
+    exp, ssm = models["auto_card_f32"]
+    split = _cem_split(exp, ssm, torch.tensor(x0, dtype=torch.float32,
+                                              device="cuda"), batch, "cuda",
+                       "sparse-cem")
+    a32, x32 = runs["auto_card_f32"], runs["xla_card_f32"]
+    g64, c64 = runs["auto_card_f64"], runs["cpu_f64"]
+    agree = int((a32["feasible"] == x32["feasible"]).sum())
+    flags_equal = bool(torch.equal(g64["feasible"], c64["feasible"]))
+    kff = _rel0(g64["k_ff"], c64["k_ff"])
+    launches = a32["launches"]
+    res = {"batch": batch, "samples": M_CEM,
+           "solves_per_s": {k: batch / v["s"] for k, v in runs.items()
+                            if "f32" in k},
+           "seconds": {k: v["s"] for k, v in runs.items()},
+           "feasible_frac": {k: float(v["feasible"].double().mean())
+                             for k, v in runs.items()},
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "auto_xla_flags_agree": agree, "f64_flags_equal_cpu": flags_equal,
+           "f64_k_ff_rel_cpu": kff, **split}
+    print(f"[sparse-cem] lane CEM on the sparse model (m={M_SPARSE}), "
+          f"B={batch} M={M_CEM} H={H_CEM} f32: auto "
+          f"{res['solves_per_s']['auto_card_f32']:.1f} solves/s (launches "
+          f"{launches}), xla {res['solves_per_s']['xla_card_f32']:.1f} "
+          f"solves/s (solve s, in turns: "
+          f"{ {k: [round(s, 4) for s in v['all_s']] for k, v in runs.items()} }"
+          f"); feasible share {res['feasible_frac']}; auto vs xla "
+          f"flags agree on {agree} of {batch}; f64 card vs CPU on {n_parity} "
+          f"lanes: flags equal {flags_equal}, k_ff rel {kff:.2e} (tol 1e-9)",
+          flush=True)
+    if not all(v["finite"] for v in runs.values()):
+        _fail("[sparse-cem] non-finite plan")
+    if not launches.get("gp_predict_prepared") or \
+            not launches.get("tube_score_prepared") or x32["launches"] or \
+            c64["launches"]:
+        _fail(f"[sparse-cem] kernel launches {res['launches']}")
+    if agree != batch:
+        _fail(f"[sparse-cem] auto and xla flags agree on only {agree}")
+    if not flags_equal or not kff <= 1e-9:
+        _fail(f"[sparse-cem] f64 card vs CPU: flags equal {flags_equal}, "
+              f"k_ff rel {kff}")
+    return res
+
+
+# pendulum_large_sparse as registered (n_max 10,240, m 256, 1,024 initial
+# points, 60 fit steps, the NLP at 12 x 6 + 3), cut to 1 of its 6 episodes
+# and 2 of its 50 steps (the eager NLP takes seconds a step);
+# pendulum_episode_sparse (the portable CEM, m 32) cut to 1 episode and 10
+# steps; the f64 card-vs-CPU run of pendulum_episode_sparse cut to 3 steps
+# at n_max 64 and 3 fit steps, as the other episode parity runs
+RUNS_SPARSE = (("large", "pendulum_large_sparse", ["n_ep=1", "n_steps=2"]),
+               ("episode", "pendulum_episode_sparse",
+                ["n_ep=1", "n_steps=10"]))
+SPARSE_PARITY_SETS = ("n_ep=1", "n_steps=3", "n_max=64", "hyp_iters=3",
+                      "cem_samples=32", "cem_elites=8", "cem_iterations=2")
+# the final sparse model passed two Adam fits that train Z too, whose steps
+# follow each device's summation order of the bound's gradient: its factors
+# are held at the 1e-8 of tests/test_torch_sparse_episode.py against JAX
+# (the card and the CPU part at ~2e-9 here); the series stay at 1e-9
+SPARSE_FACTOR_TOL = 1e-8
+
+
+def phase_episode_sparse(seed: int) -> dict:
+    """run_experiment on the card, f32, for the two sparse configurations
+    (RUNS_SPARSE): wall time, fit / calibration / ssm_update seconds,
+    seconds a step, the series, the kernels' launches (counts zeroed just
+    before each run; the sparse refit, the NLP and the portable CEM launch
+    none); gates 0 violations, finite series, n_data
+    as scheduled. Then the f64 card-vs-CPU run of pendulum_episode_sparse
+    (``phase_episode_parity`` at SPARSE_PARITY_SETS)."""
+    import safe_exploration_tpu_torch.runtime.episode as ep_mod
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    out = {}
+    for tag, config, sets in RUNS_SPARSE:
+        cfg = _episode_cfg(config, sets + [f"seed={seed}"])
+        spans = {"fit": [], "calibrate": [], "update": []}
+        saved = {k: getattr(ep_mod, k) for k in (
+            "ssm_fit", "_calibrate_lipschitz", "ssm_update")}
+        ep_mod.ssm_fit = _timed(spans["fit"], saved["ssm_fit"])
+        ep_mod._calibrate_lipschitz = _timed(spans["calibrate"],
+                                             saved["_calibrate_lipschitz"])
+        ep_mod.ssm_update = _timed(spans["update"], saved["ssm_update"])
+        try:
+            for w in KERNEL_WRAPPERS:
+                w.launches = 0
+            t0 = time.perf_counter()
+            summary = run_experiment(cfg, dtype=torch.float32, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        finally:
+            for k, v in saved.items():
+                setattr(ep_mod, k, v)
+        series = summary["series"]
+        step_s = [t / cfg.n_steps for t in series["episode_time_s"]]
+        want_n = [min(cfg.n_init_samples + ep * cfg.n_steps, cfg.n_max)
+                  for ep in range(cfg.n_ep)]
+        finite = all(np.isfinite(v).all() for v in series.values())
+        r = {"config_name": cfg.name, "config": {k: getattr(cfg, k) for k in (
+                 "n_max", "n_inducing", "n_init_samples", "hyp_iters", "n_ep",
+                 "n_steps", "solver")},
+             "series": series, "wall_s": wall, "launches": launches,
+             "fit_s": spans["fit"],
+             "calibrate_s": spans["calibrate"], "update_s": spans["update"],
+             "seconds_per_step": step_s}
+        out[tag] = r
+        print(f"[episode-sparse] ({tag}) {cfg.name} {r['config']} f32: wall "
+              f"{wall:.1f} s, seconds per step {[round(v, 3) for v in step_s]}"
+              f", fit s {[round(v, 3) for v in spans['fit']]}, calibrate s "
+              f"{[round(v, 3) for v in spans['calibrate']]}, ssm_update s "
+              f"{[round(v, 4) for v in spans['update']]}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for key in ("violations", "feasibility_rate", "model_error",
+                    "mean_cost", "n_data"):
+            print(f"[episode-sparse] ({tag})   {key}: {series[key]}",
+                  flush=True)
+        if any(series["violations"]) or not finite:
+            _fail(f"[episode-sparse] ({tag}): violations "
+                  f"{series['violations']}, finite {finite}")
+        if series["n_data"] != want_n:
+            _fail(f"[episode-sparse] ({tag}): n_data {series['n_data']}, "
+                  f"want {want_n}")
+    out["parity"] = phase_episode_parity(
+        seed, "pendulum_episode_sparse", SPARSE_PARITY_SETS,
+        "episode-sparse", SPARSE_FACTOR_TOL)
+    return out
+
+
 # the kernels line: per Pallas kernel its name, CUDA source, the Pallas
 # kernel it replaces and the wrappers whose launches count for it (trsm's
 # three entries replace _trsm_kernel together)
@@ -2664,6 +3249,11 @@ def _partial_run(args, timed, t_start) -> int:
         "quadrotor-cem": (phase_quadrotor_cem,),
         "risk": (phase_risk,),
         "episode-risk": (phase_episode, RUNS_RISK, "episode-risk"),
+        "sparse-kernels": (phase_sparse_kernels,),
+        "sparse-refit": (phase_sparse_refit,),
+        "sparse-batch": (phase_sparse_batch,),
+        "sparse-cem": (phase_sparse_cem,),
+        "episode-sparse": (phase_episode_sparse,),
     }
     record = {}
     for label in args.phases.split(","):
@@ -2751,6 +3341,11 @@ def main() -> int:
     risk = timed("risk", phase_risk, args.seed)
     episode_risk = timed("episode-risk", phase_episode, args.seed, RUNS_RISK,
                          "episode-risk")["risk"]
+    sparse_kern = timed("sparse-kernels", phase_sparse_kernels, args.seed)
+    sparse_refit = timed("sparse-refit", phase_sparse_refit, args.seed)
+    sparse_batch = timed("sparse-batch", phase_sparse_batch, args.seed)
+    sparse_cem = timed("sparse-cem", phase_sparse_cem, args.seed)
+    episode_sparse = timed("episode-sparse", phase_episode_sparse, args.seed)
 
     # each kernel's launches are those of the path that runs it: the refit
     # kernels' from the fleet (pendulum_batch_sqp, PR 8's main path), the
@@ -2820,6 +3415,19 @@ def main() -> int:
                 "errs_quadrotor_episode"][short]
             entry["episode_risk_launches"] = sum(
                 episode_risk["launches"].get(w, 0) for w in wrappers)
+        if short in ("gp_predict", "cem_score"):
+            # the sparse posterior: m 256 on the sparse lane CEM's path, m 32
+            # pendulum_episode_sparse's (its portable CEM launches neither)
+            for m, counts in ((M_SPARSE,
+                               sparse_cem["launches"]["auto_card_f32"]),
+                              (M_SPARSE_EP,
+                               episode_sparse["episode"]["launches"])):
+                rs = sparse_kern["timings"][f"{short}_m{m}"]
+                entry[f"sparse_m{m}"] = {
+                    "launches": sum(counts.get(w, 0) for w in wrappers),
+                    "max_abs_err": sparse_kern["errs"][f"{short}_m{m}"],
+                    **{k: rs[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
         if short == "gp_predict":
             rq = cem_kern["timings"]["gp_predict_quadrotor"]
             entry["quadrotor_cem"] = {
@@ -2848,6 +3456,9 @@ def main() -> int:
               "quadrotor_batch_parity": quad_parity,
               "quadrotor_episode": quad_episode, "quadrotor_cem": quad_cem,
               "risk": risk, "episode_risk": episode_risk,
+              "sparse_kernels": sparse_kern, "sparse_refit": sparse_refit,
+              "sparse_batch": sparse_batch, "sparse_cem": sparse_cem,
+              "episode_sparse": episode_sparse,
               "phase_s": phase_s,
               "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}

@@ -8,6 +8,11 @@ sequence of e dicts of arrays, e.g. ``log_lengthscales`` (d_in,) and
 ``log_sf`` ()), ``log_noise`` (e,), ``chol`` / ``kinv`` (e, n, n), ``beta``
 (e, n), ``head`` (), ``l_mu`` / ``l_sigma`` (n_s,), ``z_scale`` (d_in,) or
 None.
+
+:func:`sparse_gpssm_from_numpy` and :func:`sparse_gpssm_to_numpy` do the
+same for a :class:`SparseGPSSM`, whose factors are ``luu`` / ``lsig`` /
+``vmat`` (e, m, m) and ``alpha`` (e, m) over the inducing inputs ``z``
+(m, d_in), in place of ``chol`` / ``beta`` / ``kinv``.
 """
 
 from __future__ import annotations
@@ -16,39 +21,63 @@ import numpy as np
 import torch
 
 from safe_exploration_tpu_torch.models.gp import GP
+from safe_exploration_tpu_torch.models.sparse_gp import SparseGP, SparseGPSSM
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 
-__all__ = ["gpssm_from_numpy", "gpssm_to_numpy"]
+__all__ = ["gpssm_from_numpy", "gpssm_to_numpy", "sparse_gpssm_from_numpy",
+           "sparse_gpssm_to_numpy"]
 
 _TENSORS = ("x", "y", "mask", "log_noise", "chol", "beta", "kinv")
+_SPARSE_TENSORS = ("z", "x", "y", "mask", "log_noise", "luu", "lsig",
+                   "alpha", "vmat")
 
 
-def gpssm_from_numpy(arrays: dict, kern_types: tuple, *, device,
-                     dtype=torch.float64) -> GPSSM:
+def _from_numpy(arrays, kern_types, device, dtype, state_cls, ssm_cls,
+                tensors, field):
     def t(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    gp = GP(
+    state = state_cls(
         kern_types=tuple(kern_types),
         params=tuple({k: t(v) for k, v in p.items()} for p in arrays["params"]),
         head=int(np.asarray(arrays["head"])),
-        **{k: t(arrays[k]) for k in _TENSORS},
+        **{k: t(arrays[k]) for k in tensors},
     )
     z_scale = arrays.get("z_scale")
-    return GPSSM(gp=gp, l_mu=t(arrays["l_mu"]), l_sigma=t(arrays["l_sigma"]),
-                 z_scale=None if z_scale is None else t(z_scale))
+    return ssm_cls(**{field: state}, l_mu=t(arrays["l_mu"]),
+                   l_sigma=t(arrays["l_sigma"]),
+                   z_scale=None if z_scale is None else t(z_scale))
 
 
-def gpssm_to_numpy(ssm: GPSSM) -> dict:
+def _to_numpy(ssm, state, tensors) -> dict:
     def a(x):
         return x.detach().cpu().numpy()
 
-    gp = ssm.gp
     return {
-        **{k: a(getattr(gp, k)) for k in _TENSORS},
-        "params": [{k: a(v) for k, v in p.items()} for p in gp.params],
-        "head": np.asarray(gp.head, np.int32),
+        **{k: a(getattr(state, k)) for k in tensors},
+        "params": [{k: a(v) for k, v in p.items()} for p in state.params],
+        "head": np.asarray(state.head, np.int32),
         "l_mu": a(ssm.l_mu),
         "l_sigma": a(ssm.l_sigma),
         "z_scale": None if ssm.z_scale is None else a(ssm.z_scale),
     }
+
+
+def gpssm_from_numpy(arrays: dict, kern_types: tuple, *, device,
+                     dtype=torch.float64) -> GPSSM:
+    return _from_numpy(arrays, kern_types, device, dtype, GP, GPSSM,
+                       _TENSORS, "gp")
+
+
+def gpssm_to_numpy(ssm: GPSSM) -> dict:
+    return _to_numpy(ssm, ssm.gp, _TENSORS)
+
+
+def sparse_gpssm_from_numpy(arrays: dict, kern_types: tuple, *, device,
+                            dtype=torch.float64) -> SparseGPSSM:
+    return _from_numpy(arrays, kern_types, device, dtype, SparseGP,
+                       SparseGPSSM, _SPARSE_TENSORS, "sgp")
+
+
+def sparse_gpssm_to_numpy(ssm: SparseGPSSM) -> dict:
+    return _to_numpy(ssm, ssm.sgp, _SPARSE_TENSORS)

@@ -40,6 +40,7 @@ from safe_exploration_tpu_torch.models.kernels import (
     gram,
     init_kernel_params,
     kernel_diag,
+    weighted_mean_jac,
 )
 from safe_exploration_tpu_torch.ops.kernels import (
     cholesky_blocked,
@@ -52,7 +53,8 @@ from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
 
 __all__ = ["GP", "gp_init", "gp_refit", "gp_update_data",
            "gp_shrink_to_bucket", "gp_nll", "gp_fit", "gp_predict",
-           "gp_predict_mean_jac", "refit_cholesky", "refit_inputs"]
+           "gp_predict_mean_jac", "refit_cholesky", "refit_inputs",
+           "adam_fit", "cholesky_or_nan", "ring_write"]
 
 _JITTER = 1e-6
 
@@ -197,6 +199,15 @@ def gp_update_data(gp: GP, x_new: torch.Tensor, y_new: torch.Tensor, *,
     ``replace_old`` every dropped point writes the slot's old row back to the
     clamped last slot, so an overflowing batch leaves that slot as it was."""
     _require_single(gp, "gp_update_data")
+    x, y, mask, head = ring_write(gp, x_new, y_new, replace_old)
+    return gp_refit(gp.replace(x=x, y=y, mask=mask, head=head))
+
+
+def ring_write(gp, x_new: torch.Tensor, y_new: torch.Tensor,
+               replace_old: bool):
+    """The buffers (x, y, mask) of a padded model (a GP or a sparse GP)
+    with a batch written at its ring-buffer head, and the new head, by the
+    JAX package's scatter (see :func:`gp_update_data`)."""
     k = x_new.shape[0]
     final = {}  # slot -> index into x_new, or None to keep the old row
     for i in range(k):
@@ -215,7 +226,7 @@ def gp_update_data(gp: GP, x_new: torch.Tensor, y_new: torch.Tensor, *,
         x[dst] = x_new[src]
         y[dst] = y_new[src]
         mask[dst] = 1.0
-    return gp_refit(gp.replace(x=x, y=y, mask=mask, head=head))
+    return x, y, mask, head
 
 
 def gp_shrink_to_bucket(gp: GP, *, min_bucket: int = 32) -> GP:
@@ -241,6 +252,15 @@ def gp_shrink_to_bucket(gp: GP, *, min_bucket: int = 32) -> GP:
     )
 
 
+def cholesky_or_nan(k: torch.Tensor) -> torch.Tensor:
+    """Differentiable library Cholesky of (..., n, n) whose failed
+    factorizations give NaN, as JAX's do, instead of raising."""
+    l, info = torch.linalg.cholesky_ex(k)
+    nan = torch.tensor(float("nan"), dtype=k.dtype, device=k.device)
+    return l + torch.where(info == 0, torch.zeros_like(nan),
+                           nan)[..., None, None]
+
+
 def gp_nll(params: tuple, log_noise: torch.Tensor, gp: GP) -> torch.Tensor:
     """Negative log marginal likelihood, summed over output dims; identity
     padding adds 0 to the quadratic form and the log-det. A stacked GP
@@ -255,9 +275,7 @@ def gp_nll(params: tuple, log_noise: torch.Tensor, gp: GP) -> torch.Tensor:
         _masked_gram(gp.kern_types[d], params[d], gp.x, gp.mask,
                      torch.exp(2.0 * log_noise[..., d]))
         for d in range(gp.n_out)], dim=-3)
-    l, info = torch.linalg.cholesky_ex(k)
-    nan = torch.tensor(float("nan"), dtype=k.dtype, device=k.device)
-    l = l + torch.where(info == 0, torch.zeros_like(nan), nan)[..., None, None]
+    l = cholesky_or_nan(k)
     ym = (gp.mask[..., None, :] * gp.y.mT).unsqueeze(-1)
     z = torch.linalg.solve_triangular(l, ym, upper=False).squeeze(-1)
     per = 0.5 * torch.sum(z * z, dim=-1) + torch.sum(
@@ -292,23 +310,39 @@ def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
     The loop never reads a value back to the host. A stacked GP is fitted
     lane by lane in one loop: the loss is the lanes' summed NLL, whose
     gradient in a lane's hyperparameters is that lane's own."""
+    def loss(leaves):
+        params, log_noise = _theta_from_leaves(leaves, gp.params)
+        return torch.sum(gp_nll(params, log_noise, gp))
+
+    theta = adam_fit(loss, _theta_leaves(gp.params, gp.log_noise),
+                     n_prior=None, iters=iters, lr=lr,
+                     prior_strength=prior_strength)
+    params, log_noise = _theta_from_leaves(theta, gp.params)
+    return gp_refit(gp.replace(params=params, log_noise=log_noise))
+
+
+def adam_fit(loss, theta: list, *, n_prior: int | None, iters: int,
+             lr: float, prior_strength: float) -> list:
+    """``iters`` Adam steps on ``loss(leaves)`` plus ``prior_strength``
+    times the squared distance of the first ``n_prior`` leaves (all when
+    None) from their start, in optax's order of operations; returns the
+    final leaves."""
     b1, b2, eps = 0.9, 0.999, 1e-8
-    ref = [t.detach() for t in _theta_leaves(gp.params, gp.log_noise)]
+    ref = [t.detach() for t in theta]
     theta = [t.clone() for t in ref]
     mu = [torch.zeros_like(t) for t in theta]
     nu = [torch.zeros_like(t) for t in theta]
     for count in range(1, iters + 1):
         leaves = [t.requires_grad_(True) for t in theta]
         with torch.enable_grad():
-            params, log_noise = _theta_from_leaves(leaves, gp.params)
-            loss = torch.sum(gp_nll(params, log_noise, gp))
+            obj = loss(leaves)
             if prior_strength > 0.0:
                 prior = None
-                for t, t0 in zip(leaves, ref):
+                for t, t0 in list(zip(leaves, ref))[:n_prior]:
                     sq = torch.sum((t - t0) ** 2)
                     prior = sq if prior is None else prior + sq
-                loss = loss + prior_strength * prior
-            grads = torch.autograd.grad(loss, leaves)
+                obj = obj + prior_strength * prior
+            grads = torch.autograd.grad(obj, leaves)
         c1, c2 = 1 - b1 ** count, 1 - b2 ** count
         new = []
         for i, (t, g) in enumerate(zip(theta, grads)):
@@ -317,8 +351,7 @@ def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
             step = (mu[i] / c1) / (torch.sqrt(nu[i] / c2) + eps)
             new.append(t.detach() + -lr * step)
         theta = new
-    params, log_noise = _theta_from_leaves(theta, gp.params)
-    return gp_refit(gp.replace(params=params, log_noise=log_noise))
+    return theta
 
 
 def _posterior(gp: GP, z2: torch.Tensor, with_jac: bool):
@@ -336,12 +369,9 @@ def _posterior(gp: GP, z2: torch.Tensor, with_jac: bool):
         quad = torch.sum(kv * (kv @ gp.kinv[d].T), dim=-1)
         vars_.append(torch.maximum(kzz - quad, floor))
         if with_jac:
-            # RBF: d/dz sum_i c_i k(z, x_i) = (sum_i c_i k_i x_i
-            # - z sum_i c_i k_i) / ls^2 with c = mask * beta
-            w = kv * gp.beta[d]
-            ls2 = torch.exp(2.0 * params["log_lengthscales"])
-            jacs.append((w @ gp.x - torch.sum(w, dim=-1, keepdim=True) * z2)
-                        / ls2)
+            # kv carries the mask, so the weights are beta's
+            jacs.append(weighted_mean_jac(kt, params, z2, gp.x, kv,
+                                          gp.beta[d]))
     return means, vars_, jacs
 
 
@@ -360,7 +390,7 @@ def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def gp_predict_mean_jac(gp: GP, z: torch.Tensor):
     """Posterior mean, latent variance and the closed-form mean Jacobian at
     inputs z (..., d_in) -> (mean (..., e), var (..., e), jac (..., e, d_in))
-    (``kernels.weighted_mean_jac`` of the JAX package), on the same
+    (:func:`kernels.weighted_mean_jac`), on the same
     cross-covariance as the mean and variance."""
     _require_single(gp, "gp_predict_mean_jac")
     lead = z.shape[:-1]

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["KERNELS", "init_kernel_params", "gram", "kernel_diag"]
+__all__ = ["KERNELS", "init_kernel_params", "gram", "kernel_diag",
+           "weighted_mean_jac"]
 
 
 def _sq_dists(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -71,3 +72,16 @@ def kernel_diag(kern_type: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     _check(kern_type)
     var = torch.exp(2.0 * params["log_sf"])
     return var * torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+
+
+def weighted_mean_jac(kern_type: str, params: dict, z: torch.Tensor,
+                      x: torch.Tensor, kv: torch.Tensor,
+                      c: torch.Tensor) -> torch.Tensor:
+    """Closed-form input gradient of weighted kernel sums at the queries z
+    (m, d): d/dz sum_i c_i k(z, x_i) over the support rows x (n, d), given
+    the cross-covariance ``kv`` (m, n) = k(z, x) -> (m, d). RBF:
+    (sum_i c_i k_i x_i - z sum_i c_i k_i) / ls^2."""
+    _check(kern_type)
+    w = kv * c
+    ls2 = torch.exp(2.0 * params["log_lengthscales"])
+    return (w @ x - torch.sum(w, dim=-1, keepdim=True) * z) / ls2

@@ -12,6 +12,11 @@ vmapped one: :func:`ssm_fit`, :func:`ssm_probe_points`,
 work on every lane at once (the Lipschitz Hessians nest the lane axis
 around the probe axis under ``torch.func.vmap``); the single-model entries
 (the predictions, :func:`ssm_update`, :func:`ssm_bucketed`) raise on it.
+
+The entries dispatch over the model families the port carries: the exact
+:class:`GPSSM` and the inducing-point
+:class:`~safe_exploration_tpu_torch.models.sparse_gp.SparseGPSSM`
+(its probe points are the inducing inputs; its bucketed view is itself).
 """
 
 from __future__ import annotations
@@ -23,6 +28,12 @@ import torch
 from safe_exploration_tpu_torch.models import gp as gp_mod
 from safe_exploration_tpu_torch.models.gp import GP
 from safe_exploration_tpu_torch.models.kernels import init_kernel_params
+from safe_exploration_tpu_torch.models.sparse_gp import (
+    SparseGPSSM,
+    sparse_gp_fit,
+    sparse_gp_predict_mean_jac,
+    sparse_gp_update_data,
+)
 
 __all__ = ["GPSSM", "make_gp_ssm", "ssm_update", "ssm_bucketed",
            "ssm_predict", "ssm_predict_jac", "ssm_noise_var", "ssm_fit",
@@ -86,81 +97,98 @@ def make_gp_ssm(kern_types: tuple, x: torch.Tensor, u: torch.Tensor,
     return GPSSM(gp=gp, l_mu=l_mu, l_sigma=l_sigma, z_scale=z_scale)
 
 
-def ssm_predict(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor):
+def ssm_predict(ssm, x: torch.Tensor, u: torch.Tensor):
     """Residual mean and variance at (state, action) pairs (..., n_s)."""
     return ssm.predict_latent(torch.cat([x, u], dim=-1))
 
 
-def ssm_predict_jac(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor):
+def ssm_predict_jac(ssm, x: torch.Tensor, u: torch.Tensor):
     """Prediction and mean Jacobians split over state and control at
     (..., n_s), (..., n_u) -> (mu, var, jac_mu_x (..., n_s, n_s),
-    jac_mu_u (..., n_s, n_u)); the Jacobian is taken in raw inputs (the
-    chain rule of ``z_scale`` applied)."""
+    jac_mu_u (..., n_s, n_u)); the Jacobian is the closed form of either
+    GP family, taken in raw inputs (the chain rule of ``z_scale``
+    applied)."""
+    _require_gp(ssm, "ssm_predict_jac")
     n_s = x.shape[-1]
     z = torch.cat([x, u], dim=-1)
     if ssm.z_scale is not None:
         z = z / ssm.z_scale
-    mu, var, jac = gp_mod.gp_predict_mean_jac(ssm.gp, z)
+    if isinstance(ssm, SparseGPSSM):
+        mu, var, jac = sparse_gp_predict_mean_jac(ssm.sgp, z)
+    else:
+        mu, var, jac = gp_mod.gp_predict_mean_jac(ssm.gp, z)
     if ssm.z_scale is not None:
         jac = jac / ssm.z_scale
     return mu, var, jac[..., :n_s], jac[..., n_s:]
 
 
-def ssm_noise_var(ssm: GPSSM) -> torch.Tensor:
+def ssm_noise_var(ssm) -> torch.Tensor:
     """Observation-noise variance per output dim; the tube adds it to the
     latent variance, so it covers plant process noise."""
     return ssm.noise_var()
 
 
-def ssm_update(ssm: GPSSM, x: torch.Tensor, u: torch.Tensor, y: torch.Tensor,
-               *, replace_old: bool = True) -> GPSSM:
+def ssm_update(ssm, x: torch.Tensor, u: torch.Tensor, y: torch.Tensor,
+               *, replace_old: bool = True):
     """Append observed transitions (batch) and refit the model."""
-    gp_mod._require_single(ssm.gp, "ssm_update")
+    _require_gp(ssm, "ssm_update")
+    if isinstance(ssm, GPSSM):
+        gp_mod._require_single(ssm.gp, "ssm_update")
     z = torch.cat([x, u], dim=-1)
     if ssm.z_scale is not None:
         z = z / ssm.z_scale
+    if isinstance(ssm, SparseGPSSM):
+        return ssm.replace(sgp=sparse_gp_update_data(
+            ssm.sgp, z, y, replace_old=replace_old))
     return ssm.replace(
         gp=gp_mod.gp_update_data(ssm.gp, z, y, replace_old=replace_old)
     )
 
 
-def ssm_bucketed(ssm: GPSSM) -> GPSSM:
+def ssm_bucketed(ssm):
     """Bucketed view of the model for the planner's hot loop (see
-    :func:`gp_shrink_to_bucket`)."""
+    :func:`gp_shrink_to_bucket`); a sparse model, whose posterior runs over
+    its inducing set whatever the buffer holds, is its own view."""
+    if isinstance(ssm, SparseGPSSM):
+        return ssm
     return ssm.replace(gp=gp_mod.gp_shrink_to_bucket(ssm.gp))
 
 
 def _require_gp(ssm, what: str) -> None:
-    if not isinstance(ssm, GPSSM):
+    if not isinstance(ssm, (GPSSM, SparseGPSSM)):
         raise NotImplementedError(
-            f"{what} of {type(ssm).__name__}: the port carries the exact GP "
-            "model only (sparse GP: ROADMAP Queue 1, item 11; MC-dropout: "
-            "item 12)")
+            f"{what} of {type(ssm).__name__}: the port carries the exact and "
+            "the sparse GP models (MC-dropout: ROADMAP Queue 1, item 12)")
 
 
 def ssm_fit(ssm, *, iters: int = 200, lr: float = 5e-2):
-    """Re-optimize the GP hyperparameters (:func:`gp_mod.gp_fit`) and
+    """Re-optimize the model's hyperparameters (:func:`gp_mod.gp_fit`; the
+    sparse model's with its inducing inputs, ``sparse_gp_fit``) and
     refit."""
     _require_gp(ssm, "ssm_fit")
+    if isinstance(ssm, SparseGPSSM):
+        return ssm.replace(sgp=sparse_gp_fit(ssm.sgp, iters=iters, lr=lr))
     return ssm.replace(gp=gp_mod.gp_fit(ssm.gp, iters=iters, lr=lr))
 
 
 def ssm_n_points(ssm) -> torch.Tensor:
     """Number of valid transitions the model holds (a 0-d int32 tensor)."""
     _require_gp(ssm, "ssm_n_points")
-    return ssm.gp.n_points
+    return (ssm.sgp if isinstance(ssm, SparseGPSSM) else ssm.gp).n_points
 
 
 def ssm_probe_points(ssm) -> torch.Tensor:
     """The (padded) training inputs in raw units: the default probe set of
-    :func:`estimate_lipschitz`, (n_max, d_in) or per lane (L, n_max, d_in).
+    :func:`estimate_lipschitz`, (n_max, d_in) or per lane (L, n_max, d_in);
+    of a sparse model its inducing inputs (m, d_in).
     ``predict_latent`` divides them by ``z_scale`` again; the pendulum's
     scales are powers of two, so that round trip gives the buffer's rows
     back exactly and a probe's distance to its own row is exactly 0."""
     _require_gp(ssm, "ssm_probe_points")
+    rows = ssm.sgp.z if isinstance(ssm, SparseGPSSM) else ssm.gp.x
     if ssm.z_scale is None:
-        return ssm.gp.x
-    return ssm.gp.x * ssm.z_scale[..., None, :]
+        return rows
+    return rows * ssm.z_scale[..., None, :]
 
 
 def lipschitz_probe_set(spec, generator: torch.Generator | None = None,
@@ -261,7 +289,8 @@ def estimate_lipschitz(ssm, z_points: torch.Tensor, *, factor: float = 2.0,
     are ``torch.func`` transforms vmapped over the points; the spectral norm
     of each d_in x d_in Hessian comes from ``eigvalsh``. A stacked model
     takes per-lane points (L, m, d) and gives (L, n_s) constants."""
-    derivs = _lane_derivatives if ssm.gp.x.ndim == 3 else _derivatives
+    stacked = isinstance(ssm, GPSSM) and ssm.gp.x.ndim == 3
+    derivs = _lane_derivatives if stacked else _derivatives
     hess, grads = derivs(ssm, z_points)            # (.., m, e, d, d), (.., m, e, d)
     hess_norms = torch.amax(torch.abs(_eigvalsh(hess)), dim=-1)
     grad_norms = torch.linalg.vector_norm(grads, dim=-1)

@@ -35,6 +35,7 @@ from safe_exploration_tpu_torch.ops.kernels.cholesky_hbm import (
 )
 from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
     LanePosterior,
+    gp_of,
     gp_pallas_supported,
     gp_predict_lanes,
     gp_predict_plain,
@@ -59,7 +60,7 @@ KERNEL_WRAPPERS = (rbf_gram_masked, cholesky_blocked, trsm_lower, solve_psd,
 __all__ = [
     "KERNEL_WRAPPERS", "LanePosterior", "cem_score_supported",
     "cholesky_blocked", "cholesky_hbm", "cholesky_hbm_plain",
-    "cholesky_plain", "gp_pallas_supported", "gp_predict_lanes",
+    "cholesky_plain", "gp_of", "gp_pallas_supported", "gp_predict_lanes",
     "gp_predict_plain", "gp_predict_prepared", "gram_plain",
     "posterior_plain", "prepare_posterior", "prepare_tube_score",
     "rbf_gram_masked", "solve_psd", "solve_psd_plain", "tri_inv_lower",

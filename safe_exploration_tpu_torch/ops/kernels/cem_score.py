@@ -39,6 +39,7 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
 )
 from safe_exploration_tpu_torch.ops.kernels.gp_predict import (
     LanePosterior,
+    gp_of,
     gp_pallas_supported,
     prepare_posterior,
 )
@@ -54,8 +55,9 @@ _COSTS = ("tracking", "exploration")
 
 def cem_score_supported(ssm, n_s: int, cost_kind: str, n_perf: int) -> bool:
     """Whether the scorer covers this configuration: the fused posterior's
-    models (:func:`gp_pallas_supported`), n_s == 2, no performance
-    trajectory, the tracking or exploration cost."""
+    models (:func:`gp_pallas_supported`: a shared exact or sparse GP-SSM),
+    n_s == 2, no performance trajectory, the tracking or exploration
+    cost."""
     return (gp_pallas_supported(ssm) and n_s == 2 and n_perf == 0
             and cost_kind in _COSTS)
 
@@ -107,7 +109,7 @@ def prepare_tube_score(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe,
     args = (ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
             c_safety, t_len, cost_kind, cost_args)
     prepare_tube_score.calls += 1
-    if not on_cuda(ssm.gp.x):
+    if not on_cuda(gp_of(ssm).x):
         return TubeScorePrep(args, None, None)
     post = prepare_posterior(ssm)
     kw = {"dtype": post.x.dtype, "device": post.x.device}
@@ -117,8 +119,8 @@ def prepare_tube_score(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe,
                                        h_obs, h_mat_safe, h_safe), kw),
                      ssm.l_mu.to(**kw),
                      ssm.l_sigma.to(**kw),
-                     torch.exp(2.0 * ssm.gp.log_noise).to(**kw), sf2, floor,
-                     inv_ls.reshape(-1), inv_ls2.reshape(-1)])
+                     torch.exp(2.0 * gp_of(ssm).log_noise).to(**kw), sf2,
+                     floor, inv_ls.reshape(-1), inv_ls2.reshape(-1)])
     return TubeScorePrep(args, post, cst)
 
 
@@ -174,7 +176,7 @@ def tube_score_prepared(prep: TubeScorePrep, u_flat: torch.Tensor,
     (L,), viol (L,)); one launch on CUDA, the plain version on the CPU."""
     ssm, k_fb, *_, h_obs, _, h_safe, c_safety, t_len, cost_kind, cost_args = (
         prep.args)
-    if not on_cuda(u_flat, x0_cols, ssm.gp.x):
+    if not on_cuda(u_flat, x0_cols, gp_of(ssm).x):
         return tube_score_plain(ssm, u_flat, x0_cols, *prep.args[1:])
     _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind)
     post = prep.post

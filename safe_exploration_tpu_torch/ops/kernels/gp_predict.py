@@ -7,7 +7,9 @@ the mean Jacobian at L query lanes, for every output dim in one launch.
 Two steps, as cem_score takes them: :func:`prepare_posterior` makes a
 GP-SSM's posterior ready once per model (a :class:`LanePosterior`: the mask
 folded into the weights, K^-1 transposed, ``z_scale`` folded into the
-support rows and the lengthscales, the hyperparameters formed), and
+support rows and the lengthscales, the hyperparameters formed; a sparse
+model's support rows are its m inducing inputs, its weights alpha and
+Kuu^-1 - Sigma^-1, with no mask), and
 :func:`gp_predict_prepared` evaluates it at lanes z in raw coordinates, so
 the Jacobian needs no chain rule and the call does no masking and no
 hyperparameter arithmetic. For output dim e and lane l:
@@ -41,21 +43,47 @@ from safe_exploration_tpu_torch.ops.kernels._common import (
     stream_ptr,
 )
 
-__all__ = ["LanePosterior", "gp_pallas_supported", "gp_predict_lanes",
+__all__ = ["LanePosterior", "gp_of", "gp_pallas_supported", "gp_predict_lanes",
            "gp_predict_plain", "gp_predict_prepared", "posterior_hyper",
            "posterior_plain", "prepare_posterior"]
 
 _ARGTYPES = (VP,) * 12 + (INT,) * 6 + (VP,)
 
 
+def gp_of(ssm):
+    """The GP state of a GP-SSM: the sparse model's ``sgp`` or the exact
+    (or per-lane) model's ``gp``; each has ``kern_types``, ``params``,
+    ``log_noise``, ``x`` and ``n_out``."""
+    sgp = getattr(ssm, "sgp", None)
+    return sgp if sgp is not None else ssm.gp
+
+
+def _support(ssm):
+    """(rows, w_mean, w_var, state) of a model the kernel covers: a sparse
+    GP-SSM's (known by its ``sgp``) inducing rows and unmasked weights, or
+    an exact GP-SSM's (its ``gp``) buffer and masked weights. The models
+    package builds on this one, so it is not imported here."""
+    sgp = getattr(ssm, "sgp", None)
+    if sgp is not None:
+        return sgp.z, sgp.alpha, sgp.vmat, sgp
+    gp = ssm.gp
+    mask = gp.mask
+    return (gp.x, gp.beta * mask[None],
+            gp.kinv * (mask[None, :, None] * mask[None, None, :]), gp)
+
+
 def gp_pallas_supported(ssm) -> bool:
     """Whether this kernel covers the model: one shared exact GP-SSM (known
-    by its padded GP ``ssm.gp`` with a 2-D buffer; the models package
-    builds on this one, so it is not imported here) with the all-RBF menu
-    at f32 precision. Per-lane and stacked models (a 3-D buffer) keep the
-    plain form, as in the JAX package."""
-    gp = getattr(ssm, "gp", None)
-    return (gp is not None and gp.x.ndim == 2 and gp.precision == "f32"
+    by its padded GP ``ssm.gp`` with a 2-D buffer) or a shared sparse one
+    (its ``sgp``, a 2-D inducing set), with the all-RBF menu at f32
+    precision. Per-lane and stacked models (a 3-D buffer) keep the plain
+    form, as in the JAX package."""
+    sgp = getattr(ssm, "sgp", None)
+    gp = sgp if sgp is not None else getattr(ssm, "gp", None)
+    if gp is None:
+        return False
+    rows = gp.x if sgp is None else gp.z
+    return (rows.ndim == 2 and getattr(gp, "precision", "f32") == "f32"
             and all(kt == "rbf" for kt in gp.kern_types))
 
 
@@ -94,21 +122,19 @@ def _lane_posterior(x, w_mean, w_var, inv_ls, log_sf, kw) -> LanePosterior:
 
 
 def prepare_posterior(ssm, dtype=None) -> LanePosterior:
-    """:class:`LanePosterior` of a GP-SSM on its device (``z_scale`` folded
-    into the rows and lengthscales), in ``dtype`` (default the model's)."""
+    """:class:`LanePosterior` of an exact or sparse GP-SSM on its device
+    (``z_scale`` folded into the rows and lengthscales), in ``dtype``
+    (default the model's)."""
     prepare_posterior.calls += 1
-    gp = ssm.gp
-    mask = gp.mask
+    x, w_mean, w_var, gp = _support(ssm)
     inv_ls = torch.exp(-torch.stack([p["log_lengthscales"] for p in gp.params]))
-    x = gp.x
+    kw = {"dtype": dtype or x.dtype, "device": x.device}
     if ssm.z_scale is not None:
         inv_ls = inv_ls / ssm.z_scale[None, :]
         x = x * ssm.z_scale[None, :]
     return _lane_posterior(
-        x, gp.beta * mask[None], gp.kinv * (mask[None, :, None]
-                                            * mask[None, None, :]),
-        inv_ls, torch.stack([p["log_sf"] for p in gp.params]),
-        {"dtype": dtype or gp.x.dtype, "device": gp.x.device})
+        x, w_mean, w_var, inv_ls,
+        torch.stack([p["log_sf"] for p in gp.params]), kw)
 
 
 prepare_posterior.calls = 0

@@ -5,9 +5,10 @@
 :data:`CONFIGS` its registry of named configurations, so a name means the
 same thing on both sides. :func:`build_experiment` wires what the port
 carries: the pendulum, the cart-pole and the planar quadrotor (with or
-without a performance trajectory), the exact GP state-space model, the
-tracking, exploration and risk-priced tracking objectives, and the two solvers with the single-instance and
-the batched SafeMPC machines — the SQP (the single-instance ``planner`` on
+without a performance trajectory), the exact and the sparse
+(inducing-point) GP state-space models, the tracking, exploration and
+risk-priced tracking objectives, and the two solvers with the
+single-instance and the batched SafeMPC machines — the SQP (the single-instance ``planner`` on
 the portable NLP, the batched ``batch_planner`` on the lane SQP, and the
 fleet runner's test ``lane_batch_supported``) and the CEM (the
 single-instance ``planner`` on the portable or the lane backend, the
@@ -31,6 +32,8 @@ from safe_exploration_tpu_torch.envs import (
     make_quadrotor,
 )
 from safe_exploration_tpu_torch.models.gp_lanes import LaneGPSSM
+from safe_exploration_tpu_torch.models.sparse_gp import make_sparse_gp_ssm
+from safe_exploration_tpu_torch.models.ssm import GPSSM, make_gp_ssm
 from safe_exploration_tpu_torch.ops.linalg import dlqr
 from safe_exploration_tpu_torch.solvers.cem import (
     CemConfig,
@@ -147,10 +150,12 @@ def _require_ported(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown env {cfg.env!r} ({'|'.join(ENV_FACTORIES)})")
     if cfg.objective not in ("tracking", "exploration", "risk_tracking"):
         raise ValueError(f"unknown objective {cfg.objective!r}")
-    if cfg.ssm != "gp":
+    if cfg.ssm in ("mc_dropout", "mc_dropout_concrete"):
         raise NotImplementedError(
-            f"ssm={cfg.ssm!r} is not ported yet (sparse and MC-dropout "
-            "models: ROADMAP Queue 1, items 11 and 12)")
+            f"ssm={cfg.ssm!r} is not ported yet (MC-dropout models: ROADMAP "
+            "Queue 1, item 12)")
+    if cfg.ssm not in ("gp", "sparse_gp"):
+        raise ValueError(f"unknown ssm family: {cfg.ssm}")
 
 
 def _warn_ignored_knobs(cfg: ExperimentConfig, ignored: tuple) -> None:
@@ -227,8 +232,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             if not cem_lanes_supported(ssm, cfg.objective):
                 raise NotImplementedError(
                     "this model needs the vmapped portable CEM, which the port "
-                    "does not carry (per-lane and sparse models: ROADMAP "
-                    "Queue 1, items 7 and 11)"
+                    "does not carry (per-lane models: ROADMAP Queue 1, item 7)"
                 )
             return cem_lane_solver(ssm, x0s, warm, generator=generator,
                                    noise=noise)
@@ -289,9 +293,11 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         def lane_batch_supported(ssm):
             """Whether the fleet runner rides the lane backend for this
             model: a shared GPSSM (stacked by ``lane_stack_ssm``) or a
-            LaneGPSSM, on a configuration the lane SQP covers (the port's
-            lane SQP takes no other model)."""
-            return lanes_supported(ssm, sqp_cfg, cfg.objective)
+            LaneGPSSM, on a configuration the lane SQP covers. A sparse
+            model rides the lane batch planner, not the fleet's per-lane
+            appends."""
+            return (isinstance(ssm, (GPSSM, LaneGPSSM))
+                    and lanes_supported(ssm, sqp_cfg, cfg.objective))
 
         noise_shape = None
 
@@ -308,11 +314,14 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     l_sigma = torch.full((spec.n_s,), cfg.l_sigma, **kw)
 
     def make_ssm(xs, us, resid):
-        """The GP-SSM factory of this configuration."""
-        from safe_exploration_tpu_torch.models.ssm import make_gp_ssm
-
+        """The model factory of this configuration (``cfg.ssm``)."""
         z_scale = (torch.cat([spec.norm_x, spec.norm_u])
                    if cfg.normalize_inputs else None)
+        if cfg.ssm == "sparse_gp":
+            return make_sparse_gp_ssm(
+                kern_types, xs, us, resid, n_max=cfg.n_max,
+                n_inducing=cfg.n_inducing, l_mu=l_mu, l_sigma=l_sigma,
+                log_noise=cfg.log_noise, z_scale=z_scale)
         return make_gp_ssm(
             kern_types, xs, us, resid, n_max=cfg.n_max, l_mu=l_mu,
             l_sigma=l_sigma, log_noise=cfg.log_noise, z_scale=z_scale,

@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from safe_exploration_tpu_torch.models.sparse_gp import SparseGPSSM
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.ops.kernels import (
     cem_score_supported,
@@ -76,12 +77,14 @@ class _TubeCfg(NamedTuple):
 
 def cem_lanes_supported(ssm, cost_kind: str) -> bool:
     """Whether the lane CEM covers this model and objective: a shared exact
-    GP-SSM over the ported kernel menu, a lane objective."""
-    if not isinstance(ssm, GPSSM):
+    or inducing-point GP-SSM over the ported kernel menu, a lane
+    objective."""
+    if not isinstance(ssm, (GPSSM, SparseGPSSM)):
         return False
     gp = _gp_of(ssm)
     return (all(kt in _KERNEL_PARTS for kt in gp.kern_types)
-            and gp.precision == "f32" and cost_kind in _LANE_COSTS)
+            and getattr(gp, "precision", "f32") == "f32"
+            and cost_kind in _LANE_COSTS)
 
 
 def cem_plan_lanes(generator, ssm, x0s, k_fb, a, b, u_min, u_max, h_mat_obs,

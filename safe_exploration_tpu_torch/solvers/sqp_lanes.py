@@ -14,17 +14,18 @@ Hessian is the same fold over the gradient (reverse over reverse). No
 derivative ever couples two lanes. ``lax.scan`` / ``lax.cond`` become Python
 loops and one host ``bool`` for the violation-gated extra polish.
 
-Covered here: a shared :class:`GPSSM` or per-lane :class:`LaneGPSSM`
-(the fleet runner's models, each lane querying its own posterior through
-``models/gp_lanes.lane_predict``) with the RBF kernel menu, any state
-dimension (the JAX package's array-form tube; its scalar unroll at n_s <= 2
-is not kept, see :func:`_rollout_y_lanes`), the joint performance
+Covered here: a shared :class:`GPSSM`, a shared inducing-point
+:class:`SparseGPSSM` (the same lane contractions over its m inducing rows)
+or per-lane :class:`LaneGPSSM` (the fleet runner's models, each lane
+querying its own posterior through ``models/gp_lanes.lane_predict``) with
+the RBF kernel menu, any state dimension (the JAX package's array-form
+tube; its scalar unroll at n_s <= 2 is not kept, see
+:func:`_rollout_y_lanes`), the joint performance
 trajectory (the first ``r_shared`` controls shared with the safety block,
 the rest from the free perf tail of the decision vector) with its
 covariance recursion where the objective reads it (``want_sigma``), the
 tracking, exploration and risk-priced tracking objectives, GN Hessian,
-exact line search and fixed feedback gains. Sparse models are still to
-port (ROADMAP Queue 1, item 11).
+exact line search and fixed feedback gains.
 
 The tube rollout also serves the lane CEM (solvers/cem_lanes.py), which
 scores without derivatives: there ``impl="pallas"`` routes the posterior
@@ -50,8 +51,10 @@ from safe_exploration_tpu_torch.models.gp_lanes import (
     _relu0,
     lane_predict,
 )
+from safe_exploration_tpu_torch.models.sparse_gp import SparseGPSSM
 from safe_exploration_tpu_torch.models.ssm import GPSSM
 from safe_exploration_tpu_torch.ops.kernels import (
+    gp_of,
     gp_pallas_supported,
     gp_predict_prepared,
     prepare_posterior,
@@ -69,10 +72,9 @@ _LANE_COSTS = ("tracking", "exploration", "risk_tracking")
 # ----------------------------------------------------------------- GP (lanes)
 
 
-def _gp_of(ssm):
-    """The GP state of a lane-capable SSM: the exact :class:`GPSSM`'s or
-    the per-lane :class:`LaneGPSSM`'s ``gp``."""
-    return ssm.gp
+#: the GP state of a lane-capable SSM: the exact :class:`GPSSM`'s or the
+#: per-lane :class:`LaneGPSSM`'s ``gp``, the :class:`SparseGPSSM`'s ``sgp``
+_gp_of = gp_of
 
 
 def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
@@ -81,7 +83,9 @@ def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
 
     ``z``: (d_in, B) raw state-action inputs. Returns (mu (e, B), var (e, B)
     [, jac (e, d_in, B)]), with the conditioning-aware variance floor and the
-    z_scale chain rule of the JAX package. ``impl="pallas"`` takes the fused
+    z_scale chain rule of the JAX package. A :class:`SparseGPSSM` runs the
+    same body over its m inducing rows: mean weights ``alpha``, the
+    quadratic form on ``vmat``, no mask. ``impl="pallas"`` takes the fused
     kernel (forward-only; the name is the JAX package's) on ``post``, the
     model's ``prepare_posterior`` (made here when the caller holds none).
     A :class:`LaneGPSSM` answers each lane from its own model
@@ -96,8 +100,11 @@ def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
         if post is None:
             post = prepare_posterior(ssm)
         return gp_predict_prepared(post, z.contiguous(), want_jac=want_jac)
-    gp = ssm.gp
-    xr, w_mean, w_var, mask = gp.x, gp.beta, gp.kinv, gp.mask
+    gp = _gp_of(ssm)
+    if isinstance(ssm, SparseGPSSM):
+        xr, w_mean, w_var, mask = gp.z, gp.alpha, gp.vmat, None
+    else:
+        xr, w_mean, w_var, mask = gp.x, gp.beta, gp.kinv, gp.mask
     zz = z if ssm.z_scale is None else z / ssm.z_scale[:, None]
     eps = torch.finfo(zz.dtype).eps
     mus, vars_, jacs = [], [], []
@@ -105,14 +112,15 @@ def _gp_predict_lanes(ssm: GPSSM, z: torch.Tensor, *, want_jac: bool,
         params = gp.params[d]
         parts = _KERNEL_PARTS[gp.kern_types[d]]
         kv = sum(_kv_part_shared(p, params, xr, zz) for p in parts)  # (n, B)
-        kv = kv * mask[:, None]
+        if mask is not None:
+            kv = kv * mask[:, None]
         mus.append(w_mean[d] @ kv)
         kzz = sum(_kzz_part_shared(p, params, zz) for p in parts)
         floor = torch.clamp(8.0 * eps * kzz, min=1e-12)
         vars_.append(torch.maximum(
             kzz - torch.sum(kv * (w_var[d] @ kv), dim=0), floor))
         if want_jac:
-            c = mask * w_mean[d]
+            c = w_mean[d] if mask is None else mask * w_mean[d]
             jac = sum(_jac_part_shared(p, params, xr, zz, c) for p in parts)
             if ssm.z_scale is not None:
                 jac = jac / ssm.z_scale[:, None]
@@ -671,15 +679,16 @@ def solve_safempc_lanes(
 
 def lanes_supported(ssm, cfg: SqpConfig, cost_kind: str) -> bool:
     """Whether the port's lane backend covers this configuration: a shared
-    :class:`GPSSM` (one model, B initial states) or a :class:`LaneGPSSM`
-    (B per-lane models, the fleet runner's), any state dimension, with or
+    :class:`GPSSM` or :class:`SparseGPSSM` (one model, B initial states) or
+    a :class:`LaneGPSSM` (B per-lane models, the fleet runner's), any state
+    dimension, with or
     without a performance trajectory (either ``perf_method``: the Sigma-free
     objectives read the same stages under both, the risk cost the
     covariance recursion of each), any lane objective."""
     return (
-        isinstance(ssm, (GPSSM, LaneGPSSM))
-        and all(kt in _KERNEL_PARTS for kt in ssm.gp.kern_types)
-        and ssm.gp.precision == "f32"
+        isinstance(ssm, (GPSSM, LaneGPSSM, SparseGPSSM))
+        and all(kt in _KERNEL_PARTS for kt in _gp_of(ssm).kern_types)
+        and getattr(_gp_of(ssm), "precision", "f32") == "f32"
         and not cfg.opt_k_fb
         and cfg.hessian == "gn"
         and cfg.linesearch == "exact"

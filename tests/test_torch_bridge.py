@@ -1,5 +1,5 @@
-"""Helpers the port's CPU tests share (no tests here): a JAX GPSSM's state
-as numpy arrays, the JAX side of the bridge whose PyTorch side is
+"""Helpers the port's CPU tests share (no tests here): a JAX GPSSM's (and
+SparseGPSSM's) state as numpy arrays, the JAX side of the bridge whose PyTorch side is
 ``safe_exploration_tpu_torch.models.convert``; the JAX runners' initial-data,
 Lipschitz-region, episode and fleet draws rebuilt from their keys; the
 safe-MPC NLP's closures held against JAX's on one instance; and one torch
@@ -25,6 +25,20 @@ def jax_gpssm_to_numpy(ssm) -> dict:
         "l_sigma": np.asarray(ssm.l_sigma),
         "z_scale": None if ssm.z_scale is None else np.asarray(ssm.z_scale),
     }
+
+
+def jax_sparse_gpssm_to_numpy(ssm) -> dict:
+    """A JAX SparseGPSSM's state as the arrays of
+    ``convert.sparse_gpssm_from_numpy``."""
+    sgp = ssm.sgp
+    out = {k: np.asarray(getattr(sgp, k)) for k in (
+        "z", "x", "y", "mask", "log_noise", "luu", "lsig", "alpha", "vmat",
+        "head")}
+    out.update(
+        params=[{k: np.asarray(v) for k, v in p.items()} for p in sgp.params],
+        l_mu=np.asarray(ssm.l_mu), l_sigma=np.asarray(ssm.l_sigma),
+        z_scale=None if ssm.z_scale is None else np.asarray(ssm.z_scale))
+    return out
 
 
 def jax_init_draws(key, n, dtype=jnp.float64, n_s=2, n_u=1) -> dict:

@@ -61,6 +61,7 @@ from safe_exploration_tpu_torch.solvers.sqp import SqpConfig  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
     check_nlp_closures,
     jax_batch_draws,
+    jit_once,
     one_torch_thread,
 )
 from test_torch_cartpole import (  # noqa: E402,F401
@@ -162,12 +163,12 @@ def test_cem_plan_with_perf_matches_jax(golden):
         key = jax.random.PRNGKey(20 + k)
         noise = np.stack([np.asarray(jax.random.normal(kk, (16, 8, 1), F64))
                           for kk in jax.random.split(key, 2)])
-        jk, jfeas, jv, ji = jax.jit(
+        jk, jfeas, jv, ji = jit_once(
             lambda key_, x: jax_cem_plan(
                 key_, jssm, x, *(jnp.asarray(v) for v in (k_fb, a, b)),
                 spec.u_min, spec.u_max, *(jnp.asarray(v) for v in polys),
-                2.0, jax_tracking_cost(jnp.asarray(target)), jcfg))(
-                    key, jnp.asarray(x0))
+                2.0, jax_tracking_cost(jnp.asarray(target)), jcfg),
+            key, jnp.asarray(x0))(key, jnp.asarray(x0))
         tk, tfeas, tv, ti = cem_plan(
             None, tssm, _t(x0), *(_t(v) for v in (k_fb, a, b)),
             _t(spec.u_min), _t(spec.u_max), *(_t(v) for v in polys), 2.0,

@@ -63,6 +63,7 @@ from test_torch_bridge import (  # noqa: E402,F401
     jax_episode_draws,
     jax_gpssm_to_numpy,
     jax_init_draws as _jax_init_draws,
+    jit_once,
     one_torch_thread,
 )
 
@@ -142,7 +143,8 @@ def test_get_action_success_then_fallback_match_jax():
     jssm = jssm.replace(gp=jgp.gp_refit(jssm.gp.replace(params=params)))
     tssm = gpssm_from_numpy(jax_gpssm_to_numpy(jssm), KT, device="cpu")
     jst, tst = jexp["init_state"](), texp["init_state"]()
-    get_action = jax.jit(jexp["get_action"])
+    get_action = jit_once(jexp["get_action"], jax.random.PRNGKey(10), jst,
+                          jssm, jnp.asarray([0.05, -0.1]))
     flags = []
     for k, x0 in enumerate(([0.05, -0.1], [0.3, 0.5])):
         key = jax.random.PRNGKey(10 + k)
@@ -463,8 +465,9 @@ def test_registry_matches_jax_and_unported_choices_raise():
     for name, cfg in CONFIGS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             JAX_CONFIGS[name]), name
-    with pytest.raises(NotImplementedError, match="items 11"):
-        build_experiment(CONFIGS["pendulum_episode_sparse"], device="cpu")
+    for name in ("pendulum_episode_sparse", "pendulum_large_sparse"):
+        assert build_experiment(CONFIGS[name], device="cpu")["cfg"] == \
+            CONFIGS[name]
     with pytest.raises(NotImplementedError, match="item 7"):
         run_experiment(CONFIGS["pendulum_batch"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -480,5 +483,5 @@ def test_registry_matches_jax_and_unported_choices_raise():
                  "quadrotor_episode"):
         assert build_experiment(CONFIGS[name], device="cpu")["cfg"] == \
             CONFIGS[name]
-    with pytest.raises(NotImplementedError, match="items 11 and 12"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         build_experiment(CONFIGS["pendulum_episode_mcdropout"], device="cpu")

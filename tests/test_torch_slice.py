@@ -40,7 +40,7 @@ from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
     build_experiment,
 )
 from safe_exploration_tpu_torch.solvers.sqp import shift_duals  # noqa: E402
-from test_torch_bridge import one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import jit_once, one_torch_thread  # noqa: E402,F401
 
 B = 8
 N_DATA = 16
@@ -152,9 +152,9 @@ def test_two_closed_loop_steps_match_jax(exps):
 
     x0 = rng.uniform(-1.0, 1.0, (B, 2)) * [0.15, 0.4]
     x0[::4] *= 3.0                       # a few lanes near the boundary
-    step = jax.jit(jexp["get_action_batch"])
     jstate, tstate = jexp["init_state_batch"](B), texp["init_state_batch"](B)
     jx, tx = jnp.asarray(x0), _t(x0)
+    step = jit_once(jexp["get_action_batch"], jstate, jax_bucketed(jssm), jx)
     feas_seen = []
     for k in range(2):
         ju, jstate, jinfo = step(jstate, jax_bucketed(jssm), jx)

@@ -49,7 +49,11 @@ from safe_exploration_tpu_torch.models.convert import (  # noqa: E402
 from safe_exploration_tpu_torch.ops.kernels import tube_score_plain  # noqa: E402
 from safe_exploration_tpu_torch.reachability import onestep as tos  # noqa: E402
 from safe_exploration_tpu_torch.reachability import safety as tsafe  # noqa: E402
-from test_torch_bridge import jax_gpssm_to_numpy, one_torch_thread  # noqa: E402,F401
+from test_torch_bridge import (  # noqa: E402,F401
+    jax_gpssm_to_numpy,
+    jit_once,
+    one_torch_thread,
+)
 from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
     ExperimentConfig,
     build_experiment,
@@ -210,8 +214,8 @@ def test_solve_safempc_lanes_matches_jax_lane_solve(fitted, objective):
     x0s[::3] *= 6.0          # push some lanes past the constraint boundary
     warm = np.zeros((8, 5, 1))
     lam = np.abs(np.random.default_rng(4).normal(0.0, 0.1, (8, 24)))
-    jk, jf, jv, ji = jax.jit(jexp["batch_planner"])(
-        jssm, jnp.asarray(x0s), jnp.asarray(warm), jnp.asarray(lam))
+    args = (jssm, jnp.asarray(x0s), jnp.asarray(warm), jnp.asarray(lam))
+    jk, jf, jv, ji = jit_once(jexp["batch_planner"], *args)(*args)
     tk, tf, tv, ti = texp["batch_planner"](tssm, _t(x0s), _t(warm), _t(lam))
     np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
     assert np.asarray(jf).any() and not np.asarray(jf).all()
@@ -226,8 +230,9 @@ def test_solve_safempc_lanes_matches_jax_lane_solve(fitted, objective):
 def test_lanes_supported_covers_the_ported_slice(fitted):
     """The lane SQP covers performance trajectories (either perf method),
     the risk objective (its perf covariance recursion, want_sigma) and
-    the cart-pole and the quadrotor build; sparse models and the batched
-    fallback to the portable NLP raise naming their ROADMAP items."""
+    the cart-pole and the quadrotor build, and so do sparse models; the
+    MC-dropout models and the batched fallback to the portable NLP raise
+    naming their ROADMAP items."""
     _, tssm = fitted
     for kind in ("tracking", "exploration", "risk_tracking"):
         assert tl.lanes_supported(tssm, SqpConfig(), kind)
@@ -245,8 +250,12 @@ def test_lanes_supported_covers_the_ported_slice(fitted):
             exp = build_experiment(ExperimentConfig(solver=solver, **kw),
                                    device="cpu")
             assert exp["kern_types"] == ("rbf",) * exp["env"].spec.n_s
-    with pytest.raises(NotImplementedError, match="items 11"):
-        build_experiment(ExperimentConfig(solver="cem", ssm="sparse_gp"),
+    for solver in ("cem", "sqp"):
+        assert build_experiment(ExperimentConfig(solver=solver,
+                                                 ssm="sparse_gp"),
+                                device="cpu")["cfg"].ssm == "sparse_gp"
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_experiment(ExperimentConfig(solver="cem", ssm="mc_dropout"),
                          device="cpu")
     exp = build_experiment(ExperimentConfig(solver="sqp"), device="cpu")
     ff = tssm.replace(gp=tssm.gp.replace(precision="ff"))

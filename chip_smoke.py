@@ -18,8 +18,11 @@ quadrotor, through ``--config quadrotor_batch_sqp`` and ``--config
 quadrotor_episode``; the risk-priced objective of ``--config
 cartpole_risk_sqp``; BASELINE config 4, the sparse (inducing-point) GP,
 through ``--config pendulum_large_sparse`` and ``--config
-pendulum_episode_sparse``, the lane SQP and the lane CEM on it) and checks
-the GPU against the CPU in f64.
+pendulum_episode_sparse``, the lane SQP and the lane CEM on it; BASELINE
+config 3 as registered, ``--config pendulum_batch``: the stacked fleet of
+256 per-lane models, the portable CEM on a lane axis scored by the
+model-batched cem_score, O(n^2) appends) and checks the GPU against the
+CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
     python3 chip_smoke.py --phases nlp,episode-sqp   # a partial run
@@ -78,6 +81,22 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               twice each in alternating order, same generator seed
   7. cemparity  f64, B=16: one get_action_batch on the GPU (kernels) and on
               the CPU (plain versions) with the draws of one CPU generator
+     stacked-kernels  (run after cem-kernels) the model-batched cem_score
+              (B models, each scoring its own M lanes, one launch) against
+              its plain version at pendulum_batch's shape, B 256, n 128, H 3,
+              M 64, 40 and 1, distinct per-lane models, tracking and
+              exploration, f32 and f64; the B = 1 stack equal to the shared
+              call; CUDA-event, device and plain ms and the bound (f32)
+     batch-stacked  BASELINE config 3 as registered: run_experiment on
+              pendulum_batch (256 lanes, n_max 128, 24 initial points, 120
+              fit steps, 20 steps of the portable CEM on a lane axis, M 64,
+              12 elites, 4 iterations, H 3, one O(n^2) append per lane a
+              step), f32: the series, the step's split into plan, predict
+              and append, the busy share, the lanes whose model turned
+              non-finite, cem_score's launches (6 a step)
+     batch-stacked-parity  f64, 8 lanes, 3 steps: GPU against CPU on one
+              set of draws (counts and flags equal, trajectories and final
+              factors 1e-9)
   8. batch    the fleet CLI's run_experiment on pendulum_batch_sqp at full
               width (256 lanes, n_max 128, 5 of its 20 steps, 2 of its 4
               episodes),
@@ -104,7 +123,7 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               2048 and 4096, and cholesky_hbm's device time per kernel
               (profiler)
  11. episode  the episodic CLI's run_experiment on the card: (a)
-              pendulum_episode (1 of its 6 episodes, 25 of its 50 steps),
+              pendulum_episode (1 of its 6 episodes, 15 of its 50 steps),
               (b) the same with
               n_max 2048, 1,024 initial points, 60 hyperparameter steps;
               launch counts zeroed just before each run and read just after;
@@ -135,13 +154,13 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               draws
  17. quadrotor-batch  the fleet phase for quadrotor_batch_sqp (64 lanes,
               n_max 96, 40 initial points, n_safe 3 + n_perf 5, r_shared
-              1, 4 x 3, 2 episodes of 4 of its 8 steps), f32, with its
+              1, 4 x 3, 2 episodes of 2 of its 8 steps), f32, with its
               gates
  18. quadrotor-batch-parity  f64, 2 lanes, 1 step, 2 episodes of
               quadrotor_batch_sqp: GPU against CPU on one set of draws
  19. quadrotor-episode  quadrotor_episode (portable CEM, 256 samples, n_safe
-              5 + n_perf 12, n_max 512), 1 of its 6 episodes, f32: the
-              episode phase's gates and prints
+              5 + n_perf 12, n_max 512), 1 of its 6 episodes and 25 of its
+              50 steps, f32: the episode phase's gates and prints
  20. quadrotor-cem  one batched lane-CEM solve (cem_backend "lanes", B 64)
               on quadrotor_episode's first model: "auto" (gp_predict at
               d = 8 with the Jacobian) against "xla" in f32, the card's f64
@@ -1515,11 +1534,11 @@ def _episode_cfg(name: str, sets: list[str]):
 
 
 # (a) runs 1 of the registered 6 episodes (2 until the cart-pole's phases
-# came) and 25 of its 50 steps (since the quadrotor's phases came) to keep
-# the script's time; (b) runs its whole schedule; the cart-pole's episodic
-# run 1 of its 6 episodes and 10 of its 50 steps (25 until the quadrotor
-# fleet ran its 8 steps)
-RUN_A = ["n_ep=1", "n_steps=25"]
+# came) and 15 of its 50 steps (25 until the stacked fleet's phases came)
+# to keep the script's time; (b) runs its whole schedule; the cart-pole's
+# episodic run 1 of its 6 episodes and 10 of its 50 steps (25 until the
+# quadrotor fleet ran its 8 steps)
+RUN_A = ["n_ep=1", "n_steps=15"]
 RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60"]
 RUNS_PENDULUM = (("a", "pendulum_episode", RUN_A),
                  ("b", "pendulum_episode", RUN_B))
@@ -2146,7 +2165,7 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
     128, 24 initial points, 5 of its 20 steps, n_safe 3) or
     cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 1 of its
     16 steps, n_safe 6, n_perf 10, r_shared 2) or quadrotor_batch_sqp (64
-    lanes, n_max 96, 40 initial points, 4 of its 8 steps, n_safe 3, n_perf
+    lanes, n_max 96, 40 initial points, 2 of its 8 steps, n_safe 3, n_perf
     5), each with the lane SQP at 4 outer x 3 inner and a per-lane fit and
     calibration after every episode (120 steps), 2 episodes (of 4, 4, 2). Counts are zeroed just before the run
     and read just after; the fits, calibrations and unstack refits are
@@ -2453,13 +2472,14 @@ def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
 
 
 # BASELINE config 5: the quadrotor fleet (quadrotor_batch_sqp: 64 lanes,
-# n_max 96, 40 initial points, 2 episodes; 4 of its 8 steps an episode since
-# the sparse tier's phases came), and its f64 parity at 2 lanes, 1 step an
-# episode; quadrotor_episode for 1 of its 6 episodes (the portable CEM with
-# 256 samples, n_safe 5 + n_perf 12)
-RUN_QUAD_BATCH = ("n_steps=4",)
+# n_max 96, 40 initial points, 2 episodes; 2 of its 8 steps an episode since
+# the stacked fleet's phases came, 4 since the sparse tier's), and its f64
+# parity at 2 lanes, 1 step an episode; quadrotor_episode for 1 of its 6
+# episodes and 25 of its 50 steps (the portable CEM with 256 samples,
+# n_safe 5 + n_perf 12)
+RUN_QUAD_BATCH = ("n_steps=2",)
 QUAD_PARITY = (2, 1)
-RUNS_QUAD = (("quadrotor", "quadrotor_episode", ["n_ep=1"]),)
+RUNS_QUAD = (("quadrotor", "quadrotor_episode", ["n_ep=1", "n_steps=25"]),)
 # the risk objective: cartpole_risk_sqp's planner (the NLP with the perf
 # trajectory's covariance in the cost) solved once from RISK_X0 on its
 # first model, cut to RISK_NLP_SETS: a 4 x 3 + 3 budget and 5 of its 10
@@ -3198,6 +3218,421 @@ def phase_episode_sparse(seed: int) -> dict:
     return out
 
 
+# BASELINE config 3 as registered (pendulum_batch): the stacked fleet runner,
+# 256 lanes of per-lane models (n_max 128, 24 initial points), 20 steps of
+# the portable CEM on a lane axis (M 64, 12 elites, 4 iterations, H 3), every
+# score through the model-batched cem_score
+L_STACKED, M_STACKED, H_STACKED = 256, 64, 3
+STACKED_PARITY = ("batch_lanes=8", "n_steps=3")
+
+
+def _host_ms(fn) -> float:
+    """Host ms of one synchronized call of ``fn`` after a warm one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _ssm_to(ssm, **kw):
+    """A (stacked) GP-SSM with every tensor moved by ``Tensor.to(**kw)``."""
+    def t(v):
+        return None if v is None else v.to(**kw)
+
+    gp = ssm.gp
+    return ssm.replace(
+        gp=gp.replace(
+            x=t(gp.x), y=t(gp.y), mask=t(gp.mask),
+            params=tuple({k: t(v) for k, v in p.items()} for p in gp.params),
+            log_noise=t(gp.log_noise), chol=t(gp.chol), beta=t(gp.beta),
+            kinv=t(gp.kinv)),
+        l_mu=t(ssm.l_mu), l_sigma=t(ssm.l_sigma), z_scale=t(ssm.z_scale))
+
+
+def _stacked_model(seed: int, lanes: int, n: int = N_PATH):
+    """A stacked pendulum GP-SSM of ``lanes`` distinct models on the card in
+    f64: per lane its own n - 7 points, signal std, noise and Lipschitz
+    constants (the per-lane values a fleet carries after its per-lane
+    fits; the signal and noise moved together, so every lane's Gram is as
+    well conditioned as [cem-kernels]' model's), refitted by the
+    model-batched refit."""
+    from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy
+    from safe_exploration_tpu_torch.models.gp import gp_refit
+    from safe_exploration_tpu_torch.runtime.batch import stack_ssm
+
+    ssm = stack_ssm(gpssm_from_numpy(_cem_model(seed, n, True),
+                                     ("rbf", "rbf"), device="cuda",
+                                     dtype=torch.float64), lanes)
+    rng = np.random.default_rng(seed + 7)
+    k = n - 7
+    kw = {"dtype": torch.float64, "device": "cuda"}
+    raw = torch.tensor(rng.uniform(-1.0, 1.0, (lanes, k, 3)) * [0.3, 1.0, 1.0],
+                       **kw)
+    w = torch.tensor(rng.normal(size=(lanes, 3, 2)), **kw)
+    x, y = ssm.gp.x.clone(), ssm.gp.y.clone()
+    x[:, :k] = raw / ssm.z_scale[:, None, :]
+    y[:, :k] = 0.02 * torch.sin(3.0 * raw @ w)
+    lane = torch.arange(lanes, **kw)
+    frac = (lane % 7) / 7.0
+    gp = ssm.gp.replace(
+        x=x, y=y,
+        params=tuple({**p, "log_sf": -3.0 + 0.3 * frac} for p in ssm.gp.params),
+        log_noise=(-4.0 + 0.3 * frac)[:, None].expand(lanes, 2).contiguous())
+    l_mu = (0.05 * (1.0 + (lane % 5) / 5.0))[:, None].expand(lanes, 2)
+    return ssm.replace(gp=gp_refit(gp), l_mu=l_mu.contiguous(),
+                       l_sigma=(0.4 * l_mu).contiguous())
+
+
+def phase_stacked_kernels(seed: int) -> dict:
+    """The model-batched cem_score (one launch over B models, each scoring
+    its own M lanes) against its plain version (the lane chain once per
+    model) at pendulum_batch's shape, B 256, n 128, H 3, at M 64, a ragged
+    40 and 1 (a solve's final passes), tracking (exploration too at M 64),
+    distinct per-lane models (data, sf2, noise, l_mu, l_sigma), f32 (against the
+    plain version in f64 on the f32-rounded inputs, 2e-4 or twice the f32
+    plain version's own error where that is larger) and f64 (1e-10);
+    the B = 1 stack equal to the shared model's call; CUDA-event ms, device
+    ms (profiler), plain ms and the bound at each M (f32)."""
+    from safe_exploration_tpu_torch.models.ssm import ssm_lane
+    from safe_exploration_tpu_torch.ops.kernels import (
+        prepare_tube_score,
+        tube_score_plain,
+        tube_score_prepared,
+    )
+    from safe_exploration_tpu_torch.runtime.batch import stack_ssm
+
+    b_mod, n, t_len = L_STACKED, N_PATH, H_STACKED
+    model64 = _stacked_model(seed, b_mod)
+    consts, polys, target = _cem_plant(torch.float64, "cuda")
+    rng = np.random.default_rng(seed + 11)
+    worst, errs, timings = {}, {}, {}
+    for m in (M_STACKED, 40, 1):
+        L = b_mod * m
+        u = 0.4 * rng.standard_normal((t_len, L))
+        x0 = rng.uniform(-1.0, 1.0, (2, L)) * np.array([[0.15], [0.4]])
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            model = _ssm_to(model64, dtype=dtype)
+            ref_model = _ssm_to(model, dtype=torch.float64)
+            kw = {"dtype": dtype, "device": "cuda"}
+            uu, xx = torch.tensor(u, **kw), torch.tensor(x0, **kw)
+            err, tol = 0.0, 1e-10 if f64 else 2e-4
+            # the exploration cost at the path's M only (the plain version
+            # loops over the 256 models: ~2.5-5 s a call)
+            kinds = ("tracking", "exploration") if m == M_STACKED else (
+                "tracking",)
+            for kind in kinds:
+                args = (*consts, *polys, 2.0, t_len, kind,
+                        {"target": target} if kind == "tracking" else {})
+                prep = prepare_tube_score(model, *args)
+                out = tube_score_prepared(prep, uu, xx)
+                ref = tube_score_plain(ref_model, uu.double(), xx.double(),
+                                       *args)
+                e_kind = max(_rel(o, r) for o, r in zip(out, ref))
+                err = max(err, e_kind)
+                if not f64 and e_kind > 2e-4:
+                    # f32: 2e-4 (the gate of [cem-kernels]), or where the
+                    # plain version in f32 on the card misses that itself on
+                    # these inputs (sf2 - quad cancels in any summation
+                    # order), twice its error
+                    own = tube_score_plain(model, uu, xx, *args)
+                    tol = max(tol, *(2 * _rel(o, r) for o, r in zip(own, ref)))
+                if kind == "tracking":
+                    feas = float((ref[1] == 0).double().mean())
+                    if not f64:
+                        errs[f"m{m}"] = max(_abs(o, r)
+                                            for o, r in zip(out, ref))
+            worst[f"{str(dtype)[6:]}_m{m}"] = err
+            print(f"[stacked-kernels] {str(dtype)[6:]} B={b_mod} M={m} n={n} "
+                  f"H={t_len}: cem_score rel {err:.2e} (tol {tol:.2e}); share "
+                  f"of lanes inside the constraints {feas:.3f}", flush=True)
+            if err > tol:
+                _fail(f"model-batched cem_score disagrees with plain at "
+                      f"{dtype} M={m}: {err}")
+        # f32 times at this M: the path's call (the model prepared once per
+        # solve), the bound at the least work (each model's bytes once)
+        dt, sz = torch.float32, 4
+        model = _ssm_to(model64, dtype=dt)
+        args = (*consts, *polys, 2.0, t_len, "tracking", {"target": target})
+        prep = prepare_tube_score(model, *args)
+        uu = torch.tensor(u, dtype=dt, device="cuda")
+        xx = torch.tensor(x0, dtype=dt, device="cuda")
+        ops = (b_mod * _gp_prep_ops(n) + E * L * (
+            _gp_lane_ops(n, False) + (t_len - 1) * _gp_lane_ops(n, True))
+            + L * _tube_ops(t_len, len(polys[1]), len(polys[3])))
+        n_bytes = sz * (b_mod * (n * D_IN + E * n + E * n * n + 10 + 4 * D_IN)
+                        + (t_len + 2) * L + 2 * L)
+        # the plain version (a loop over the 256 models, ~2.5 s a call) is
+        # timed once, warm, at the path's M only
+        r = dict(ms=_time_ms(lambda: tube_score_prepared(prep, uu, xx), 20),
+                 prepare_ms=_time_ms(lambda: prepare_tube_score(model, *args),
+                                     10),
+                 plain_ms=_host_ms(lambda: tube_score_plain(model, uu, xx,
+                                                            *args))
+                 if m == M_STACKED else None,
+                 library_ms=None, bound=_bound_ms(n_bytes, ops, dt))
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        r["device_ms"], r["device_ms_by_kernel"] = _device_ms(
+            lambda: tube_score_prepared(prep, uu, xx))
+        timings[f"m{m}"] = r
+        print(f"[stacked-kernels] time f32 B={b_mod} M={m}: kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), prepare "
+              f"{r['prepare_ms']:.4f} ms, plain {r['plain_ms']} ms, "
+              f"library null, bound {r['bound_ms']:.6f} ms ({r['bound_by']})",
+              flush=True)
+    # the shared call is the B = 1 case of the same entry
+    one = _ssm_to(ssm_lane(model64, 3), dtype=torch.float32)
+    stack1 = stack_ssm(one, 1)
+    args = (*consts, *polys, 2.0, t_len, "tracking", {"target": target})
+    uu = torch.tensor(0.4 * rng.standard_normal((t_len, 1000)),
+                      dtype=torch.float32, device="cuda")
+    xx = torch.tensor(rng.uniform(-1.0, 1.0, (2, 1000)) * [[0.15], [0.4]],
+                      dtype=torch.float32, device="cuda")
+    shared = tube_score_prepared(prepare_tube_score(one, *args), uu, xx)
+    single = tube_score_prepared(prepare_tube_score(stack1, *args), uu, xx)
+    same = all(torch.equal(a, b) for a, b in zip(shared, single))
+    print(f"[stacked-kernels] B = 1 stack equal to the shared model's call: "
+          f"{same}", flush=True)
+    if not same:
+        _fail("stacked-kernels: the B = 1 stack differs from the shared call")
+    return {"worst_rel": worst, "errs": errs, "timings": timings,
+            "b1_equals_shared": same}
+
+
+def _stacked_step_split(exp, model, seed: int) -> dict:
+    """One step's batched solve on the final stacked fleet (fresh machine
+    state, states from the initial distribution, the planner's draws from
+    a seeded generator): host ms without and under torch.profiler (device
+    activity only), device ms, busy share and launches."""
+    spec = exp["env"].spec
+    lanes = model.gp.x.shape[0]
+    dev, dt = model.gp.x.device, model.gp.x.dtype
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x0 = spec.init_m + spec.init_std * torch.randn(
+        (lanes, spec.n_s), generator=g, dtype=dt, device=dev)
+    noise = torch.randn((lanes, *exp["batch_noise_shape"]), generator=g,
+                        dtype=dt, device=dev)
+    state = exp["init_state_batch"](lanes)
+    exp["get_action_batch"](state, model, x0, noise=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp["get_action_batch"](state, model, x0, noise=noise)
+    torch.cuda.synchronize()
+    wall_unprofiled = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp["get_action_batch"](state, model, x0, noise=noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CPU:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy": device_ms / wall_ms, "wall_ms_unprofiled": wall_unprofiled,
+            "busy_unprofiled": device_ms / wall_unprofiled,
+            "launches": sum(n for _, n in by_name.values()),
+            "top": {k[:60]: round(ms, 2) for k, (ms, _) in top}}
+
+
+def _nonfinite_lanes(model) -> dict:
+    """Per factor, the lanes of a stacked model where it is not all
+    finite ((L,) bool each)."""
+    return {f: ~torch.isfinite(getattr(model.gp, f)).flatten(1).all(1)
+            for f in ("chol", "beta", "kinv")}
+
+
+def phase_batch_stacked(seed: int) -> dict:
+    """``run_experiment`` on pendulum_batch as registered (256 lanes, n_max
+    128, 24 initial points, 120 fit steps, 20 steps of the portable CEM on
+    a lane axis, one O(n^2) append per lane a step), f32, counts zeroed just
+    before and read just after: the JAX CLI's series, steps/s, the step's
+    split into plan (get_action_batch), predict (ssm_predict) and append
+    (ssm_append_point), the lanes whose model turned non-finite, cem_score's
+    launches (6 a step: 4 wide passes and 2 final passes) and one step's
+    solve under the profiler (busy share). Gates: 0 violations, a finite
+    series but model_error (a non-finite model error only in lanes whose
+    model turned non-finite), n_data 44, lane_backend 0, 6 cem_score
+    launches a step, no refit kernel in the episode."""
+    import safe_exploration_tpu_torch.runtime.batch as batch_mod
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    cfg = _episode_cfg("pendulum_batch", [f"seed={seed}"])
+    spans = {"plan": [], "predict": [], "append": []}
+    saved = {"predict": batch_mod.ssm_predict,
+             "append": batch_mod.ssm_append_point,
+             "episodes": batch_mod.run_batched_episodes}
+    captured = {}
+
+    def episodes(env, get_action_batch, init_state_batch, model, *args,
+                 **kw):
+        # the episode's own launches (the run's less the initial fit's)
+        before = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        captured["log_noise"] = model.gp.log_noise[0].tolist()
+        traj, final = saved["episodes"](
+            env, _timed(spans["plan"], get_action_batch), init_state_batch,
+            model, *args, **kw)
+        captured.update(traj=traj, model=final, episode_launches={
+            w.__name__: w.launches - before[w.__name__]
+            for w in KERNEL_WRAPPERS})
+        return traj, final
+
+    batch_mod.ssm_predict = _timed(spans["predict"], saved["predict"])
+    batch_mod.ssm_append_point = _timed(spans["append"], saved["append"])
+    batch_mod.run_batched_episodes = episodes
+    try:
+        for w in KERNEL_WRAPPERS:
+            w.launches = 0
+        t0 = time.perf_counter()
+        summary = run_experiment(cfg, dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    finally:
+        batch_mod.ssm_predict = saved["predict"]
+        batch_mod.ssm_append_point = saved["append"]
+        batch_mod.run_batched_episodes = saved["episodes"]
+    series = summary["series"]
+    traj, model = captured["traj"], captured["model"]
+    bad = _nonfinite_lanes(model)
+    bad_model = bad["chol"] | bad["beta"] | bad["kinv"]
+    bad_err = ~torch.isfinite(traj["model_err"]).all(dim=1)
+    nan_outside = int((bad_err & ~bad_model).sum())
+    per_step = {k: 1e3 * sum(v) / len(v) for k, v in spans.items()}
+    exp = build_experiment(cfg, dtype=torch.float32, device="cuda")
+    step = _stacked_step_split(exp, model, seed)
+    cem_launches = captured["episode_launches"]["tube_score_prepared"]
+    n_data = int(model.gp.n_points.max())
+    r = {"config": {k: getattr(cfg, k) for k in (
+             "batch_lanes", "n_max", "n_init_samples", "hyp_iters", "n_ep",
+             "n_steps", "n_safe", "cem_samples", "cem_elites",
+             "cem_iterations")},
+         "series": series, "wall_s": wall, "launches": launches,
+         "episode_launches": captured["episode_launches"],
+         "step_ms": per_step, "step_split": step, "n_data": n_data,
+         "lanes_nonfinite_model": int(bad_model.sum()),
+         "lanes_nonfinite_by_factor": {f: int(v.sum()) for f, v in bad.items()},
+         "lanes_nan_model_error": int(bad_err.sum()),
+         "log_noise_first_fit": captured["log_noise"]}
+    print(f"[batch-stacked] {cfg.name} {r['config']} f32: wall {wall:.1f} s",
+          flush=True)
+    for key in ("lane_backend", "violations", "feasibility_rate",
+                "model_error", "lanes", "steps_per_sec"):
+        print(f"[batch-stacked]   {key}: {series[key]}", flush=True)
+    print(f"[batch-stacked]   per step (host, synchronized): plan "
+          f"(get_action_batch) {per_step['plan']:.2f} ms, predict "
+          f"(ssm_predict) {per_step['predict']:.2f} ms, append "
+          f"(ssm_append_point) {per_step['append']:.2f} ms; one step's solve "
+          f"on the final fleet {step['wall_ms_unprofiled']:.1f} ms, "
+          f"{step['wall_ms']:.1f} ms under the profiler, device "
+          f"{step['device_ms']:.2f} ms (busy share {step['busy']:.3f} of the "
+          f"profiled call, {step['busy_unprofiled']:.3f} of the unprofiled "
+          f"one; {step['launches']} device events); top kernels by device ms "
+          f"{step['top']}", flush=True)
+    print(f"[batch-stacked]   launches in the run {launches}; in the episode "
+          f"{captured['episode_launches']} (cem_score {cem_launches} in "
+          f"{cfg.n_steps} steps)", flush=True)
+    print(f"[batch-stacked]   lanes whose model turned non-finite "
+          f"{r['lanes_nonfinite_model']} (by factor "
+          f"{r['lanes_nonfinite_by_factor']}), lanes with a non-finite model "
+          f"error {r['lanes_nan_model_error']} (of {cfg.batch_lanes}); the "
+          f"first fit's log noise "
+          f"{[round(v, 3) for v in r['log_noise_first_fit']]} (the jitter's "
+          f"0.5 log 1e-6 = -6.908); n_data {n_data}", flush=True)
+    if any(series["violations"]):
+        _fail(f"batch-stacked: violations {series['violations']}")
+    if not all(np.isfinite(v).all() for k, v in series.items()
+               if k != "model_error") or nan_outside:
+        _fail(f"batch-stacked: non-finite series {series} or {nan_outside} "
+              "non-finite model errors in lanes whose model stayed finite")
+    if series["lane_backend"] != [0] or n_data != cfg.n_init_samples + \
+            cfg.n_steps:
+        _fail(f"batch-stacked: lane_backend {series['lane_backend']}, "
+              f"n_data {n_data}")
+    if cem_launches != 6 * cfg.n_steps:
+        _fail(f"batch-stacked: cem_score launched {cem_launches} times in "
+              f"{cfg.n_steps} steps, want {6 * cfg.n_steps}")
+    if any(captured["episode_launches"][w] for w in (
+            "rbf_gram_masked", "cholesky_blocked", "solve_psd",
+            "tri_inv_lower", "cholesky_hbm")):
+        _fail(f"batch-stacked: refit kernels in the episode "
+              f"{captured['episode_launches']}")
+    return r
+
+
+def phase_batch_stacked_parity(seed: int) -> dict:
+    """f64, pendulum_batch at 8 lanes and 3 steps (1 episode, the
+    registered 120 fit steps) on the card (the model-batched cem_score) and
+    on the CPU (its plain version) with one set of draws from a CPU
+    generator: counts and feasible flags equal, the trajectories and the
+    final per-lane factors within 1e-9."""
+    import safe_exploration_tpu_torch.runtime.batch as batch_mod
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    cfg = _episode_cfg("pendulum_batch", [*STACKED_PARITY, f"seed={seed}"])
+    exp = build_experiment(cfg, dtype=torch.float64, device="cpu")
+    spec = exp["env"].spec
+    saved = batch_mod.run_batched_episodes
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rec = {}
+
+        def episodes(*args, **kw):
+            rec["traj"], rec["model"] = saved(*args, **kw)
+            return rec["traj"], rec["model"]
+
+        draws = batch_mod.batch_draws(
+            torch.Generator().manual_seed(seed), spec, batch=cfg.batch_lanes,
+            n_ep=cfg.n_ep, n_steps=cfg.n_steps, n_init=cfg.n_init_samples,
+            n_region=128 * (spec.n_s + spec.n_u), dtype=torch.float64,
+            plan_shape=exp["batch_noise_shape"])
+        batch_mod.run_batched_episodes = episodes
+        try:
+            t0 = time.perf_counter()
+            rec["summary"] = run_experiment(cfg, dtype=torch.float64,
+                                            device=dev, draws=draws)
+            rec["s"] = time.perf_counter() - t0
+        finally:
+            batch_mod.run_batched_episodes = saved
+        out[dev] = rec
+    g, c = out["cuda"], out["cpu"]
+    gs, cs = g["summary"]["series"], c["summary"]["series"]
+    counts_equal = all(gs[k] == cs[k] for k in ("violations",
+                                                 "feasibility_rate"))
+    flags_equal = torch.equal(g["traj"]["feasible"].cpu(),
+                              c["traj"]["feasible"])
+    traj = max(_rel(g["traj"][k], c["traj"][k])
+               for k in ("x", "u", "resid", "model_err", "violation"))
+    factors = max(_rel(getattr(g["model"].gp, f), getattr(c["model"].gp, f))
+                  for f in ("chol", "beta", "kinv"))
+    res = {"counts_equal": counts_equal, "flags_equal": flags_equal,
+           "traj_rel": traj, "factors_rel": factors, "series_cpu": cs,
+           "gpu_s": g["s"], "cpu_s": c["s"]}
+    print(f"[batch-stacked-parity] f64 pendulum_batch, {cfg.batch_lanes} "
+          f"lanes, {cfg.n_steps} steps: counts equal {counts_equal} "
+          f"(feasibility {cs['feasibility_rate']}), feasible flags equal "
+          f"{flags_equal}; trajectories rel {traj:.2e}, final per-lane "
+          f"factors rel {factors:.2e} (tol 1e-9); GPU {g['s']:.1f} s, CPU "
+          f"{c['s']:.1f} s", flush=True)
+    if not (counts_equal and flags_equal):
+        _fail(f"batch-stacked-parity: series or flags differ GPU vs CPU: "
+              f"{gs} vs {cs}")
+    if traj > 1e-9 or factors > 1e-9:
+        _fail(f"batch-stacked-parity: trajectories {traj} or factors "
+              f"{factors} differ GPU vs CPU")
+    return res
+
+
 # the kernels line: per Pallas kernel its name, CUDA source, the Pallas
 # kernel it replaces and the wrappers whose launches count for it (trsm's
 # three entries replace _trsm_kernel together)
@@ -3227,7 +3662,11 @@ def _partial_run(args, timed, t_start) -> int:
         "kernels": (phase_kernels,), "batch-kernels": (phase_batch_kernels,),
         "cem-kernels": (phase_cem_kernels,), "path": (phase_path,),
         "parity": (phase_parity,), "cem": (phase_cem_path,),
-        "cem-parity": (phase_cem_parity,), "batch": (phase_batch,),
+        "cem-parity": (phase_cem_parity,),
+        "stacked-kernels": (phase_stacked_kernels,),
+        "batch-stacked": (phase_batch_stacked,),
+        "batch-stacked-parity": (phase_batch_stacked_parity,),
+        "batch": (phase_batch,),
         "batch-parity": (phase_batch_parity,),
         "cartpole-batch": (phase_batch, "cartpole_batch_sqp",
                            tuple(RUN_CART_BATCH), "cartpole-batch"),
@@ -3306,10 +3745,14 @@ def main() -> int:
     kern = timed("kernels", phase_kernels, args.seed)
     batch_kern = timed("batch-kernels", phase_batch_kernels, args.seed)
     cem_kern = timed("cem-kernels", phase_cem_kernels, args.seed)
+    stacked_kern = timed("stacked-kernels", phase_stacked_kernels, args.seed)
     path = timed("path", phase_path, args.seed)
     parity = timed("parity", phase_parity, args.seed)
     cem = timed("cem", phase_cem_path, args.seed)
     cem_parity = timed("cem-parity", phase_cem_parity, args.seed)
+    stacked = timed("batch-stacked", phase_batch_stacked, args.seed)
+    stacked_parity = timed("batch-stacked-parity", phase_batch_stacked_parity,
+                           args.seed)
     batch = timed("batch", phase_batch, args.seed)
     batch_parity = timed("batch-parity", phase_batch_parity, args.seed)
     cart_batch = timed("cartpole-batch", phase_batch, args.seed,
@@ -3428,6 +3871,15 @@ def main() -> int:
                     "max_abs_err": sparse_kern["errs"][f"{short}_m{m}"],
                     **{k: rs[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}}
+        if short == "cem_score":
+            # pendulum_batch's stacked fleet: every score model-batched (B
+            # 256 per-lane models, M 64 lanes each, n 128, H 3)
+            rs = stacked_kern["timings"][f"m{M_STACKED}"]
+            entry["pendulum_batch"] = {
+                "launches": stacked["episode_launches"]["tube_score_prepared"],
+                "max_abs_err": stacked_kern["errs"][f"m{M_STACKED}"],
+                **{k: rs[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
         if short == "gp_predict":
             rq = cem_kern["timings"]["gp_predict_quadrotor"]
             entry["quadrotor_cem"] = {
@@ -3442,7 +3894,10 @@ def main() -> int:
               "cem_kernel_times": cem_kern["timings"],
               "cem_kernel_worst_rel_f32": cem_kern["worst_rel_f32"],
               "path": path, "parity": parity, "cem_path": cem,
-              "cem_parity": cem_parity, "hbm": hbm, "episode": episode,
+              "cem_parity": cem_parity, "stacked_kernels": stacked_kern,
+              "batch_stacked": stacked,
+              "batch_stacked_parity": stacked_parity,
+              "hbm": hbm, "episode": episode,
               "episode_parity": episode_parity,
               "batch_kernel_times": batch_kern["timings"], "batch": batch,
               "batch_parity": batch_parity,

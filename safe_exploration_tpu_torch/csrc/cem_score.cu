@@ -20,6 +20,14 @@
 // The GP runs in raw input coordinates: the caller folds z_scale into the
 // support rows and lengthscales, so the Jacobian needs no chain rule.
 //
+// Models: B of them, each scoring its own M lanes (the batched portable
+// CEM's per-lane models, M samples each; one shared model is B = 1 with all
+// lanes its own). The grid is (ceil(M / LB), B): blockIdx.y picks the
+// model's support rows, weights and W and its constants (l_mu, l_sigma,
+// noise, sf2, floor, lengthscales: one block of the constants per model),
+// and lane = model * M + blockIdx.x * LB + l, so each model's lanes are
+// padded to the block and any M works (M = 1 in a solve's final passes).
+//
 // What bounds it on an H100: operations. Each of the T stages evaluates the
 // posterior for both output dims, 2 n^2 flops each for the variance's
 // quadratic form kv^T W kv, about 1.3 GFLOP at the lane CEM's 16,384 lanes
@@ -56,10 +64,11 @@ constexpr int NT = 256;            // threads per block
 constexpr size_t RESIDENT_MAX = 64 * 1024;  // bytes of W kept resident
 
 // Offsets into the constant block (prepare_tube_score in cem_score.py): the
-// plant's constants first (one host-to-device copy), then the model's.
+// plant's constants first (one host-to-device copy), from `model` on one
+// block of `stride` values per model, at the offsets lmu ... ils2 in it.
 struct Cst {
-  int a, b, kfb, bmat, tgt, hom, hov, hsm, hsv, lmu, lsig, noise, sf2, flr,
-      ils, ils2, total;
+  int a, b, kfb, bmat, tgt, hom, hov, hsm, hsv, model, lmu, lsig, noise, sf2,
+      flr, ils, ils2, stride;
   __host__ __device__ Cst(int n_u, int n_obs, int n_sr) {
     const int d = 2 + n_u;
     a = 0;
@@ -71,14 +80,15 @@ struct Cst {
     hov = hom + 2 * n_obs;
     hsm = hov + n_obs;
     hsv = hsm + 2 * n_sr;
-    lmu = hsv + n_sr;
+    model = hsv + n_sr;
+    lmu = 0;
     lsig = lmu + 2;
     noise = lsig + 2;
     sf2 = noise + 2;
     flr = sf2 + 2;
     ils = flr + 2;
     ils2 = ils + 2 * d;
-    total = ils2 + 2 * d;
+    stride = ils2 + 2 * d;
   }
 };
 
@@ -129,9 +139,9 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
                  const T* __restrict__ wm, const T* __restrict__ wvt,
                  const T* __restrict__ cst, const T* __restrict__ u,
                  const T* __restrict__ x0, T* __restrict__ cost_out,
-                 T* __restrict__ viol_out, int n, int n_u, int L, int t_len,
-                 int n_obs, int n_sr, int resident, T c_safety, int explore,
-                 T w_x, T w_u, T w_t, T scale) {
+                 T* __restrict__ viol_out, int n, int n_u, int L, int m,
+                 int t_len, int n_obs, int n_sr, int resident, T c_safety,
+                 int explore, T w_x, T w_u, T w_t, T scale) {
   constexpr int RT = gpl::rows_per_tile<NT, LB>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int d = 2 + n_u, np = pad4(n);
@@ -145,9 +155,16 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
 
   const int tid = threadIdx.x;
   const int l = tid % LB, g = tid / LB;   // lane of the GP and the algebra
-  const int lane = blockIdx.x * LB + l;
-  const bool live = lane < L;
+  const int model = blockIdx.y, j = blockIdx.x * LB + l;
+  const int lane = model * m + j;         // column of u, x0 and the outputs
+  const bool live = j < m;
   const Cst o(n_u, n_obs, n_sr);
+  // this block's model: its rows, weights, W and constants
+  x += (size_t)model * n * d;
+  xil += (size_t)model * 2 * n * d;
+  wm += (size_t)model * 2 * n;
+  wvt += (size_t)model * 2 * n * n;
+  const T* cm = cst + o.model + (size_t)model * o.stride;
 
   // W in flight while the rest is staged and the first kv computed
   if (resident) gpl::load_w_async<T, NT>(wsh, wvt, n, 2);
@@ -169,8 +186,8 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
   for (int t = 0; t < t_len; ++t) {
     T mu[2], var[2], jac[2][DMAX];
     for (int e = 0; e < 2; ++e) {
-      const T* ils = cst + o.ils + e * d;
-      const T sf2 = cst[o.sf2 + e];
+      const T* ils = cm + o.ils + e * d;
+      const T sf2 = cm[o.sf2 + e];
       // 1. kv of the block's lanes (the first pass also waits for W)
       gpl::kv_stage<T, NT, LB>(kv, xl + (size_t)e * n * d, z, ils, sf2, n, d);
       gpl::cp_async_wait_all();
@@ -184,12 +201,12 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
           wsh, red, n);
       // 4. every thread: its lane's mean, variance and Jacobian
       mu[e] = aug[l];
-      var[e] = maxnan(sf2 - quad, cst[o.flr + e]);
+      var[e] = maxnan(sf2 - quad, cm[o.flr + e]);
       if (t > 0) {
 #pragma unroll
         for (int j = 0; j < DMAX; ++j) {
           if (j >= d) break;
-          jac[e][j] = (aug[(1 + j) * LB + l] - z[j] * mu[e]) * cst[o.ils2 + e * d + j];
+          jac[e][j] = (aug[(1 + j) * LB + l] - z[j] * mu[e]) * cm[o.ils2 + e * d + j];
         }
       }
     }
@@ -214,7 +231,7 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
       pn[i] = acc + bu + mu[i];
     }
     T hw_c[2];
-    for (int i = 0; i < 2; ++i) hw_c[i] = c_safety * gpl::sqrt_(var[i] + cst[o.noise + i]);
+    for (int i = 0; i < 2; ++i) hw_c[i] = c_safety * gpl::sqrt_(var[i] + cm[o.noise + i]);
     if (t == 0) {
       for (int i = 0; i < 2; ++i)
         for (int j = 0; j < 2; ++j) q[i][j] = i == j ? T(2) * hw_c[i] * hw_c[i] : T(0);
@@ -248,8 +265,8 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
       const T r = gpl::sqrt_(r_sqr);
       T hw_t[2];
       for (int i = 0; i < 2; ++i) {
-        hw_t[i] = T(0.5) * cst[o.lmu + i] * r_sqr;
-        hw_c[i] = c_safety * (gpl::sqrt_(var[i] + cst[o.noise + i]) + cst[o.lsig + i] * r);
+        hw_t[i] = T(0.5) * cm[o.lmu + i] * r_sqr;
+        hw_c[i] = c_safety * (gpl::sqrt_(var[i] + cm[o.noise + i]) + cm[o.lsig + i] * r);
       }
       diag_sum(ql, hw_c);
       diag_sum(ql, hw_t);
@@ -294,19 +311,20 @@ cem_score_kernel(const T* __restrict__ x, const T* __restrict__ xil,
 template <typename T, int LB>
 int launch_lb(const void* x, const void* xil, const void* wm, const void* wvt,
               const void* cst, const void* u, const void* x0, void* cost,
-              void* viol, int n, int n_u, int L, int t_len, int n_obs,
-              int n_sr, bool resident, size_t bytes, double c_safety,
-              int explore, double w_x, double w_u, double w_t, double scale,
-              cudaStream_t stream) {
+              void* viol, int n, int n_u, int L, int n_models, int t_len,
+              int n_obs, int n_sr, bool resident, size_t bytes,
+              double c_safety, int explore, double w_x, double w_u, double w_t,
+              double scale, cudaStream_t stream) {
   cudaError_t err = gpl::allow_smem(cem_score_kernel<T, LB>, bytes);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (L + LB - 1) / LB;
+  const int m = L / n_models;
+  const dim3 blocks((m + LB - 1) / LB, n_models);
   cem_score_kernel<T, LB><<<blocks, NT, bytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(xil),
       static_cast<const T*>(wm), static_cast<const T*>(wvt),
       static_cast<const T*>(cst), static_cast<const T*>(u),
       static_cast<const T*>(x0), static_cast<T*>(cost), static_cast<T*>(viol),
-      n, n_u, L, t_len, n_obs, n_sr, (int)resident, (T)c_safety, explore,
+      n, n_u, L, m, t_len, n_obs, n_sr, (int)resident, (T)c_safety, explore,
       (T)w_x, (T)w_u, (T)w_t, (T)scale);
   return (int)cudaGetLastError();
 }
@@ -316,48 +334,52 @@ int launch_lb(const void* x, const void* xil, const void* wm, const void* wvt,
 template <typename T>
 int launch(const void* x, const void* xil, const void* wm, const void* wvt,
            const void* cst, const void* u, const void* x0, void* cost,
-           void* viol, int n, int n_u, int L, int t_len, int n_obs, int n_sr,
-           double c_safety, int explore, double w_x, double w_u, double w_t,
-           double scale, cudaStream_t stream) {
+           void* viol, int n, int n_u, int L, int n_models, int t_len,
+           int n_obs, int n_sr, double c_safety, int explore, double w_x,
+           double w_u, double w_t, double scale, cudaStream_t stream) {
   const int d = 2 + n_u;
   const bool resident = 2 * (size_t)n * pad4(n) * sizeof(T) <= RESIDENT_MAX;
   const size_t b64 = smem_elems(n, d, resident, 64) * sizeof(T);
   if (b64 <= gpl::SMEM_MAX) {
     return launch_lb<T, 64>(x, xil, wm, wvt, cst, u, x0, cost, viol, n, n_u, L,
-                            t_len, n_obs, n_sr, resident, b64, c_safety,
-                            explore, w_x, w_u, w_t, scale, stream);
+                            n_models, t_len, n_obs, n_sr, resident, b64,
+                            c_safety, explore, w_x, w_u, w_t, scale, stream);
   }
   const size_t b32 = smem_elems(n, d, resident, 32) * sizeof(T);
   return launch_lb<T, 32>(x, xil, wm, wvt, cst, u, x0, cost, viol, n, n_u, L,
-                          t_len, n_obs, n_sr, resident, b32, c_safety, explore,
-                          w_x, w_u, w_t, scale, stream);
+                          n_models, t_len, n_obs, n_sr, resident, b32,
+                          c_safety, explore, w_x, w_u, w_t, scale, stream);
 }
 
 }  // namespace
 
-// x (n, 2 + n_u) support rows in raw coordinates, xil (2, n, 2 + n_u) the
-// rows over each output dim's lengthscales, wm (2, n) and wvt (2, n, n) the
-// masked posterior weights (w_var transposed), cst the constant block of
-// cem_score.py (Cst(n_u, n_obs, n_sr).total values), u (t_len n_u, L)
-// controls, x0 (2, L) initial states; out cost and viol (L,). Returns
+// For each of n_models models (B): x (B, n, 2 + n_u) support rows in raw
+// coordinates, xil (B, 2, n, 2 + n_u) the rows over each output dim's
+// lengthscales, wm (B, 2, n) and wvt (B, 2, n, n) the masked posterior
+// weights (w_var transposed); cst the constant block of cem_score.py (the
+// plant's, then Cst::stride values per model); u (t_len n_u, L) controls
+// and x0 (2, L) initial states of L = B M lanes, model b's M lanes at
+// columns b M ... b M + M - 1; out cost and viol (L,). Returns
 // cudaGetLastError() (cudaErrorInvalidValue where the shared memory of one
-// block cannot hold the model).
+// block cannot hold the model, or L is not a multiple of n_models).
 extern "C" int cem_score_lanes(const void* x, const void* xil, const void* wm,
                                const void* wvt, const void* cst,
                                const void* u, const void* x0, void* cost,
-                               void* viol, int n, int n_u, int L, int t_len,
-                               int n_obs, int n_sr, double c_safety,
-                               int explore, double w_x, double w_u, double w_t,
-                               double scale, int is_f64, void* stream) {
+                               void* viol, int n, int n_u, int L,
+                               int n_models, int t_len, int n_obs, int n_sr,
+                               double c_safety, int explore, double w_x,
+                               double w_u, double w_t, double scale,
+                               int is_f64, void* stream) {
   if (n < 1 || n_u < 1 || 2 + n_u > DMAX || L < 1 || t_len < 1 ||
-      n_obs < 0 || n_sr < 0)
+      n_obs < 0 || n_sr < 0 || n_models < 1 || n_models > 65535 ||
+      L % n_models != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_f64)
     return launch<double>(x, xil, wm, wvt, cst, u, x0, cost, viol, n, n_u, L,
-                          t_len, n_obs, n_sr, c_safety, explore, w_x, w_u, w_t,
-                          scale, s);
+                          n_models, t_len, n_obs, n_sr, c_safety, explore,
+                          w_x, w_u, w_t, scale, s);
   return launch<float>(x, xil, wm, wvt, cst, u, x0, cost, viol, n, n_u, L,
-                       t_len, n_obs, n_sr, c_safety, explore, w_x, w_u, w_t,
-                       scale, s);
+                       n_models, t_len, n_obs, n_sr, c_safety, explore, w_x,
+                       w_u, w_t, scale, s);
 }

@@ -51,7 +51,7 @@ from safe_exploration_tpu_torch.ops.kernels import (
 )
 from safe_exploration_tpu_torch.ops.kernels.cholesky import MAX_N
 
-__all__ = ["GP", "gp_init", "gp_refit", "gp_update_data",
+__all__ = ["GP", "gp_init", "gp_refit", "gp_update_data", "gp_append_point",
            "gp_shrink_to_bucket", "gp_nll", "gp_fit", "gp_predict",
            "gp_predict_mean_jac", "refit_cholesky", "refit_inputs",
            "adam_fit", "cholesky_or_nan", "ring_write"]
@@ -100,6 +100,16 @@ def _require_single(gp: GP, what: str) -> None:
             f"{what} takes one model, not a stacked GP (x "
             f"{tuple(gp.x.shape)}); per-lane models predict and append "
             "through models/gp_lanes.py")
+
+
+def _require_lane_points(gp: GP, z: torch.Tensor, what: str) -> None:
+    """Raise unless the points of a stacked GP carry its lane axis in
+    front."""
+    if z.ndim < 2 or z.shape[0] != gp.x.shape[0]:
+        raise ValueError(
+            f"{what} of a stacked GP ({gp.x.shape[0]} lanes) takes points "
+            f"(lanes, ..., d_in), not {tuple(z.shape)}; batch-last "
+            "per-lane models predict through models/gp_lanes.py")
 
 
 def _masked_gram(kern_type: str, params: dict, x: torch.Tensor,
@@ -227,6 +237,67 @@ def ring_write(gp, x_new: torch.Tensor, y_new: torch.Tensor,
         y[dst] = y_new[src]
         mask[dst] = 1.0
     return x, y, mask, head
+
+
+def gp_append_point(gp: GP, x_new: torch.Tensor, y_new: torch.Tensor) -> GP:
+    """O(n^2) append of ONE point by the bordered Cholesky extension (the
+    JAX package's ``gp_append_point``): x_new (d_in,), y_new (e,), or on a
+    stacked GP one point per lane, (L, d_in) and (L, e), appended in
+    lockstep at the shared head.
+
+    With identity padding K is block-diagonal across the mask, so
+    activating slot ``head`` adds one row to each factor: l_row = L^-1 kv
+    (kv the new point's cross-covariances masked by the OLD mask), l_nn =
+    sqrt(max(k_nn + noise + jitter - |l_row|^2, jitter)); K^-1 gets the
+    rank-1 block-inverse update; beta comes from two triangular solves on
+    the maintained factor (not from K^-1). A full buffer is a no-op: the
+    point is dropped and every factor stays as it was."""
+    if gp.head >= gp.n_max:
+        return gp
+    stacked = gp.x.ndim == 3
+    if stacked and (x_new.shape[0] != gp.x.shape[0] or x_new.ndim != 2):
+        raise ValueError(
+            f"gp_append_point on a stacked GP ({gp.x.shape[0]} lanes) takes "
+            f"one point per lane, (lanes, d_in), not {tuple(x_new.shape)}")
+    slot = gp.head
+    x, y, mask = gp.x.clone(), gp.y.clone(), gp.mask.clone()
+    x[..., slot, :] = x_new
+    y[..., slot, :] = y_new
+    mask[..., slot] = 1.0
+    chols, betas, kinvs = [], [], []
+    for d in range(gp.n_out):
+        kt, params = gp.kern_types[d], gp.params[d]
+        noise_var = torch.exp(2.0 * gp.log_noise[..., d])
+        kv = gram(kt, params, x_new[..., None, :], x)[..., 0, :] * gp.mask
+        chol = gp.chol[..., d, :, :]
+        l_row = torch.linalg.solve_triangular(
+            chol, kv[..., None], upper=False)[..., 0]
+        knn = torch.exp(2.0 * params["log_sf"])
+        schur = torch.clamp(
+            knn + noise_var + _JITTER - torch.sum(l_row * l_row, dim=-1),
+            min=_JITTER)
+        new_l = chol.clone()
+        new_l[..., slot, :] = l_row
+        new_l[..., slot, slot] = torch.sqrt(schur)
+        # K^-1 of the bordered matrix: with w = K_old^-1 kv (0 on every
+        # inactive slot), [[K^-1 + w w^T / S, -w / S], [-w^T / S, 1 / S]]
+        kinv = gp.kinv[..., d, :, :]
+        w = (kinv @ kv[..., None])[..., 0]
+        s = schur[..., None]
+        new_kinv = kinv + w[..., :, None] * w[..., None, :] / s[..., None]
+        slot_vec = -w / s
+        slot_vec[..., slot] = 1.0 / schur
+        new_kinv[..., slot, :] = slot_vec
+        new_kinv[..., :, slot] = slot_vec
+        yd = (mask * y[..., d])[..., None]
+        z_half = torch.linalg.solve_triangular(new_l, yd, upper=False)
+        betas.append(torch.linalg.solve_triangular(
+            new_l.mT, z_half, upper=True)[..., 0])
+        chols.append(new_l)
+        kinvs.append(new_kinv)
+    return gp.replace(x=x, y=y, mask=mask, chol=torch.stack(chols, dim=-3),
+                      beta=torch.stack(betas, dim=-2),
+                      kinv=torch.stack(kinvs, dim=-3), head=gp.head + 1)
 
 
 def gp_shrink_to_bucket(gp: GP, *, min_bucket: int = 32) -> GP:
@@ -357,31 +428,47 @@ def adam_fit(loss, theta: list, *, n_prior: int | None, iters: int,
 def _posterior(gp: GP, z2: torch.Tensor, with_jac: bool):
     """Per output dim: the posterior mean, the floored latent variance and
     (``with_jac``) the closed-form mean Jacobian at the inputs z2 (m,
-    d_in), from one cross-covariance ``kv`` per dim."""
+    d_in), or on a stacked GP (L, m, d_in) against each lane's own model,
+    from one cross-covariance ``kv`` per dim."""
+    stacked = gp.x.ndim == 3
+    mask = gp.mask[..., None, :] if stacked else gp.mask
     eps = torch.finfo(z2.dtype).eps
     means, vars_, jacs = [], [], []
     for d in range(gp.n_out):
         kt, params = gp.kern_types[d], gp.params[d]
-        kv = gram(kt, params, z2, gp.x) * gp.mask            # (m, n_max)
-        means.append(kv @ gp.beta[d])
+        kv = gram(kt, params, z2, gp.x) * mask               # (.., m, n_max)
+        beta = gp.beta[..., d, :]
+        means.append((kv @ beta[..., None])[..., 0] if stacked
+                     else kv @ beta)
         kzz = kernel_diag(kt, params, z2)
         floor = torch.clamp(8.0 * eps * kzz, min=1e-12)
-        quad = torch.sum(kv * (kv @ gp.kinv[d].T), dim=-1)
+        quad = torch.sum(kv * (kv @ gp.kinv[..., d, :, :].mT), dim=-1)
         vars_.append(torch.maximum(kzz - quad, floor))
         if with_jac:
             # kv carries the mask, so the weights are beta's
             jacs.append(weighted_mean_jac(kt, params, z2, gp.x, kv,
-                                          gp.beta[d]))
+                                          beta[..., None, :] if stacked
+                                          else beta))
     return means, vars_, jacs
+
+
+def _flat_points(gp: GP, z: torch.Tensor, what: str) -> torch.Tensor:
+    """The points as the posterior takes them: (m, d_in), or on a stacked
+    GP (L, m, d_in)."""
+    if gp.x.ndim == 2:
+        return z.reshape(-1, z.shape[-1])
+    _require_lane_points(gp, z, what)
+    return z.reshape(z.shape[0], -1, z.shape[-1])
 
 
 def gp_predict(gp: GP, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Posterior mean and latent variance at inputs z (..., d_in) ->
     (mean (..., e), var (..., e)); solve-free through kinv, with the
-    conditioning-aware variance floor of the JAX package."""
-    _require_single(gp, "gp_predict")
+    conditioning-aware variance floor of the JAX package. A stacked GP
+    takes z (L, ..., d_in), each lane's points against its own model."""
     lead = z.shape[:-1]
-    means, vars_, _ = _posterior(gp, z.reshape(-1, z.shape[-1]), False)
+    means, vars_, _ = _posterior(gp, _flat_points(gp, z, "gp_predict"),
+                                 False)
     mean = torch.stack(means, dim=-1).reshape(lead + (gp.n_out,))
     var = torch.stack(vars_, dim=-1).reshape(lead + (gp.n_out,))
     return mean, var
@@ -391,10 +478,11 @@ def gp_predict_mean_jac(gp: GP, z: torch.Tensor):
     """Posterior mean, latent variance and the closed-form mean Jacobian at
     inputs z (..., d_in) -> (mean (..., e), var (..., e), jac (..., e, d_in))
     (:func:`kernels.weighted_mean_jac`), on the same
-    cross-covariance as the mean and variance."""
-    _require_single(gp, "gp_predict_mean_jac")
+    cross-covariance as the mean and variance. A stacked GP takes z (L,
+    ..., d_in), as :func:`gp_predict`."""
     lead = z.shape[:-1]
-    means, vars_, jacs = _posterior(gp, z.reshape(-1, z.shape[-1]), True)
+    means, vars_, jacs = _posterior(
+        gp, _flat_points(gp, z, "gp_predict_mean_jac"), True)
     jac = torch.stack(jacs, dim=-2)
     return (torch.stack(means, dim=-1).reshape(lead + (gp.n_out,)),
             torch.stack(vars_, dim=-1).reshape(lead + (gp.n_out,)),

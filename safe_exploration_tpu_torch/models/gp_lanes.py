@@ -282,8 +282,7 @@ def lane_append_point(lssm: LaneGPSSM, x: torch.Tensor, u: torch.Tensor,
         raise ValueError(
             "lane_append_point requires one transition per lane in lockstep "
             f"(shared mask/head): got x shape {tuple(x.shape)} for "
-            f"{n_lanes} lanes; per-lane variable-length schedules need the "
-            "stacked runner (ROADMAP Queue 1, item 7)")
+            f"{n_lanes} lanes")
     if gp.head >= gp.n_max:
         return lssm
     z = torch.cat([x, u], dim=-1).T                         # (d_in, B)

@@ -68,10 +68,11 @@ def gram(kern_type: str, params: dict, x1: torch.Tensor,
 
 
 def kernel_diag(kern_type: str, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """diag k(x, x) for a batch of points, shape (n,)."""
+    """diag k(x, x) for a batch of points (..., n, d) -> (..., n);
+    hyperparameters may carry the leading lane axes."""
     _check(kern_type)
-    var = torch.exp(2.0 * params["log_sf"])
-    return var * torch.ones((x.shape[0],), dtype=x.dtype, device=x.device)
+    var = torch.exp(2.0 * params["log_sf"])[..., None]
+    return var * torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
 
 
 def weighted_mean_jac(kern_type: str, params: dict, z: torch.Tensor,
@@ -79,9 +80,10 @@ def weighted_mean_jac(kern_type: str, params: dict, z: torch.Tensor,
                       c: torch.Tensor) -> torch.Tensor:
     """Closed-form input gradient of weighted kernel sums at the queries z
     (m, d): d/dz sum_i c_i k(z, x_i) over the support rows x (n, d), given
-    the cross-covariance ``kv`` (m, n) = k(z, x) -> (m, d). RBF:
+    the cross-covariance ``kv`` (m, n) = k(z, x) -> (m, d) (leading lane
+    axes pass through, ``c`` broadcasting against ``kv``). RBF:
     (sum_i c_i k_i x_i - z sum_i c_i k_i) / ls^2."""
     _check(kern_type)
     w = kv * c
-    ls2 = torch.exp(2.0 * params["log_lengthscales"])
+    ls2 = torch.exp(2.0 * params["log_lengthscales"])[..., None, :]
     return (w @ x - torch.sum(w, dim=-1, keepdim=True) * z) / ls2

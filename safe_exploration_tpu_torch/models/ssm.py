@@ -10,8 +10,10 @@ A **stacked** GPSSM (a stacked GP, ``l_mu`` / ``l_sigma`` (L, n_s),
 vmapped one: :func:`ssm_fit`, :func:`ssm_probe_points`,
 :func:`calibrate_lipschitz` and :func:`estimate_lipschitz` take it and
 work on every lane at once (the Lipschitz Hessians nest the lane axis
-around the probe axis under ``torch.func.vmap``); the single-model entries
-(the predictions, :func:`ssm_update`, :func:`ssm_bucketed`) raise on it.
+around the probe axis under ``torch.func.vmap``); the predictions take it
+at points with the lane axis in front ((L, ..., n_s)), and
+:func:`ssm_append_point` appends one transition per lane in lockstep;
+:func:`ssm_update` and :func:`ssm_bucketed` take one model only.
 
 The entries dispatch over the model families the port carries: the exact
 :class:`GPSSM` and the inducing-point
@@ -35,7 +37,8 @@ from safe_exploration_tpu_torch.models.sparse_gp import (
     sparse_gp_update_data,
 )
 
-__all__ = ["GPSSM", "make_gp_ssm", "ssm_update", "ssm_bucketed",
+__all__ = ["GPSSM", "make_gp_ssm", "ssm_update", "ssm_append_point",
+           "ssm_bucketed", "ssm_lane", "is_stacked", "lane_front",
            "ssm_predict", "ssm_predict_jac", "ssm_noise_var", "ssm_fit",
            "ssm_n_points", "ssm_probe_points", "lipschitz_probe_set",
            "calibrate_lipschitz", "estimate_lipschitz"]
@@ -52,15 +55,53 @@ class GPSSM:
     z_scale: torch.Tensor | None = None  # (d_in,) or None (identity)
 
     def predict_latent(self, z: torch.Tensor):
-        if self.z_scale is not None:
-            z = z / self.z_scale
-        return gp_mod.gp_predict(self.gp, z)
+        return gp_mod.gp_predict(self.gp, _normalized(self, z))
 
     def noise_var(self) -> torch.Tensor:
         return torch.exp(2.0 * self.gp.log_noise)
 
     def replace(self, **changes) -> "GPSSM":
         return dataclasses.replace(self, **changes)
+
+
+def is_stacked(ssm) -> bool:
+    """Whether ``ssm`` is a stacked GPSSM (a leading lane axis)."""
+    return isinstance(ssm, GPSSM) and ssm.gp.x.ndim == 3
+
+
+def lane_front(ssm, v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-lane row ``v`` (L, k) of a stacked model shaped to broadcast
+    against ``like`` (L, ..., k); ``v`` itself for one model."""
+    if not is_stacked(ssm):
+        return v
+    if like.ndim < 2 or like.shape[0] != v.shape[0]:
+        raise ValueError(
+            f"a stacked model of {v.shape[0]} lanes takes points with its "
+            f"lane axis in front, (lanes, ..., k), not {tuple(like.shape)} "
+            "(appends: one point per lane); batch-last per-lane models are "
+            "models/gp_lanes.py's")
+    return v.reshape(v.shape[:1] + (1,) * (like.ndim - 2) + v.shape[1:])
+
+
+def _normalized(ssm, z: torch.Tensor) -> torch.Tensor:
+    """Raw inputs divided by the model's input scales (if any)."""
+    if ssm.z_scale is None:
+        return z
+    return z / lane_front(ssm, ssm.z_scale, z)
+
+
+def ssm_lane(ssm: GPSSM, i: int) -> GPSSM:
+    """Lane ``i`` of a stacked GPSSM as one model (views, no copy)."""
+    gp = ssm.gp
+    return GPSSM(
+        gp=gp.replace(
+            x=gp.x[i], y=gp.y[i],
+            mask=gp.mask[i] if gp.mask.ndim == 2 else gp.mask,
+            params=tuple({k: v[i] for k, v in p.items()} for p in gp.params),
+            log_noise=gp.log_noise[i], chol=gp.chol[i], beta=gp.beta[i],
+            kinv=gp.kinv[i]),
+        l_mu=ssm.l_mu[i], l_sigma=ssm.l_sigma[i],
+        z_scale=None if ssm.z_scale is None else ssm.z_scale[i])
 
 
 def _scale_consistent_params(kern_types: tuple, z_scale: torch.Tensor) -> tuple:
@@ -98,7 +139,8 @@ def make_gp_ssm(kern_types: tuple, x: torch.Tensor, u: torch.Tensor,
 
 
 def ssm_predict(ssm, x: torch.Tensor, u: torch.Tensor):
-    """Residual mean and variance at (state, action) pairs (..., n_s)."""
+    """Residual mean and variance at (state, action) pairs (..., n_s); a
+    stacked model takes (L, ..., n_s), each lane against its own model."""
     return ssm.predict_latent(torch.cat([x, u], dim=-1))
 
 
@@ -107,18 +149,16 @@ def ssm_predict_jac(ssm, x: torch.Tensor, u: torch.Tensor):
     (..., n_s), (..., n_u) -> (mu, var, jac_mu_x (..., n_s, n_s),
     jac_mu_u (..., n_s, n_u)); the Jacobian is the closed form of either
     GP family, taken in raw inputs (the chain rule of ``z_scale``
-    applied)."""
+    applied). A stacked model takes (L, ..., n_s) as :func:`ssm_predict`."""
     _require_gp(ssm, "ssm_predict_jac")
     n_s = x.shape[-1]
-    z = torch.cat([x, u], dim=-1)
-    if ssm.z_scale is not None:
-        z = z / ssm.z_scale
+    z = _normalized(ssm, torch.cat([x, u], dim=-1))
     if isinstance(ssm, SparseGPSSM):
         mu, var, jac = sparse_gp_predict_mean_jac(ssm.sgp, z)
     else:
         mu, var, jac = gp_mod.gp_predict_mean_jac(ssm.gp, z)
     if ssm.z_scale is not None:
-        jac = jac / ssm.z_scale
+        jac = jac / lane_front(ssm, ssm.z_scale, z)[..., None, :]
     return mu, var, jac[..., :n_s], jac[..., n_s:]
 
 
@@ -143,6 +183,19 @@ def ssm_update(ssm, x: torch.Tensor, u: torch.Tensor, y: torch.Tensor,
     return ssm.replace(
         gp=gp_mod.gp_update_data(ssm.gp, z, y, replace_old=replace_old)
     )
+
+
+def ssm_append_point(ssm, x: torch.Tensor, u: torch.Tensor,
+                     y: torch.Tensor) -> GPSSM:
+    """O(n^2) append of ONE transition (:func:`gp_mod.gp_append_point`),
+    or on a stacked model one per lane ((L, n_s), (L, n_u), (L, e)) in
+    lockstep; owns the ``z_scale`` normalization, as :func:`ssm_update`."""
+    if not isinstance(ssm, GPSSM):
+        raise TypeError(
+            "incremental appends are an exact-GP feature; use ssm_update for "
+            f"{type(ssm).__name__}")
+    z = _normalized(ssm, torch.cat([x, u], dim=-1))
+    return ssm.replace(gp=gp_mod.gp_append_point(ssm.gp, z, y))
 
 
 def ssm_bucketed(ssm):

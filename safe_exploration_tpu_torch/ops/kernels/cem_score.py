@@ -18,6 +18,12 @@ coordinates: ``z_scale`` is folded into the support rows and the
 lengthscales, so the Jacobian needs no chain rule. :func:`tube_score_plain`
 is that chain itself, in its plain lane form; the wrapper takes it for
 tensors on the CPU and launches the kernel for tensors on a CUDA device.
+
+The model may be one shared GP-SSM or a stacked one of B lanes (the
+batched portable CEM's per-lane models, ``solvers/cem.py``): then the L
+lanes are B groups of M = L / B, group b (columns b M ... b M + M - 1)
+scored against model b, in the same one launch (a second grid axis over
+the models; the shared model is its B = 1 case).
 """
 
 from __future__ import annotations
@@ -48,18 +54,33 @@ __all__ = ["TubeScorePrep", "cem_score_supported", "prepare_tube_score",
            "tube_score_lanes", "tube_score_plain", "tube_score_prepared"]
 
 _DBL = ctypes.c_double
-_ARGTYPES = (VP,) * 9 + (INT,) * 6 + (_DBL, INT, _DBL, _DBL, _DBL, _DBL, INT,
+_ARGTYPES = (VP,) * 9 + (INT,) * 7 + (_DBL, INT, _DBL, _DBL, _DBL, _DBL, INT,
                                       VP)
 _COSTS = ("tracking", "exploration")
 
 
+def _stacked_supported(ssm) -> bool:
+    """A stacked exact GP-SSM (a 3-D buffer, one model per lane) on the
+    all-RBF menu at f32 precision."""
+    gp = getattr(ssm, "gp", None)
+    return (getattr(ssm, "sgp", None) is None and gp is not None
+            and gp.x.ndim == 3 and gp.precision == "f32"
+            and all(kt == "rbf" for kt in gp.kern_types))
+
+
 def cem_score_supported(ssm, n_s: int, cost_kind: str, n_perf: int) -> bool:
     """Whether the scorer covers this configuration: the fused posterior's
-    models (:func:`gp_pallas_supported`: a shared exact or sparse GP-SSM),
-    n_s == 2, no performance trajectory, the tracking or exploration
-    cost."""
-    return (gp_pallas_supported(ssm) and n_s == 2 and n_perf == 0
-            and cost_kind in _COSTS)
+    models (:func:`gp_pallas_supported`: a shared exact or sparse GP-SSM)
+    or a stacked exact one, n_s == 2, no performance trajectory, the
+    tracking or exploration cost."""
+    return ((gp_pallas_supported(ssm) or _stacked_supported(ssm))
+            and n_s == 2 and n_perf == 0 and cost_kind in _COSTS)
+
+
+def _n_models(ssm) -> int:
+    """Models of a scorer's model argument: B of a stacked one, else 1."""
+    x = gp_of(ssm).x
+    return x.shape[0] if x.ndim == 3 else 1
 
 
 class TubeScorePrep(NamedTuple):
@@ -104,8 +125,9 @@ def prepare_tube_score(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe,
     :func:`prepare_posterior` and the constant block (see ``Cst`` in
     cem_score.cu), the plant's constants given as lists in one
     host-to-device copy, those given as tensors and the model's own on the
-    device. For a model on the CPU only the arguments
-    are kept (the plain version takes them)."""
+    device; a stacked model's own constants (l_mu, l_sigma, noise, sf2,
+    floor and the lengthscales) go in one block per model. For a model on
+    the CPU only the arguments are kept (the plain version takes them)."""
     args = (ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe,
             c_safety, t_len, cost_kind, cost_args)
     prepare_tube_score.calls += 1
@@ -115,12 +137,13 @@ def prepare_tube_score(ssm, k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe,
     kw = {"dtype": post.x.dtype, "device": post.x.device}
     target = cost_args["target"] if cost_kind == "tracking" else [0.0, 0.0]
     inv_ls, inv_ls2, sf2, floor = post.hyper
+    b_mod = _n_models(ssm)
+    per_model = [ssm.l_mu, ssm.l_sigma, torch.exp(2.0 * gp_of(ssm).log_noise),
+                 sf2, floor, inv_ls, inv_ls2]
     cst = torch.cat([*_constant_block((a, b, k_fb, bmat, target, h_mat_obs,
                                        h_obs, h_mat_safe, h_safe), kw),
-                     ssm.l_mu.to(**kw),
-                     ssm.l_sigma.to(**kw),
-                     torch.exp(2.0 * gp_of(ssm).log_noise).to(**kw), sf2,
-                     floor, inv_ls.reshape(-1), inv_ls2.reshape(-1)])
+                     torch.cat([v.to(**kw).reshape(b_mod, -1)
+                                for v in per_model], dim=1).reshape(-1)])
     return TubeScorePrep(args, post, cst)
 
 
@@ -133,12 +156,16 @@ def _weights(cost_args):
             float(cost_args.get("scale", 1.0)))
 
 
-def _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind):
+def _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind, n_models=1):
     n_u = len(k_fb)
     if x0_cols.shape[0] != 2 or u_flat.shape != (t_len * n_u, x0_cols.shape[1]):
         raise ValueError(
             f"tube_score_lanes: needs x0_cols (2, L) and u_flat (t_len n_u, L);"
             f" got {tuple(x0_cols.shape)}, {tuple(u_flat.shape)}")
+    if x0_cols.shape[1] % n_models:
+        raise ValueError(
+            f"tube_score_lanes: {x0_cols.shape[1]} lanes for {n_models} "
+            "models (needs M lanes per model)")
     if cost_kind not in _COSTS:
         raise ValueError(f"tube_score_lanes: no cost {cost_kind!r} ({_COSTS})")
 
@@ -147,13 +174,24 @@ def tube_score_plain(ssm, u_flat, x0_cols, k_fb, a, b, bmat, h_mat_obs, h_obs,
                      h_mat_safe, h_safe, c_safety, t_len, cost_kind,
                      cost_args):
     """Plain version of :func:`tube_score_lanes` (same arguments): the
-    solvers' own lane chain in its plain form."""
+    solvers' own lane chain in its plain form, once per model of a stacked
+    one on its group of lanes."""
     # the solvers import this package (through the GP refit), so their
     # lane chain is imported when the plain version runs
+    from safe_exploration_tpu_torch.models.ssm import ssm_lane
     from safe_exploration_tpu_torch.solvers import sqp_lanes
     from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg
 
-    _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind)
+    b_mod = _n_models(ssm)
+    _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind, b_mod)
+    if gp_of(ssm).x.ndim == 3:
+        m = u_flat.shape[1] // b_mod
+        parts = [tube_score_plain(
+            ssm_lane(ssm, i), u_flat[:, i * m:(i + 1) * m],
+            x0_cols[:, i * m:(i + 1) * m], k_fb, a, b, bmat, h_mat_obs,
+            h_obs, h_mat_safe, h_safe, c_safety, t_len, cost_kind, cost_args)
+            for i in range(b_mod)]
+        return tuple(torch.cat(v) for v in zip(*parts))
     # the constants as the kernel takes them (lists or tensors), as tensors
     # of the lanes' dtype and device
     k_fb, a, b, bmat, h_mat_obs, h_obs, h_mat_safe, h_safe = (
@@ -173,17 +211,19 @@ def tube_score_prepared(prep: TubeScorePrep, u_flat: torch.Tensor,
                         x0_cols: torch.Tensor):
     """CEM score over L lanes from a :func:`prepare_tube_score` result:
     u_flat (t_len n_u, L) controls, x0_cols (2, L) initial states -> (cost
-    (L,), viol (L,)); one launch on CUDA, the plain version on the CPU."""
+    (L,), viol (L,)) (a stacked model of B lanes: M = L / B lanes each,
+    model-major); one launch on CUDA, the plain version on the CPU."""
     ssm, k_fb, *_, h_obs, _, h_safe, c_safety, t_len, cost_kind, cost_args = (
         prep.args)
     if not on_cuda(u_flat, x0_cols, gp_of(ssm).x):
         return tube_score_plain(ssm, u_flat, x0_cols, *prep.args[1:])
-    _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind)
+    b_mod = _n_models(ssm)
+    _check_args(u_flat, x0_cols, k_fb, t_len, cost_kind, b_mod)
     post = prep.post
     u_flat, x0_cols = u_flat.contiguous(), x0_cols.contiguous()
     check("tube_score_prepared", post.x, post.x_il, post.w_mean,
           post.w_var_t, prep.cst, u_flat, x0_cols)
-    (n, d), L = post.x.shape, u_flat.shape[1]
+    (n, d), L = post.x.shape[-2:], u_flat.shape[1]
     cost = torch.empty((L,), dtype=u_flat.dtype, device=u_flat.device)
     viol = torch.empty_like(cost)
     w_x, w_u, w_t, scale = _weights(cost_args)
@@ -192,8 +232,8 @@ def tube_score_prepared(prep: TubeScorePrep, u_flat: torch.Tensor,
         code = fn(post.x.data_ptr(), post.x_il.data_ptr(),
                   post.w_mean.data_ptr(), post.w_var_t.data_ptr(),
                   prep.cst.data_ptr(), u_flat.data_ptr(), x0_cols.data_ptr(),
-                  cost.data_ptr(), viol.data_ptr(), n, d - 2, L, t_len,
-                  len(h_obs), len(h_safe), float(c_safety),
+                  cost.data_ptr(), viol.data_ptr(), n, d - 2, L, b_mod,
+                  t_len, len(h_obs), len(h_safe), float(c_safety),
                   int(cost_kind == "exploration"), w_x, w_u, w_t, scale,
                   is_f64(u_flat), stream_ptr(u_flat))
     raise_on_error("tube_score_prepared", code)

@@ -67,9 +67,9 @@ def _support(ssm):
     if sgp is not None:
         return sgp.z, sgp.alpha, sgp.vmat, sgp
     gp = ssm.gp
-    mask = gp.mask
-    return (gp.x, gp.beta * mask[None],
-            gp.kinv * (mask[None, :, None] * mask[None, None, :]), gp)
+    mask = gp.mask[..., None, :]             # (1, n) or per lane (L, 1, n)
+    return (gp.x, gp.beta * mask,
+            gp.kinv * (mask[..., :, None] * mask[..., None, :]), gp)
 
 
 def gp_pallas_supported(ssm) -> bool:
@@ -102,7 +102,8 @@ class LanePosterior(NamedTuple):
     masked weights ``w_mean`` (e, n) and ``w_var_t`` (e, n, n) (K^-1 masked
     and transposed, so a row of the kernels' product tile is contiguous),
     and ``hyper`` = (inv_ls, inv_ls^2 (e, d), sf2, floor (e,)) of
-    :func:`posterior_hyper`."""
+    :func:`posterior_hyper`. Prepared from a stacked model (cem_score's
+    model axis), every field has the lane axis (B, ...) in front."""
 
     x: torch.Tensor
     x_il: torch.Tensor
@@ -116,7 +117,7 @@ def _lane_posterior(x, w_mean, w_var, inv_ls, log_sf, kw) -> LanePosterior:
                   for h in posterior_hyper(inv_ls, log_sf))
     x = x.to(**kw).contiguous()
     return LanePosterior(
-        x=x, x_il=(x[None] * hyper[0][:, None, :]).contiguous(),
+        x=x, x_il=(x[..., None, :, :] * hyper[0][..., :, None, :]).contiguous(),
         w_mean=w_mean.to(**kw).contiguous(),
         w_var_t=w_var.transpose(-1, -2).to(**kw).contiguous(), hyper=hyper)
 
@@ -124,17 +125,20 @@ def _lane_posterior(x, w_mean, w_var, inv_ls, log_sf, kw) -> LanePosterior:
 def prepare_posterior(ssm, dtype=None) -> LanePosterior:
     """:class:`LanePosterior` of an exact or sparse GP-SSM on its device
     (``z_scale`` folded into the rows and lengthscales), in ``dtype``
-    (default the model's)."""
+    (default the model's); of a stacked exact GP-SSM one per lane, with
+    the lane axis in front."""
     prepare_posterior.calls += 1
     x, w_mean, w_var, gp = _support(ssm)
-    inv_ls = torch.exp(-torch.stack([p["log_lengthscales"] for p in gp.params]))
+    inv_ls = torch.exp(-torch.stack([p["log_lengthscales"] for p in gp.params],
+                                    dim=-2))
     kw = {"dtype": dtype or x.dtype, "device": x.device}
     if ssm.z_scale is not None:
-        inv_ls = inv_ls / ssm.z_scale[None, :]
-        x = x * ssm.z_scale[None, :]
+        scale = ssm.z_scale[..., None, :]
+        inv_ls = inv_ls / scale
+        x = x * scale
     return _lane_posterior(
         x, w_mean, w_var, inv_ls,
-        torch.stack([p["log_sf"] for p in gp.params]), kw)
+        torch.stack([p["log_sf"] for p in gp.params], dim=-1), kw)
 
 
 prepare_posterior.calls = 0

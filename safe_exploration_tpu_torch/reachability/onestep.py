@@ -14,7 +14,9 @@ One step of the closed loop x+ = a x + b u + GP(x, u), u = k_ff + k_fb
 
 Every function takes leading batch dimensions on the state, shape and
 control (p (..., n_s), Q (..., n_s, n_s), k_ff (..., n_u)); the horizon
-fold is a Python loop.
+fold is a Python loop. A stacked model (L lanes, ``models/ssm.py``) takes
+points whose first axis is its lane axis, (L, ..., n_s): each lane's tubes
+under its own model and constants (JAX's ``vmap`` over models).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from safe_exploration_tpu_torch.models.ssm import (
     GPSSM,
+    lane_front,
     ssm_noise_var,
     ssm_predict,
     ssm_predict_jac,
@@ -45,7 +48,7 @@ def onestep_reachability_point(ssm: GPSSM, p, k_ff, a, b, c_safety):
     mu, var = ssm_predict(ssm, p, k_ff)
     p_next = p @ a.T + k_ff @ b.T + mu
     q_next = ellipsoid_from_rectangle(
-        c_safety * torch.sqrt(var + ssm_noise_var(ssm)))
+        c_safety * torch.sqrt(var + lane_front(ssm, ssm_noise_var(ssm), p)))
     return p_next, q_next, var
 
 
@@ -57,10 +60,12 @@ def onestep_reachability(ssm: GPSSM, p, q, k_ff, k_fb, a, b, c_safety):
     h = a + j_x + (b + j_u) @ k_fb
     q_lin = h @ q @ h.transpose(-1, -2)
     u_mu, u_sigma = compute_remainder_overapproximations(
-        q, k_fb, ssm.l_mu, ssm.l_sigma)
+        q, k_fb, lane_front(ssm, ssm.l_mu, p),
+        lane_front(ssm, ssm.l_sigma, p))
     q_taylor = ellipsoid_from_rectangle(u_mu)
     q_conf = ellipsoid_from_rectangle(
-        c_safety * (torch.sqrt(var + ssm_noise_var(ssm)) + u_sigma))
+        c_safety * (torch.sqrt(var + lane_front(ssm, ssm_noise_var(ssm), p))
+                    + u_sigma))
     zero = torch.zeros_like(p_next)
     p_sum, q_sum = sum_two_ellipsoids(p_next, q_lin, zero, q_conf)
     p_out, q_out = sum_two_ellipsoids(p_sum, q_sum, zero, q_taylor)

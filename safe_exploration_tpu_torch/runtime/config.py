@@ -12,8 +12,10 @@ single-instance and the batched SafeMPC machines — the SQP (the single-instanc
 the portable NLP, the batched ``batch_planner`` on the lane SQP, and the
 fleet runner's test ``lane_batch_supported``) and the CEM (the
 single-instance ``planner`` on the portable or the lane backend, the
-batched one on the lane CEM). Other choices raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+batched one on the lane CEM for a shared model inside its envelope, else,
+and for every stacked model, on the portable CEM's lane axis). Other
+choices raise ``NotImplementedError`` naming the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations
@@ -187,7 +189,9 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     solve's draws ``planner_noise_shape`` (None for the SQP, which draws
     nothing), the batch entries (``batch_planner``,
     ``init_state_batch``, ``get_action_batch``, ``lane_batch_supported``:
-    None for the CEM), ``make_ssm``, ``env``,
+    None for the CEM; ``batch_noise_shape``, one lane's draws of the
+    batched planner on a stacked model: None for the SQP), ``make_ssm``,
+    ``env``,
     ``a``, ``b``, ``k_fb``, ``cost_fn``, ``kern_types``, ``l_mu``,
     ``l_sigma`` and ``cfg``."""
     dev = resolve_device(device)
@@ -227,20 +231,27 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             env, k_fb, a, b, cfg.c_safety, cfg.objective, cost_args, cem_cfg)
 
         def batch_planner(ssm, x0s, warm, *, generator=None, noise=None):
-            """The lane CEM; ``generator`` / ``noise`` replace the JAX
-            package's key (``None``: a fresh generator seeded 0)."""
-            if not cem_lanes_supported(ssm, cfg.objective):
-                raise NotImplementedError(
-                    "this model needs the vmapped portable CEM, which the port "
-                    "does not carry (per-lane models: ROADMAP Queue 1, item 7)"
-                )
-            return cem_lane_solver(ssm, x0s, warm, generator=generator,
-                                   noise=noise)
+            """The lane CEM for a shared model inside its envelope; every
+            stacked model (one per lane) and a shared model outside it
+            through the portable CEM on a lane axis (the JAX package's
+            ``vmap`` of the portable planner). ``generator`` / ``noise``
+            replace the JAX package's key (``None``: a fresh generator
+            seeded 0); ``noise`` is (n_iterations, M, n_var, B) for the lane
+            CEM, (B, n_iterations, M, t_total, n_u) for the portable one."""
+            if cem_lanes_supported(ssm, cfg.objective):
+                return cem_lane_solver(ssm, x0s, warm, generator=generator,
+                                       noise=noise)
+            return cem_plan(
+                generator, ssm, x0s, k_fb, a, b, spec.u_min, spec.u_max,
+                spec.h_mat_obs, spec.h_obs, spec.h_mat_safe, spec.h_safe,
+                cfg.c_safety, cost_fn, cem_cfg, warm, noise=noise,
+                cost_kind=cfg.objective, cost_args=cost_args)
 
         n_u = spec.n_u
+        batch_noise_shape = (cfg.cem_iterations, cfg.cem_samples, warm_len,
+                             n_u)
         noise_shape = ((cfg.cem_iterations, cfg.cem_samples, warm_len * n_u, 1)
-                       if cfg.cem_backend == "lanes" else
-                       (cfg.cem_iterations, cfg.cem_samples, warm_len, n_u))
+                       if cfg.cem_backend == "lanes" else batch_noise_shape)
         if cfg.cem_backend == "lanes":
             def planner(generator, ssm, x0, warm_mean, noise=None):
                 """Single instance through the lane CEM (B = 1)."""
@@ -282,12 +293,13 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
                 raise TypeError(
                     "per-lane (LaneGPSSM) models require the lane backend; "
                     "this solver configuration is unsupported there "
-                    "(opt_k_fb/non-GN/ff-precision) — the stacked fleet "
-                    "runner is not ported yet (ROADMAP Queue 1, item 7)")
+                    "(opt_k_fb/non-GN/ff-precision), and the portable NLP "
+                    "over a stacked model is not ported yet (ROADMAP Queue "
+                    "1, item 7)")
             raise NotImplementedError(
-                "this model/solver combination needs the portable NLP vmapped "
-                "over the batch, which is not ported yet (ROADMAP Queue 1, "
-                "item 7)"
+                "this model/solver combination needs the portable NLP batched "
+                "over a stacked or shared model, which is not ported yet "
+                "(ROADMAP Queue 1, item 7)"
             )
 
         def lane_batch_supported(ssm):
@@ -299,7 +311,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
             return (isinstance(ssm, (GPSSM, LaneGPSSM))
                     and lanes_supported(ssm, sqp_cfg, cfg.objective))
 
-        noise_shape = None
+        noise_shape = batch_noise_shape = None
 
     init_state, get_action, _, _ = make_safempc(
         env, mpc_cfg, planner, warm_len=warm_len, n_duals=n_duals,
@@ -336,6 +348,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         "cost_fn": cost_fn,
         "planner": planner,
         "planner_noise_shape": noise_shape,
+        "batch_noise_shape": batch_noise_shape,
         "init_state": init_state,
         "get_action": get_action,
         "batch_planner": batch_planner,

@@ -1,15 +1,16 @@
 """Experiment CLI — port of ``safe_exploration_tpu/runtime/main.py`` for the
-episodic task and the batch (fleet) task on its lanes backend:
+episodic task and the batch (fleet) task on both its backends:
 
     python -m safe_exploration_tpu_torch.runtime.main --config pendulum_episode \\
         [--set n_ep=3 n_steps=20] [--x64] [--out results/] [--device cpu]
     python -m safe_exploration_tpu_torch.runtime.main --config pendulum_batch_sqp
+    python -m safe_exploration_tpu_torch.runtime.main --config pendulum_batch
 
 It runs on CUDA unless ``--device cpu`` is given (and raises without a
 GPU). The summary it prints has the JAX CLI's keys (``wall_time_s``,
 ``metrics``, ``series``; the file under ``--out`` adds ``config``). Other
-tasks, and the batch task's vmapped backend, raise naming the ROADMAP item
-that brings them.
+tasks, and the batch task's stacked backend under the NLP, raise naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import dataclasses
 import json
 import os
 import time
+import warnings
 
 import torch
 
@@ -71,12 +73,9 @@ def run_experiment(cfg, *, out_dir: str | None = None, dtype=None,
             raise SystemExit(f"unknown task: {cfg.task}")
         raise NotImplementedError(f"task={cfg.task!r} is not ported yet "
                                   f"({where})")
-    if cfg.task == "batch" and cfg.batch_backend != "lanes":
-        raise NotImplementedError(
-            f"batch_backend={cfg.batch_backend!r} routes to the vmapped "
-            "fleet runner (runtime/batch.py: run_batched_episodes, stack_ssm, "
-            "gp_append_point), which is not ported yet (ROADMAP Queue 1, "
-            "item 7); the port runs batch_backend='lanes'")
+    if (cfg.task == "batch" and cfg.batch_backend != "lanes"
+            and cfg.solver == "sqp"):
+        raise NotImplementedError(_STACKED_NLP.format(cfg.batch_backend))
     dtype = dtype or torch.float32
     exp = build_experiment(cfg, dtype=dtype, device=device)
     metrics = AggregatedMetrics(out_dir, run_name=cfg.name)
@@ -115,11 +114,21 @@ def _run_episodic(cfg, exp, metrics, generator, draws, resume) -> dict:
     )
 
 
+_STACKED_NLP = (
+    "batch_backend={!r} routes the NLP to the stacked fleet runner, which "
+    "needs the portable NLP batched over a stacked model; it is not ported "
+    "yet (ROADMAP Queue 1, item 7); the port runs batch_backend='lanes' "
+    "under the SQP")
+
+
 def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
-    """The batch task on the lanes backend, as the JAX CLI runs it: initial
-    data, one fit and calibration, then ``run_batched_learning`` for
-    n_ep > 1 (per-lane fits between episodes) or one
-    ``run_batched_episodes_lanes`` episode; the same series keys."""
+    """The batch task as the JAX CLI runs it: initial data, one fit and
+    calibration, then on the lanes backend (when the configuration pins it
+    and the lane runner covers the model) or else the stacked one
+    ``run_batched_learning`` for n_ep > 1 (per-lane fits between episodes)
+    or one episode of ``run_batched_episodes_lanes`` /
+    ``run_batched_episodes``; the same series keys, ``lane_backend``
+    1 or 0."""
     from safe_exploration_tpu_torch.envs.base import env_reset
     from safe_exploration_tpu_torch.models.gp_lanes import (
         lane_shrink_to_bucket,
@@ -141,7 +150,7 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
         draws = batch_mod.batch_draws(
             generator, spec, batch=lanes, n_ep=cfg.n_ep, n_steps=cfg.n_steps,
             n_init=cfg.n_init_samples, n_region=128 * (spec.n_s + spec.n_u),
-            dtype=a.dtype)
+            dtype=a.dtype, plan_shape=exp["batch_noise_shape"])
     draws = {k: torch.as_tensor(v).to(dtype=a.dtype, device=a.device)
              for k, v in draws.items()}
     region = (draws["region_x"], draws["region_u"])
@@ -151,19 +160,23 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
     ssm = calibrate_lipschitz(ssm_fit(ssm, iters=cfg.hyp_iters), spec,
                               n_region=region[0].shape[0], draws=region)
     lbs = exp["lane_batch_supported"]
-    if lbs is None or not lbs(ssm):
-        raise NotImplementedError(
+    lanes_ok = lbs is not None and lbs(ssm)
+    if cfg.batch_backend == "lanes" and not lanes_ok:
+        warnings.warn(
             f"config '{cfg.name}' pins batch_backend='lanes' but the lane "
-            "fleet runner does not cover this model/solver; the vmapped "
-            "runner it would fall back to is not ported yet (ROADMAP Queue "
-            "1, item 7)")
+            "episode runner does not support this model/solver configuration "
+            "— falling back to the stacked runner", stacklevel=2)
+    use_lanes = lanes_ok and cfg.batch_backend == "lanes"
+    if not use_lanes and cfg.solver == "sqp":
+        raise NotImplementedError(_STACKED_NLP.format(cfg.batch_backend))
     if cfg.n_ep > 1:
         res = batch_mod.run_batched_learning(
             env, exp, ssm, lanes, cfg.n_ep, cfg.n_steps,
-            hyp_iters=cfg.hyp_iters, backend="lanes", draws=draws)
+            hyp_iters=cfg.hyp_iters,
+            backend="lanes" if use_lanes else "stacked", draws=draws)
         series = dict(res["series"])
         roll_s = sum(series["episode_time_s"])
-        series["lane_backend"] = [1] * cfg.n_ep
+        series["lane_backend"] = [int(use_lanes)] * cfg.n_ep
         series["lanes"] = [lanes] * cfg.n_ep
         series["steps_per_sec"] = [lanes * cfg.n_steps * cfg.n_ep / roll_s
                                    ] * cfg.n_ep
@@ -172,16 +185,24 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
                 metrics.log_scalar(name, v, step=step)
     else:
         t_roll = time.perf_counter()
-        traj, _ = batch_mod.run_batched_episodes_lanes(
-            env, exp["get_action_batch"], exp["init_state_batch"],
-            lane_shrink_to_bucket(lane_stack_ssm(ssm, lanes),
-                                  n_free=cfg.n_steps),
-            env_reset(env, batch=(lanes,), noise=draws["reset"][0]),
-            cfg.n_steps, a, exp["b"], step_noise=draws["step"][0])
+        x0s = env_reset(env, batch=(lanes,), noise=draws["reset"][0])
+        if use_lanes:
+            traj, _ = batch_mod.run_batched_episodes_lanes(
+                env, exp["get_action_batch"], exp["init_state_batch"],
+                lane_shrink_to_bucket(lane_stack_ssm(ssm, lanes),
+                                      n_free=cfg.n_steps),
+                x0s, cfg.n_steps, a, exp["b"], step_noise=draws["step"][0])
+        else:
+            plans = draws.get("plan")
+            traj, _ = batch_mod.run_batched_episodes(
+                env, exp["get_action_batch"], exp["init_state_batch"],
+                batch_mod.stack_ssm(ssm, lanes), x0s, cfg.n_steps, a,
+                exp["b"], step_noise=draws["step"][0],
+                plan_noise=None if plans is None else plans[0])
         host = {k: v.cpu() for k, v in traj.items()}
         roll_s = time.perf_counter() - t_roll
         series = {
-            "lane_backend": [1],
+            "lane_backend": [int(use_lanes)],
             "violations": [int((~host["constraint_ok"]).sum())],
             "feasibility_rate": [float(host["feasible"].to(a.dtype).mean())],
             "model_error": [float(host["model_err"].mean())],

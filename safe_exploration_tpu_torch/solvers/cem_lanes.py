@@ -39,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from safe_exploration_tpu_torch.models.sparse_gp import SparseGPSSM
-from safe_exploration_tpu_torch.models.ssm import GPSSM
+from safe_exploration_tpu_torch.models.ssm import GPSSM, is_stacked
 from safe_exploration_tpu_torch.ops.kernels import (
     cem_score_supported,
     prepare_posterior,
@@ -77,9 +77,10 @@ class _TubeCfg(NamedTuple):
 
 def cem_lanes_supported(ssm, cost_kind: str) -> bool:
     """Whether the lane CEM covers this model and objective: a shared exact
-    or inducing-point GP-SSM over the ported kernel menu, a lane
-    objective."""
-    if not isinstance(ssm, (GPSSM, SparseGPSSM)):
+    or inducing-point GP-SSM over the ported kernel menu (not a stacked
+    one: per-lane models plan through the portable CEM's lane axis), a
+    lane objective."""
+    if not isinstance(ssm, (GPSSM, SparseGPSSM)) or is_stacked(ssm):
         return False
     gp = _gp_of(ssm)
     return (all(kt in _KERNEL_PARTS for kt in gp.kern_types)

@@ -170,8 +170,9 @@ def make_safempc_batch(
 
     Returns (init_state_batch, get_action_batch):
       * ``init_state_batch(batch) -> SafeMPCState``
-      * ``get_action_batch(state, ssm, xs (B, n_s)) -> (u (B, n_u),
-        new_state, info)``
+      * ``get_action_batch(state, ssm, xs (B, n_s), noise=None) -> (u (B,
+        n_u), new_state, info)``; ``noise`` (the planner's draws) goes to
+        ``batch_planner`` when given.
     """
     spec = env.spec
     a, b, k_fb = _lqr_feedback(env, cfg)
@@ -192,15 +193,17 @@ def make_safempc_batch(
             lam=torch.zeros((batch, n_duals), **kw),
         )
 
-    def get_action_batch(state: SafeMPCState, ssm, xs: torch.Tensor):
+    def get_action_batch(state: SafeMPCState, ssm, xs: torch.Tensor,
+                         noise=None):
+        draws = {} if noise is None else {"noise": noise}
         if n_duals > 0:
             k_ff_new, feasible, violation, pinfo = batch_planner(
-                ssm, xs, state.warm_mean, state.lam
+                ssm, xs, state.warm_mean, state.lam, **draws
             )
             lam_next = pinfo["lam"]
         else:
             k_ff_new, feasible, violation, pinfo = batch_planner(
-                ssm, xs, state.warm_mean
+                ssm, xs, state.warm_mean, **draws
             )
             lam_next = state.lam
         warm_next = pinfo.get("warm_next", k_ff_new)

@@ -52,7 +52,7 @@ from safe_exploration_tpu_torch.models.gp_lanes import (
     lane_predict,
 )
 from safe_exploration_tpu_torch.models.sparse_gp import SparseGPSSM
-from safe_exploration_tpu_torch.models.ssm import GPSSM
+from safe_exploration_tpu_torch.models.ssm import GPSSM, is_stacked
 from safe_exploration_tpu_torch.ops.kernels import (
     gp_of,
     gp_pallas_supported,
@@ -680,13 +680,14 @@ def solve_safempc_lanes(
 def lanes_supported(ssm, cfg: SqpConfig, cost_kind: str) -> bool:
     """Whether the port's lane backend covers this configuration: a shared
     :class:`GPSSM` or :class:`SparseGPSSM` (one model, B initial states) or
-    a :class:`LaneGPSSM` (B per-lane models, the fleet runner's), any state
-    dimension, with or
+    a :class:`LaneGPSSM` (B per-lane models, the fleet runner's; not a
+    stacked GPSSM), any state dimension, with or
     without a performance trajectory (either ``perf_method``: the Sigma-free
     objectives read the same stages under both, the risk cost the
     covariance recursion of each), any lane objective."""
     return (
         isinstance(ssm, (GPSSM, LaneGPSSM, SparseGPSSM))
+        and not is_stacked(ssm)
         and all(kt in _KERNEL_PARTS for kt in _gp_of(ssm).kern_types)
         and getattr(_gp_of(ssm), "precision", "f32") == "f32"
         and not cfg.opt_k_fb

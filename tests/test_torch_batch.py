@@ -19,7 +19,8 @@ every step would fall back):
     trajectories at 1e-8, the applied controls and states at 1e-6), the
     ``run_batched_learning`` series and final per-lane model at 1e-8;
   * the CLI on ``--device cpu`` (JSON keys equal to JAX's), and what raises
-    naming its ROADMAP item.
+    naming its ROADMAP item (the stacked backend itself:
+    tests/test_torch_stacked.py).
 
 Each JAX program is built once for the module.
 """
@@ -444,19 +445,32 @@ def test_batch_cli_on_cpu_prints_jax_keys(fleet, capsys):
     assert one["violations"] == [0] and one["lanes"] == [B]
 
 
-def test_unported_batch_choices_raise_naming_their_item(exps):
+def test_unported_batch_choices_raise_naming_their_item(exps, lanes):
+    """What the fleet does not carry yet raises naming its Queue 1 item:
+    the portable NLP over a stacked model (item 7: the SQP configurations
+    on the stacked runner, and the batched planner handed a stacked
+    model), checkpoints (item 12), the device mesh (item 13) and the
+    kernel menu (item 3)."""
     _, texp = exps
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_experiment(CONFIGS["pendulum_batch"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_experiment(_apply_overrides(CFG, ["batch_backend=auto"]),
-                       device="cpu")
-    for fn in (tbatch.stack_ssm, tbatch.run_batched_episodes):
+    _, t = lanes
+    for backend in ("auto", "vmapped"):
         with pytest.raises(NotImplementedError, match="item 7"):
-            fn()
+            run_experiment(_apply_overrides(CFG, [f"batch_backend={backend}"]),
+                           device="cpu")
+    x0s = torch.zeros((B, 2), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        texp["batch_planner"](t["unstacked"], x0s,
+                              torch.zeros((B, 2, 1), dtype=torch.float64))
     with pytest.raises(NotImplementedError, match="item 12"):
         tbatch.run_batched_learning(texp["env"], texp, None, B, 1, 1,
                                     ckpt_dir="ckpt")
+    for run in (tbatch.run_batched_episodes, tbatch.run_batched_episodes_lanes):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            run(texp["env"], None, None, None, x0s, 1, texp["a"], texp["b"],
+                mesh="lanes")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tbatch.run_batched_learning(texp["env"], texp, None, B, 1, 1,
+                                    mesh="lanes")
     with pytest.raises(NotImplementedError, match="item 3"):
         tgl.lane_stack_ssm(type("S", (), {"gp": type("G", (), {
             "kern_types": ("rbf", "mat52")})()})(), B)

@@ -5,11 +5,19 @@ Lipschitz-region, episode and fleet draws rebuilt from their keys; the
 safe-MPC NLP's closures held against JAX's on one instance; and one torch
 thread."""
 
+import dataclasses
+import os
+import pickle
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def jax_gpssm_to_numpy(ssm) -> dict:
@@ -95,37 +103,112 @@ def jax_episode_draws(cfg, n_region, plan=None, dtype=jnp.float64, n_s=2,
     return draws
 
 
-def jax_batch_draws(cfg, lanes, dtype=jnp.float64, n_s=2, n_u=1) -> dict:
+def jax_batch_draws(cfg, lanes, dtype=jnp.float64, n_s=2, n_u=1,
+                    plan=None) -> dict:
     """The JAX CLI's batch-task draws as numpy arrays, rebuilt from its key
-    splits (runtime/main.py's batch task: for n_ep = 1 one
-    run_batched_episodes_lanes episode from its third key's states and its
-    fourth key's lane keys, else runtime/batch.py's run_batched_learning)."""
+    splits (runtime/main.py's batch task: for n_ep = 1 one episode from its
+    third key's states and its fourth key's lane keys, else
+    runtime/batch.py's run_batched_learning). ``plan(k_plan)`` gives one
+    lane's planner draws of a step (the stacked runner's CEM); without it
+    the run has none."""
     k1, _, k3, key = jax.random.split(jax.random.PRNGKey(cfg.seed), 4)
     draws = jax_init_draws(k1, cfg.n_init_samples, dtype, n_s, n_u)
     draws["region_x"], draws["region_u"] = jax_region(128 * (n_s + n_u),
                                                       dtype, n_s, n_u)
 
-    def lane_steps(k_roll):                             # (n_steps, B, n_s)
-        return np.stack([
-            np.stack([np.asarray(jax.random.normal(
-                jax.random.split(k)[1], (n_s,), dtype))
-                for k in jax.random.split(k_lane, cfg.n_steps)])
-            for k_lane in jax.random.split(k_roll, lanes)], axis=1)
+    def lane_steps(k_roll):         # (n_steps, B, n_s) [, (n_steps, B, ...)]
+        steps, plans = [], []
+        for k_lane in jax.random.split(k_roll, lanes):
+            pairs = [jax.random.split(k)
+                     for k in jax.random.split(k_lane, cfg.n_steps)]
+            steps.append(np.stack([np.asarray(jax.random.normal(
+                k_step, (n_s,), dtype)) for _, k_step in pairs]))
+            if plan is not None:
+                plans.append(np.stack([plan(k_plan) for k_plan, _ in pairs]))
+        return (np.stack(steps, axis=1),
+                None if plan is None else np.stack(plans, axis=1))
 
     if cfg.n_ep == 1:
+        step, plans = lane_steps(key)
         draws.update(
             reset=np.asarray(jax.random.normal(k3, (lanes, n_s), dtype))[None],
-            step=lane_steps(key)[None])
+            step=step[None])
+        if plan is not None:
+            draws["plan"] = plans[None]
         return draws
-    reset, step = [], []
+    reset, step, plans = [], [], []
     for _ in range(cfg.n_ep):
         key, k_reset, k_roll = jax.random.split(key, 3)
         reset.append(np.stack([
             np.asarray(jax.random.normal(k, (n_s,), dtype))
             for k in jax.random.split(k_reset, lanes)]))
-        step.append(lane_steps(k_roll))
+        st, pl = lane_steps(k_roll)
+        step.append(st)
+        plans.append(pl)
     draws.update(reset=np.stack(reset), step=np.stack(step))
+    if plan is not None:
+        draws["plan"] = np.stack(plans)
     return draws
+
+
+@pytest.fixture(scope="session")
+def golden_problem(tmp_path_factory):
+    """``tools/regen_goldens.build_problem`` (the JAX-fitted golden state,
+    f64) built once per test session for an exact-GP instance, however
+    many port test files and xdist workers ask for it: the first caller
+    builds it (its fit and Lipschitz estimate are most of a golden test
+    file's set-up) and leaves its arrays in the session's shared temp
+    directory under a file lock; the others rebuild the JAX experiment
+    and model from them, value for value. Returns a function with
+    build_problem's arguments and results."""
+    from safe_exploration_tpu.models import gp as jgp
+    from safe_exploration_tpu.models.ssm import GPSSM
+    from safe_exploration_tpu.runtime.config import (
+        ExperimentConfig,
+        build_experiment,
+    )
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent              # shared by the session's workers
+
+    def build(env_name, n_safe, n_perf=0, **kw):
+        tag = "_".join([env_name, str(n_safe), str(n_perf)] + [
+            f"{k}-{v}" for k, v in sorted(kw.items())])
+        path = root / f"golden_{tag}.pkl"
+        with FileLock(str(path) + ".lock"):
+            if not path.exists():
+                sys.path.insert(0, os.path.join(_REPO, "tools"))
+                try:
+                    from regen_goldens import build_problem
+                finally:
+                    sys.path.pop(0)
+                exp, ssm, probes, x0, k_ff = build_problem(
+                    env_name, n_safe, n_perf, **kw)
+                with open(path, "wb") as f:
+                    pickle.dump({"cfg": dataclasses.asdict(exp["cfg"]),
+                                 "ssm": jax_gpssm_to_numpy(ssm),
+                                 "rest": [np.asarray(v)
+                                          for v in (probes, x0, k_ff)]}, f)
+            with open(path, "rb") as f:
+                data = pickle.load(f)
+        exp = build_experiment(ExperimentConfig(**data["cfg"]),
+                               dtype=jnp.float64)
+        a = data["ssm"]
+        gp = jgp.GP(
+            kern_types=exp["kern_types"],
+            params=tuple({k: jnp.asarray(v) for k, v in p.items()}
+                         for p in a["params"]),
+            head=jnp.asarray(a["head"], jnp.int32),
+            **{k: jnp.asarray(a[k]) for k in ("x", "y", "mask", "log_noise",
+                                              "chol", "beta", "kinv")})
+        ssm = GPSSM(gp=gp, l_mu=jnp.asarray(a["l_mu"]),
+                    l_sigma=jnp.asarray(a["l_sigma"]),
+                    z_scale=None if a["z_scale"] is None
+                    else jnp.asarray(a["z_scale"]))
+        return (exp, ssm, *(jnp.asarray(v) for v in data["rest"]))
+
+    return build
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -34,7 +34,6 @@ full-width fleet checks stay here.
 
 import dataclasses
 import os
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -73,6 +72,7 @@ from safe_exploration_tpu_torch.runtime.main import (  # noqa: E402
 from safe_exploration_tpu_torch.solvers import sqp_lanes as tl  # noqa: E402
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
+    golden_problem,
     jax_batch_draws,
     jax_gpssm_to_numpy,
     jax_region,
@@ -102,15 +102,10 @@ def _np(t):
 
 
 @pytest.fixture(scope="module")
-def golden():
+def golden(golden_problem):
     """The JAX-fitted cfg2 golden state, its experiment, probes, x0 and
     evaluation controls, with the port's experiment and model."""
-    sys.path.insert(0, os.path.join(_REPO, "tools"))
-    try:
-        from regen_goldens import build_problem
-    finally:
-        sys.path.pop(0)
-    jexp, jssm, probes, x0, k_ff_eval = build_problem("cartpole", 5, 10)
+    jexp, jssm, probes, x0, k_ff_eval = golden_problem("cartpole", 5, 10)
     arrays = jax_gpssm_to_numpy(jssm)
     texp = build_experiment(dataclasses.replace(
         ExperimentConfig(), **{k: v for k, v in dataclasses.asdict(

@@ -60,6 +60,7 @@ from safe_exploration_tpu_torch.solvers.costs import (  # noqa: E402
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
     check_nlp_closures,
+    golden_problem,
     jax_batch_draws,
     jit_once,
     one_torch_thread,

@@ -15,7 +15,8 @@ on the same prepared posterior (the gate of
 tests/test_pallas_gp_predict.py); f32 cem_score within 2e-4
 of the f64 plain result (the gate of tests/test_pallas_cem_score.py), at
 the ragged lane counts within twice the plain version's own f32 error (on
-the card or the CPU) on the same inputs where that is larger;
+the card or the CPU) on the same inputs where that is larger, and so the
+model-batched cem_score (one model per group of lanes);
 f32 cholesky_hbm within 3e-4 of the f64 plain result (the gate
 tests/test_pallas.py uses for the f32 HBM-tier Pallas Cholesky), f64 at
 1e-9 (at 1e-9 of ``torch.linalg.cholesky`` for the 64-matrix batch, whose
@@ -441,6 +442,87 @@ def test_cuda_cem_score_ragged_lanes_resident_and_streamed(n, n_lanes, dtype):
             tol = 1e-10 if dt == torch.float64 else max(
                 [2e-4] + [2 * _rel(p[k], r) for p in plain32])
             assert err < tol, (cost_kind, err, tol)
+
+
+def _moved(ssm, **kw):
+    """A (stacked) GP-SSM with every tensor moved by ``Tensor.to(**kw)``."""
+    def t(v):
+        return None if v is None else v.to(**kw)
+
+    gp = ssm.gp
+    return ssm.replace(
+        gp=gp.replace(
+            x=t(gp.x), y=t(gp.y), mask=t(gp.mask),
+            params=tuple({k: t(v) for k, v in p.items()} for p in gp.params),
+            log_noise=t(gp.log_noise), chol=t(gp.chol), beta=t(gp.beta),
+            kinv=t(gp.kinv)),
+        l_mu=t(ssm.l_mu), l_sigma=t(ssm.l_sigma), z_scale=t(ssm.z_scale))
+
+
+def _stacked_model(arr, lanes):
+    """``lanes`` distinct models from one model's arrays (f64, CPU): per
+    lane its own signal std, noise and Lipschitz constants, refitted."""
+    from safe_exploration_tpu_torch.models.gp import gp_refit
+    from safe_exploration_tpu_torch.runtime.batch import stack_ssm
+
+    ssm = stack_ssm(gpssm_from_numpy(arr, ("rbf", "rbf"), device="cpu"),
+                    lanes)
+    frac = (torch.arange(lanes, dtype=torch.float64) % 7) / 7.0
+    gp = ssm.gp.replace(
+        params=tuple({**p, "log_sf": -3.0 + 0.4 * frac}
+                     for p in ssm.gp.params),
+        log_noise=(-4.0 - 0.5 * frac)[:, None].expand(lanes, 2).contiguous())
+    l_mu = (0.05 * (1.0 + frac))[:, None].expand(lanes, 2).contiguous()
+    return ssm.replace(gp=gp_refit(gp), l_mu=l_mu, l_sigma=0.4 * l_mu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("lanes,m", [(16, 64), (16, 40), (16, 1), (1, 100)])
+def test_cuda_cem_score_model_batched_matches_plain(lanes, m, dtype):
+    """The model-batched scorer (model b on lanes b m ... b m + m - 1, one
+    launch) against its plain version (the lane chain once per model) in
+    f64 on the same (for f32: f32-rounded) inputs, at n = 128 (W streamed),
+    H 3, both costs, f64 at 1e-10 and f32 at 2e-4 (or twice the f32 plain
+    version's own error); a stack of one model equals the shared model's
+    call."""
+    _need_cuda()
+    from safe_exploration_tpu_torch.models.ssm import ssm_lane
+
+    dt = getattr(torch, dtype)
+    model = _moved(_stacked_model(_ssm_arrays(128, seed=2), lanes),
+                   dtype=dt, device="cuda")
+    ref_model = _moved(model, dtype=torch.float64)
+    consts, polys, target = _plant()
+    consts, polys = [c.cuda() for c in consts], [p.cuda() for p in polys]
+    rng = np.random.default_rng(lanes * m)
+    L = lanes * m
+    u = torch.tensor(0.4 * rng.standard_normal((3, L)), dtype=dt,
+                     device="cuda")
+    x0 = torch.tensor(rng.uniform(-1.0, 1.0, (2, L)) * [[0.15], [0.4]],
+                      dtype=dt, device="cuda")
+    for kind in ("tracking", "exploration"):
+        args = (*consts, *polys, 2.0, 3, kind,
+                {"target": target.cuda()} if kind == "tracking" else {})
+        before = tube_score_prepared.launches
+        out = tube_score_prepared(prepare_tube_score(model, *args), u, x0)
+        assert tube_score_prepared.launches == before + 1
+        ref = tube_score_plain(ref_model, u.double(), x0.double(), *args)
+        if L > 50:
+            assert (ref[1] > 0).any() and (ref[1] == 0).any()
+        # f32: 2e-4, or twice the plain version's own f32 error on these
+        # inputs where that is larger (as the ragged-lane test)
+        plain32 = ([tube_score_plain(model, u, x0, *args)]
+                   if dt == torch.float32 else [])
+        for k, (o, r) in enumerate(zip(out, ref)):
+            assert o.shape == r.shape == (L,)
+            tol = 1e-10 if dt == torch.float64 else max(
+                [2e-4] + [2 * _rel(p[k], r) for p in plain32])
+            assert _rel(o, r) < tol
+        if lanes == 1:
+            shared = tube_score_lanes(ssm_lane(model, 0), u, x0, *args)
+            for a, b in zip(shared, out):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

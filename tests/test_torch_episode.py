@@ -469,7 +469,9 @@ def test_registry_matches_jax_and_unported_choices_raise():
         assert build_experiment(CONFIGS[name], device="cpu")["cfg"] == \
             CONFIGS[name]
     with pytest.raises(NotImplementedError, match="item 7"):
-        run_experiment(CONFIGS["pendulum_batch"], device="cpu")
+        run_experiment(_apply_overrides(CONFIGS["pendulum_batch_sqp"],
+                                        ["batch_backend=vmapped"]),
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         run_experiment(CONFIGS["pendulum_serve"], device="cpu")
     exp = build_experiment(ExperimentConfig(n_max=16), dtype=torch.float64,

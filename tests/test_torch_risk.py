@@ -52,6 +52,7 @@ from safe_exploration_tpu_torch.solvers import sqp_lanes as tl  # noqa: E402
 from safe_exploration_tpu_torch.solvers.sqp import SqpConfig  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
     check_nlp_closures,
+    golden_problem,
     jax_gpssm_to_numpy,
     jit_once,
     one_torch_thread,

@@ -31,7 +31,6 @@ same closure check (``check_nlp_closures``).
 
 import dataclasses
 import os
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +61,7 @@ from safe_exploration_tpu_torch.runtime.main import (  # noqa: E402
 from safe_exploration_tpu_torch.solvers import sqp as tsqp  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
     check_nlp_closures,
+    golden_problem,
     jax_episode_draws,
     jax_gpssm_to_numpy,
     jit_once,
@@ -85,15 +85,10 @@ def _t(a):
 
 
 @pytest.fixture(scope="module")
-def cfg1():
+def cfg1(golden_problem):
     """The JAX-fitted cfg1 golden state and its experiment, built by both
     packages (the port's model from the JAX state's arrays)."""
-    sys.path.insert(0, os.path.join(_REPO, "tools"))
-    try:
-        from regen_goldens import build_problem
-    finally:
-        sys.path.pop(0)
-    jexp, jssm, _, x0, _ = build_problem("pendulum", 5, 0)
+    jexp, jssm, _, x0, _ = golden_problem("pendulum", 5, 0)
     texp = build_experiment(dataclasses.replace(
         ExperimentConfig(), **dataclasses.asdict(jexp["cfg"])),
         dtype=torch.float64, device="cpu")

@@ -23,7 +23,6 @@ The JAX solves are compiled once per objective; the port runs eagerly.
 """
 
 import os
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +49,7 @@ from safe_exploration_tpu_torch.ops.kernels import tube_score_plain  # noqa: E40
 from safe_exploration_tpu_torch.reachability import onestep as tos  # noqa: E402
 from safe_exploration_tpu_torch.reachability import safety as tsafe  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
+    golden_problem,
     jax_gpssm_to_numpy,
     jit_once,
     one_torch_thread,
@@ -83,16 +83,11 @@ def _t(a):
 
 
 @pytest.fixture(scope="module")
-def golden_state():
+def golden_state(golden_problem):
     """The JAX-fitted golden state (cfg1 and cfg3 share it: the horizon
     changes only the experiment) with cfg1's experiment, probes and x0, on
     both sides."""
-    sys.path.insert(0, os.path.join(_REPO, "tools"))
-    try:
-        from regen_goldens import build_problem
-    finally:
-        sys.path.pop(0)
-    exp, jssm, probes, x0, _ = build_problem("pendulum", 5, 0)
+    exp, jssm, probes, x0, _ = golden_problem("pendulum", 5, 0)
     arrays = jax_gpssm_to_numpy(jssm)
     return dict(exp=exp, jssm=jssm, arrays=arrays, probes=np.asarray(probes),
                 x0=np.asarray(x0),

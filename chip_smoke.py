@@ -21,8 +21,10 @@ through ``--config pendulum_large_sparse`` and ``--config
 pendulum_episode_sparse``, the lane SQP and the lane CEM on it; BASELINE
 config 3 as registered, ``--config pendulum_batch``: the stacked fleet of
 256 per-lane models, the portable CEM on a lane axis scored by the
-model-batched cem_score, O(n^2) appends) and checks the GPU against the
-CPU in f64.
+model-batched cem_score, O(n^2) appends; the serving and active-learning
+tasks of ``--config pendulum_serve``, ``pendulum_uncertainty``,
+``pendulum_exploration`` and ``pendulum_exploration_static``) and checks
+the GPU against the CPU in f64.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
     python3 chip_smoke.py --phases nlp,episode-sqp   # a partial run
@@ -31,7 +33,8 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
   1. device   card name and power limit (nvidia-smi), CUDA and torch versions
   2. build    nvcc for every kernel source, all at once
   3. kernels  every kernel against its plain version at the main path's shapes
-              (e=2, n=128), at n=512 and at a ragged n=200, in f32 and f64:
+              (e=2, n=128), at pendulum_serve's n=256, at n=512 and at a
+              ragged n=200, in f32 and f64:
               gram (also at n=2048; exactly symmetric), cholesky (its
               shared-memory tier to n=224 f32 / 160 f64
               and its blocked tier above), trsm's three entries (trsm_lower
@@ -98,14 +101,14 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               set of draws (counts and flags equal, trajectories and final
               factors 1e-9)
   8. batch    the fleet CLI's run_experiment on pendulum_batch_sqp at full
-              width (256 lanes, n_max 128, 5 of its 20 steps, 2 of its 4
+              width (256 lanes, n_max 128, 2 of its 20 steps, 2 of its 4
               episodes),
               f32: per-episode series, steps/s, fit / calibration / unstack
               refit times, the batched refit's split beside one lane's,
               launches (one per refit kernel per refit), the model's
               self-pair distance (exactly 0) and its l_mu against the CPU's;
               one fleet step's solve under the profiler (busy share)
-  9. batch-parity  f64, 8 lanes, 3 steps, 2 episodes: GPU against CPU on one
+  9. batch-parity  f64, 8 lanes, 2 steps, 2 episodes: GPU against CPU on one
               set of draws
      cartpole-batch  the same for cartpole_batch_sqp as registered (128
               lanes, n_max 128, 40 initial points, n_safe 6, n_perf 10,
@@ -125,16 +128,18 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
  11. episode  the episodic CLI's run_experiment on the card: (a)
               pendulum_episode (1 of its 6 episodes, 15 of its 50 steps),
               (b) the same with
-              n_max 2048, 1,024 initial points, 60 hyperparameter steps;
+              n_max 2048, 1,024 initial points, 60 hyperparameter steps (1
+              of its 6 episodes);
               launch counts zeroed just before each run and read just after;
               per-episode series and fit / calibration / refit times, and the
               final model's refit split (gram / cholesky / beta / K^-1 solve
               / matmul, CUDA events)
- 12. episode-parity  f64, one episode of 3 steps at n_max 2048: GPU against
+ 12. episode-parity  f64, one episode of 3 steps at n_max 2048 (1
+              hyperparameter step): GPU against
               CPU on one set of draws
  13. cartpole-episode  cartpole_episode as registered (portable CEM, 192
               samples, n_safe 10, n_perf 10, n_max 512), 1 of its 6
-              episodes, 10 of its 50 steps, f32: series, seconds per step,
+              episodes, 3 of its 50 steps, f32: series, seconds per step,
               the refit split and
               launches
  14. nlp      one single-instance NLP solve (solvers/sqp.py, the planner of
@@ -149,7 +154,7 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               its 50 steps) and cartpole_episode_sqp (n_safe 10 + n_perf
               10, r_shared 2; 1 of its 6 episodes, NLP_CART_STEPS of its 50
               steps), f32: the gates and prints of the episode phase
- 16. episode-sqp-parity  f64, pendulum_episode_sqp for one episode of 3
+ 16. episode-sqp-parity  f64, pendulum_episode_sqp for one episode of 2
               steps (3 hyperparameter steps): GPU against CPU on one set of
               draws
  17. quadrotor-batch  the fleet phase for quadrotor_batch_sqp (64 lanes,
@@ -159,7 +164,7 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
  18. quadrotor-batch-parity  f64, 2 lanes, 1 step, 2 episodes of
               quadrotor_batch_sqp: GPU against CPU on one set of draws
  19. quadrotor-episode  quadrotor_episode (portable CEM, 256 samples, n_safe
-              5 + n_perf 12, n_max 512), 1 of its 6 episodes and 25 of its
+              5 + n_perf 12, n_max 512), 1 of its 6 episodes and 5 of its
               50 steps, f32: the episode phase's gates and prints
  20. quadrotor-cem  one batched lane-CEM solve (cem_backend "lanes", B 64)
               on quadrotor_episode's first model: "auto" (gp_predict at
@@ -197,6 +202,26 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
               a step, feasibility, 0 violations; then f64 card vs CPU of
               pendulum_episode_sparse, 3 steps at n_max 64 (counts equal,
               floats and factors 1e-9)
+ 28. serve    pendulum_serve as registered (the NLP at 4 x 3 + 3, n_safe 5,
+              n_max 256, 40 initial points, 40 steps of step / plant /
+              observe through the O(n^2) append), f32: the JAX CLI's series,
+              p50 / p99 step latency, the refit kernels' launches, whether
+              the served model's K^-1 ended finite; gates 0 violations,
+              recompiles 1 + the bucket crossings, finite latencies
+ 29. serve-parity  f64, 4 steps from 62 points in the registered buffer
+              of 256 (the 64 -> 128 crossing), GPU against CPU: u 1e-9,
+              flags and recompiles equal, the first fit's factors (a refit
+              at n 256) and the final ones 1e-9
+ 30. uncertainty  pendulum_uncertainty as registered, f32 and f64 on the
+              card and the CPU on one set of draws: f64 containment and
+              violation rate equal, tube centres 1e-9, shapes 1e-8
+ 31. exploration  pendulum_exploration as registered (6 iterations of the
+              portable CEM under the exploration cost, an ssm_update each),
+              f32: series, launches, 0 violations; f64 series GPU vs CPU
+              at 3 iterations (counts equal, floats 1e-9)
+ 32. exploration-static  pendulum_exploration_static (9 exact-Hessian probe
+              solves an iteration) for 1 of its 6 iterations, f32, the same
+              gates; f64 series GPU vs CPU at a 1 x 1 budget
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -220,6 +245,7 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 E = 2          # GP output dims on the pendulum path
 N_PATH = 128   # n_max of the headline path
+N_SERVE = 256  # n_max of pendulum_serve (its refits and appends)
 D_IN = 3       # pendulum state + action
 N_CEM = 64     # n_max of the CEM path (bench.py bench_cem_solves)
 B_CEM = 256    # CEM instances
@@ -345,7 +371,7 @@ def phase_kernels(seed: int) -> dict:
                   f"n={N_HBM}")
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
-        for n in (N_PATH, 200, 512):
+        for n in (N_PATH, 200, N_SERVE, 512):
             args = _gram_args(rng, n, dtype, "cuda")
             args64 = [a.double() for a in args]
             k = rbf_gram_masked(*args)
@@ -1535,14 +1561,15 @@ def _episode_cfg(name: str, sets: list[str]):
 
 # (a) runs 1 of the registered 6 episodes (2 until the cart-pole's phases
 # came) and 15 of its 50 steps (25 until the stacked fleet's phases came)
-# to keep the script's time; (b) runs its whole schedule; the cart-pole's
-# episodic run 1 of its 6 episodes and 10 of its 50 steps (25 until the
-# quadrotor fleet ran its 8 steps)
+# to keep the script's time; (b) 1 of its 6 episodes (all 6 until the
+# serving and active-learning tasks' phases came); the cart-pole's
+# episodic run 1 of its 6 episodes and 3 of its 50 steps (25 until the
+# quadrotor fleet ran its 8 steps, 10 until the serving tasks came)
 RUN_A = ["n_ep=1", "n_steps=15"]
-RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60"]
+RUN_B = ["n_max=2048", "n_init_samples=1024", "hyp_iters=60", "n_ep=1"]
 RUNS_PENDULUM = (("a", "pendulum_episode", RUN_A),
                  ("b", "pendulum_episode", RUN_B))
-RUNS_CARTPOLE = (("cartpole", "cartpole_episode", ["n_ep=1", "n_steps=10"]),)
+RUNS_CARTPOLE = (("cartpole", "cartpole_episode", ["n_ep=1", "n_steps=3"]),)
 
 
 def phase_episode(seed: int, runs: tuple = RUNS_PENDULUM,
@@ -1659,7 +1686,7 @@ def phase_episode(seed: int, runs: tuple = RUNS_PENDULUM,
     return out
 
 
-PARITY_SETS = ["n_max=2048", "n_init_samples=1100", "hyp_iters=3", "n_ep=1",
+PARITY_SETS = ["n_max=2048", "n_init_samples=1100", "hyp_iters=1", "n_ep=1",
                "n_steps=3", "cem_samples=32", "cem_elites=8",
                "cem_iterations=2"]
 
@@ -1669,7 +1696,7 @@ def phase_episode_parity(seed: int, config: str = "pendulum_episode",
                          label: str = "episode-parity",
                          factor_tol: float = 1e-9) -> dict:
     """f64, one episode of ``config`` (pendulum_episode: 3 steps at n_max
-    2048 with 1,100 initial points, 3 hyperparameter steps and a small
+    2048 with 1,100 initial points, 1 hyperparameter step and a small
     CEM), on the GPU (kernels) and on the CPU (plain versions) with one set
     of draws from a CPU generator: the series equal (counts exactly, floats
     at 1e-9 relative) and the final factors within ``factor_tol``."""
@@ -1741,7 +1768,9 @@ RUNS_SQP = (("pendulum", "pendulum_episode_sqp",
              ["n_ep=1", f"n_steps={NLP_PEND_STEPS}"]),
             ("cartpole", "cartpole_episode_sqp",
              ["n_ep=1", f"n_steps={NLP_CART_STEPS}"]))
-SQP_PARITY_SETS = ("n_ep=1", "n_steps=3", "hyp_iters=3")
+# its f64 parity: 2 steps, so that the second solve starts warm from the
+# first's plan and multipliers
+SQP_PARITY_SETS = ("n_ep=1", "n_steps=2", "hyp_iters=3")
 
 
 def _rel0(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1900,10 +1929,10 @@ def _margins(exp, tube, ssm, x0, k_ff):
 
 L_BATCH = 256   # lanes of pendulum_batch_sqp: its refit is L * E Grams
 # the fleet runs 2 of pendulum_batch_sqp's 4 episodes (the second on
-# per-lane hyperparameters) and 5 of its 20 steps an episode (10 from the
-# quadrotor's phases until its fleet ran its 8 steps) to keep the script's
-# time
-RUN_BATCH = ["n_ep=2", "n_steps=5"]
+# per-lane hyperparameters) and 2 of its 20 steps an episode (10 from the
+# quadrotor's phases until its fleet ran its 8 steps, 5 until the serving
+# tasks' phases came) to keep the script's time
+RUN_BATCH = ["n_ep=2", "n_steps=2"]
 
 
 def _lane_gram_args(rng, lanes, n, dtype, mask_lane, e=E, d=D_IN):
@@ -2162,10 +2191,10 @@ def phase_batch(seed: int, config: str = "pendulum_batch_sqp",
                 sets: tuple = tuple(RUN_BATCH), label: str = "batch") -> dict:
     """run_experiment on a fleet configuration at full width on the card,
     f32, printed under ``[label]``: pendulum_batch_sqp (256 lanes, n_max
-    128, 24 initial points, 5 of its 20 steps, n_safe 3) or
+    128, 24 initial points, 2 of its 20 steps, n_safe 3) or
     cartpole_batch_sqp (128 lanes, n_max 128, 40 initial points, 1 of its
     16 steps, n_safe 6, n_perf 10, r_shared 2) or quadrotor_batch_sqp (64
-    lanes, n_max 96, 40 initial points, 2 of its 8 steps, n_safe 3, n_perf
+    lanes, n_max 96, 40 initial points, 1 of its 8 steps, n_safe 3, n_perf
     5), each with the lane SQP at 4 outer x 3 inner and a per-lane fit and
     calibration after every episode (120 steps), 2 episodes (of 4, 4, 2). Counts are zeroed just before the run
     and read just after; the fits, calibrations and unstack refits are
@@ -2378,10 +2407,10 @@ def _fleet_step_split(cfg, model, seed: int) -> dict:
 
 
 def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
-                       lanes: int = 8, steps: int = 3,
+                       lanes: int = 8, steps: int = 2,
                        label: str = "batch-parity") -> dict:
     """f64, ``lanes`` lanes, ``steps`` steps, 2 episodes of a fleet
-    configuration (pendulum_batch_sqp at 8 lanes and 3 steps,
+    configuration (pendulum_batch_sqp at 8 lanes and 2 steps,
     cartpole_batch_sqp at 2 and 1) on the GPU
     (kernels) and on the CPU (plain versions) with one set of draws from a
     CPU generator: counts and feasible flags equal; the model that enters
@@ -2472,14 +2501,15 @@ def phase_batch_parity(seed: int, config: str = "pendulum_batch_sqp",
 
 
 # BASELINE config 5: the quadrotor fleet (quadrotor_batch_sqp: 64 lanes,
-# n_max 96, 40 initial points, 2 episodes; 2 of its 8 steps an episode since
-# the stacked fleet's phases came, 4 since the sparse tier's), and its f64
-# parity at 2 lanes, 1 step an episode; quadrotor_episode for 1 of its 6
-# episodes and 25 of its 50 steps (the portable CEM with 256 samples,
-# n_safe 5 + n_perf 12)
+# n_max 96, 40 initial points, 2 episodes; 2 of its 8 steps an episode, so
+# that the second step runs after the first's append and its compile-free
+# time shows, 4 until the sparse tier's phases came), and its f64 parity at
+# 2 lanes, 1 step an episode; quadrotor_episode for 1 of its 6 episodes and
+# 5 of its 50 steps (25 until the serving tasks came; the portable CEM with
+# 256 samples, n_safe 5 + n_perf 12)
 RUN_QUAD_BATCH = ("n_steps=2",)
 QUAD_PARITY = (2, 1)
-RUNS_QUAD = (("quadrotor", "quadrotor_episode", ["n_ep=1", "n_steps=25"]),)
+RUNS_QUAD = (("quadrotor", "quadrotor_episode", ["n_ep=1", "n_steps=5"]),)
 # the risk objective: cartpole_risk_sqp's planner (the NLP with the perf
 # trajectory's covariance in the cost) solved once from RISK_X0 on its
 # first model, cut to RISK_NLP_SETS: a 4 x 3 + 3 budget and 5 of its 10
@@ -3633,6 +3663,322 @@ def phase_batch_stacked_parity(seed: int) -> dict:
     return res
 
 
+# The serving and active-learning tasks (pendulum_serve, pendulum_uncertainty,
+# pendulum_exploration, pendulum_exploration_static) through run_experiment
+REFIT_WRAPPERS = ("rbf_gram_masked", "cholesky_blocked", "solve_psd",
+                  "tri_inv_lower")
+# [serve-parity] at the registered n_max 256: 62 initial points, so that the
+# first fit refits at n 256 and the third observe crosses the 64 -> 128
+# bucket
+SERVE_PARITY_SETS = ("n_steps=4", "n_init_samples=62", "hyp_iters=3")
+# [exploration-static] runs 1 of its 6 probe iterations (9 exact-Hessian
+# solves at 8 x 4 each) to keep the script's time
+RUN_STATIC = ("n_ep=1",)
+EXPLORATION_PARITY_SETS = ("n_ep=3", "n_init_samples=20", "n_max=64",
+                           "hyp_iters=3", "cem_samples=16", "cem_elites=4",
+                           "cem_iterations=2")
+STATIC_PARITY_SETS = ("n_ep=1", "n_init_samples=20", "n_max=64",
+                      "hyp_iters=3", "sqp_outer=1", "sqp_inner=1")
+TASK_CONFIGS = ("pendulum_serve", "pendulum_uncertainty",
+                "pendulum_exploration", "pendulum_exploration_static")
+
+
+def _run_task(cfg, dtype, dev: str, store: dict | None = None) -> dict:
+    """run_experiment of a task configuration on ``dev`` with the draws of a
+    CPU generator seeded ``cfg.seed``; on the card the kernels' launches
+    are counted from zero around it. With ``store``, the serve task's
+    controller is recorded there with the u and flags of every step."""
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from safe_exploration_tpu_torch.runtime import serve as serve_mod
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    cls = serve_mod.ServeController
+
+    class Recorded(cls):
+        def __init__(self, exp, ssm, *args, **kwargs):
+            super().__init__(exp, ssm, *args, **kwargs)
+            store.update(ctrl=self, first_model=ssm, u=[], flags=[])
+
+        def step(self, x, **kwargs):
+            u = super().step(x, **kwargs)
+            store["u"].append(u)
+            store["flags"].append((self.last_feasible, self.last_n_fail))
+            return u
+
+    if store is not None:
+        serve_mod.ServeController = Recorded
+    try:
+        for w in KERNEL_WRAPPERS:
+            w.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        summary = run_experiment(cfg, dtype=dtype, device=dev)
+        _sync(dev)
+        summary["host_s"] = time.perf_counter() - t0
+        summary["launches"] = {w.__name__: w.launches
+                               for w in KERNEL_WRAPPERS}
+    finally:
+        serve_mod.ServeController = cls
+    return summary
+
+
+def _serve_crossings(cfg) -> int:
+    """Bucket crossings of the serve task's appends (gp_shrink_to_bucket's
+    power-of-2 buckets from 32, capped at n_max)."""
+    def bucket(n):
+        b = 32
+        while b < n:
+            b *= 2
+        return min(b, cfg.n_max)
+
+    n0, n1 = cfg.n_init_samples, min(cfg.n_init_samples + cfg.n_steps,
+                                     cfg.n_max)
+    return len({bucket(n) for n in range(n0, n1 + 1)}) - 1
+
+
+def _refit_gate(label: str, launches: dict) -> None:
+    counts = [launches[w] for w in REFIT_WRAPPERS]
+    if min(counts) < 1 or len(set(counts)) != 1 or launches["trsm_lower"]:
+        _fail(f"[{label}] refit kernels launched {launches}")
+
+
+def phase_serve(seed: int) -> dict:
+    """pendulum_serve as registered (the NLP at 4 x 3 + 3, n_safe 5, n_max
+    256, 40 initial points, 40 steps of step / plant / observe through the
+    O(n^2) append), f32 on the card: the JAX CLI's series, the step
+    latency's p50 / p99 (host, after the device finished), the refit
+    kernels' launches (counts zeroed just before the run), whether the
+    served model's factors (K^-1 in particular) ended finite. Gates: 0
+    violations, recompiles 1 + the bucket crossings, finite latencies, one
+    launch of each refit kernel per refit."""
+    cfg = _episode_cfg("pendulum_serve", [f"seed={seed}"])
+    store: dict = {}
+    summary = _run_task(cfg, torch.float32, "cuda", store)
+    series, launches, ctrl = summary["series"], summary["launches"], \
+        store["ctrl"]
+    gp = ctrl._ssm_full.gp
+    finite = {f: bool(torch.isfinite(getattr(gp, f)).all())
+              for f in ("chol", "beta", "kinv")}
+    stats = ctrl.latency_stats()
+    want = 1 + _serve_crossings(cfg)
+    res = {"config": {k: getattr(cfg, k) for k in (
+               "n_max", "n_init_samples", "n_steps", "n_safe", "sqp_outer",
+               "sqp_inner", "sqp_polish", "hyp_iters")},
+           "series": series, "wall_s": summary["wall_time_s"],
+           "host_s": summary["host_s"], "latency": stats,
+           "launches": launches, "factors_finite": finite,
+           "kinv_max_abs": float(gp.kinv.abs().max()),
+           "log_noise_first_fit": store["first_model"].gp.log_noise.tolist(),
+           "n_points": int(ctrl._n_pts), "recompiles_want": want,
+           "feasible_steps": sum(f for f, _ in store["flags"])}
+    print(f"[serve] {cfg.name} {res['config']} f32: wall "
+          f"{res['wall_s']:.1f} s; series {series}", flush=True)
+    print(f"[serve]   step latency ms: p50 {stats['p50_ms']}, p99 "
+          f"{stats['p99_ms']}, mean {stats['mean_ms']} over {stats['n']} "
+          f"steps; recompiles {series['recompiles']} (want {want}); first "
+          f"fit's log noise {res['log_noise_first_fit']}; final model "
+          f"{res['n_points']} points, factors finite {finite}, max |K^-1| "
+          f"{res['kinv_max_abs']:.3e}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    if series["violations"] != [0]:
+        _fail(f"[serve] violations {series['violations']}")
+    if series["recompiles"] != [want]:
+        _fail(f"[serve] recompiles {series['recompiles']}, want {want}")
+    if not all(v is not None and np.isfinite(v) for v in (
+            stats["p50_ms"], stats["p99_ms"])):
+        _fail(f"[serve] latencies {stats}")
+    _refit_gate("serve", launches)
+    return res
+
+
+def phase_serve_parity(seed: int) -> dict:
+    """f64, pendulum_serve at SERVE_PARITY_SETS (62 initial points in the
+    registered buffer of 256, 4 steps: the 64 -> 128 bucket crossing at the
+    third observe) on the GPU and on the CPU with one set of draws: every
+    step's u within 1e-9 (max |du| / max |u|), the flags and recompiles
+    equal, the first fitted model's factors (the kernels' refit at n 256
+    against the plain versions') and the served model's final factors
+    within 1e-9."""
+    cfg = _episode_cfg("pendulum_serve",
+                       list(SERVE_PARITY_SETS) + [f"seed={seed}"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        store: dict = {}
+        summary = _run_task(cfg, torch.float64, dev, store)
+        out[dev] = dict(store, series=summary["series"], s=summary["host_s"])
+    g, c = out["cuda"], out["cpu"]
+    u_rel = _rel0(torch.tensor(np.stack(g["u"])),
+                  torch.tensor(np.stack(c["u"])))
+    factors = {}
+    for when, gp_g, gp_c in (
+            ("first", g["first_model"].gp, c["first_model"].gp),
+            ("final", g["ctrl"]._ssm_full.gp, c["ctrl"]._ssm_full.gp)):
+        factors[when] = {f: _rel0(getattr(gp_g, f), getattr(gp_c, f))
+                         for f in ("chol", "beta", "kinv")}
+    worst = max(max(v.values()) for v in factors.values())
+    same = (g["flags"] == c["flags"]
+            and g["series"]["recompiles"] == c["series"]["recompiles"]
+            == [1 + _serve_crossings(cfg)])
+    res = {"u_rel": u_rel, "factors_rel": factors, "flags_equal": same,
+           "flags_cpu": c["flags"], "series_cpu": c["series"],
+           "gpu_s": g["s"], "cpu_s": c["s"]}
+    print(f"[serve-parity] f64 {cfg.name}, {cfg.n_init_samples} points in "
+          f"{cfg.n_max}, {cfg.n_steps} steps: u rel {u_rel:.2e} (tol 1e-9), "
+          f"flags and recompiles equal {same} (flags {c['flags']}, "
+          f"recompiles {c['series']['recompiles']}), factors rel {factors} "
+          f"(tol 1e-9); GPU {g['s']:.1f} s, CPU {c['s']:.1f} s", flush=True)
+    if not same or not u_rel <= 1e-9 or not worst <= 1e-9:
+        _fail(f"[serve-parity] GPU vs CPU: {res}")
+    return res
+
+
+# [uncertainty]'s f64 gate on the tube's shape matrices: the posterior
+# variance sf2 - kv^T K^-1 kv cancels about one digit at this model's noise
+# (log noise near -7), so K^-1's kernel-vs-plain difference (~2e-10 in
+# f64, [serve-parity]) reaches Q at ~2e-9 (measured 1.59e-9)
+UNC_Q_TOL = 1e-8
+
+
+def phase_uncertainty(seed: int) -> dict:
+    """pendulum_uncertainty as registered (a GP-SSM on raw inputs, 40
+    points in a buffer of 512, 120 fit steps; the zero plan's tube from the
+    origin, n_safe 5, against 256 noisy rollouts): f32 on the card and on
+    the CPU with one set of draws (compared, not gated), and the CPU's
+    tube and rollouts on the card's f32 model (where the f32 gap comes
+    from: the model or the tube; not gated), then f64 on both: containment
+    and violation rate equal, the tube's centres p within 1e-9 and shapes q
+    within UNC_Q_TOL (gates), and the refit kernels' launches on the
+    card."""
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    import safe_exploration_tpu_torch.runtime.uncertainty as unc_mod
+
+    cfg = _episode_cfg("pendulum_uncertainty", [f"seed={seed}"])
+    keys = ("per_stage_containment", "overall_containment", "violation_rate")
+    fn = unc_mod.run_uncertainty_estimation
+    runs = {}
+    try:
+        for dtype in (torch.float32, torch.float64):
+            for dev in ("cuda", "cpu"):
+                tubes = []
+
+                def keep(env, ssm, *args, **kwargs):
+                    tubes.append(dict(fn(env, ssm, *args, **kwargs),
+                                      ssm=ssm, kwargs=kwargs))
+                    return tubes[-1]
+
+                unc_mod.run_uncertainty_estimation = keep
+                summary = _run_task(cfg, dtype, dev)
+                runs[str(dtype)[6:], dev] = dict(summary, tube=tubes[0])
+    finally:
+        unc_mod.run_uncertainty_estimation = fn
+    res = {"launches": runs["float32", "cuda"]["launches"]}
+    for dt in ("float32", "float64"):
+        g, c = runs[dt, "cuda"], runs[dt, "cpu"]
+        res[dt] = {"card": {k: g[k] for k in keys},
+                   "cpu": {k: c[k] for k in keys},
+                   "equal": all(g[k] == c[k] for k in keys),
+                   "p_rel": _rel0(g["tube"]["p_traj"], c["tube"]["p_traj"]),
+                   "q_rel": _rel0(g["tube"]["q_traj"], c["tube"]["q_traj"]),
+                   "card_s": g["host_s"], "cpu_s": c["host_s"]}
+        r = res[dt]
+        print(f"[uncertainty] {cfg.name} {dt}: card {r['card']}; CPU "
+              f"{r['cpu']}; equal {r['equal']}; tube p rel "
+              f"{r['p_rel']:.2e}, q rel {r['q_rel']:.2e}; card "
+              f"{r['card_s']:.1f} s, CPU {r['cpu_s']:.1f} s", flush=True)
+    # the CPU's tube and rollouts on the card's fitted f32 model
+    g = runs["float32", "cuda"]["tube"]
+    exp = build_experiment(cfg, dtype=torch.float32, device="cpu")
+    on_card = fn(exp["env"], _ssm_to(g["ssm"], device="cpu"), exp["a"],
+                 exp["b"], exp["k_fb"],
+                 **{k: v.cpu() if torch.is_tensor(v) else v
+                    for k, v in g["kwargs"].items()})
+    res["float32_cpu_on_card_model"] = {
+        **{k: on_card[k] for k in keys},
+        "equal_to_card": all(on_card[k] == g[k] for k in keys),
+        "p_rel": _rel0(on_card["p_traj"], g["p_traj"].cpu()),
+        "q_rel": _rel0(on_card["q_traj"], g["q_traj"].cpu())}
+    print(f"[uncertainty] float32, the CPU's tube on the card's model: "
+          f"{res['float32_cpu_on_card_model']}", flush=True)
+    print(f"[uncertainty]   f32 card launches "
+          f"{ {k: v for k, v in res['launches'].items() if v} }", flush=True)
+    r = res["float64"]
+    if not r["equal"] or r["p_rel"] > 1e-9 or r["q_rel"] > UNC_Q_TOL:
+        _fail(f"[uncertainty] f64 GPU vs CPU: {r}")
+    _refit_gate("uncertainty", res["launches"])
+    return res
+
+
+def _series_parity(label: str, cfg) -> dict:
+    """f64 run_experiment of ``cfg`` on the GPU and on the CPU with one set
+    of draws: the series' counts equal and its floats within 1e-9."""
+    g = _run_task(cfg, torch.float64, "cuda")["series"]
+    c = _run_task(cfg, torch.float64, "cpu")["series"]
+    ints = ("feasibility_rate", "violations", "n_data")
+    counts_equal = all(g[k] == c[k] for k in ints)
+    floats = {k: max(abs(x - y) / max(abs(y), 1e-300)
+                     for x, y in zip(g[k], c[k]))
+              for k in g if k not in ints}
+    print(f"[{label}] f64 {cfg.name} {cfg.n_ep * cfg.n_steps} iterations: "
+          f"counts equal {counts_equal} (feasibility "
+          f"{c['feasibility_rate']}, n_data {c['n_data']}), float series "
+          f"rel {floats} (tol 1e-9)", flush=True)
+    if not counts_equal or max(floats.values()) > 1e-9:
+        _fail(f"[{label}] series differ GPU vs CPU: {g} vs {c}")
+    return {"counts_equal": counts_equal, "series_rel": floats,
+            "series_cpu": c}
+
+
+def _exploration_phase(seed: int, label: str, config: str, sets: tuple,
+                       parity_sets: tuple) -> dict:
+    """run_experiment of an exploration task at ``sets`` on the card, f32,
+    counts zeroed just before: the JAX CLI's series, seconds an iteration,
+    the kernels' launches; gates 0 violations, a finite series, n_data one
+    more a probe, one launch of each refit kernel per refit. Then the f64
+    card-vs-CPU series at ``parity_sets`` (:func:`_series_parity`)."""
+    cfg = _episode_cfg(config, list(sets) + [f"seed={seed}"])
+    summary = _run_task(cfg, torch.float32, "cuda")
+    series, launches = summary["series"], summary["launches"]
+    n_it = cfg.n_ep * cfg.n_steps
+    want_n = [cfg.n_init_samples + i + 1 for i in range(n_it)]
+    print(f"[{label}] {cfg.name} ({n_it} iterations) f32: wall "
+          f"{summary['wall_time_s']:.1f} s with the first fit; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    for key, vals in series.items():
+        print(f"[{label}]   {key}: {vals}", flush=True)
+    finite = all(np.isfinite(v).all() for v in series.values())
+    if any(series["violations"]) or not finite:
+        _fail(f"[{label}] violations {series['violations']}, finite {finite}")
+    if series["n_data"] != want_n:
+        _fail(f"[{label}] n_data {series['n_data']}, want {want_n}")
+    _refit_gate(label, launches)
+    parity = _series_parity(label, _episode_cfg(
+        config, list(parity_sets) + [f"seed={seed}"]))
+    return {"config": {k: getattr(cfg, k) for k in (
+                "n_max", "n_init_samples", "n_ep", "n_steps", "n_safe",
+                "hyp_iters")},
+            "series": series, "wall_s": summary["wall_time_s"],
+            "launches": launches, "parity": parity}
+
+
+def phase_exploration(seed: int) -> dict:
+    """pendulum_exploration as registered (6 iterations of the portable CEM
+    under the exploration cost, 128 samples, n_safe 3, on the full n_max
+    512 model, an ssm_update after each) and its f64 parity at
+    EXPLORATION_PARITY_SETS."""
+    return _exploration_phase(seed, "exploration", "pendulum_exploration", (),
+                              EXPLORATION_PARITY_SETS)
+
+
+def phase_exploration_static(seed: int) -> dict:
+    """pendulum_exploration_static (the probe NLP on the exact-Hessian AL
+    core at 8 x 4, n_safe 3, from the previous optimum and 8 restarts) for
+    RUN_STATIC of its 6 iterations, and its f64 parity at
+    STATIC_PARITY_SETS."""
+    return _exploration_phase(seed, "exploration-static",
+                              "pendulum_exploration_static", RUN_STATIC,
+                              STATIC_PARITY_SETS)
+
+
 # the kernels line: per Pallas kernel its name, CUDA source, the Pallas
 # kernel it replaces and the wrappers whose launches count for it (trsm's
 # three entries replace _trsm_kernel together)
@@ -3693,6 +4039,10 @@ def _partial_run(args, timed, t_start) -> int:
         "sparse-batch": (phase_sparse_batch,),
         "sparse-cem": (phase_sparse_cem,),
         "episode-sparse": (phase_episode_sparse,),
+        "serve": (phase_serve,), "serve-parity": (phase_serve_parity,),
+        "uncertainty": (phase_uncertainty,),
+        "exploration": (phase_exploration,),
+        "exploration-static": (phase_exploration_static,),
     }
     record = {}
     for label in args.phases.split(","):
@@ -3789,6 +4139,15 @@ def main() -> int:
     sparse_batch = timed("sparse-batch", phase_sparse_batch, args.seed)
     sparse_cem = timed("sparse-cem", phase_sparse_cem, args.seed)
     episode_sparse = timed("episode-sparse", phase_episode_sparse, args.seed)
+    serve = timed("serve", phase_serve, args.seed)
+    serve_parity = timed("serve-parity", phase_serve_parity, args.seed)
+    uncertainty = timed("uncertainty", phase_uncertainty, args.seed)
+    exploration = timed("exploration", phase_exploration, args.seed)
+    exploration_static = timed("exploration-static", phase_exploration_static,
+                               args.seed)
+    task_launches = dict(zip(TASK_CONFIGS, (
+        serve["launches"], uncertainty["launches"], exploration["launches"],
+        exploration_static["launches"])))
 
     # each kernel's launches are those of the path that runs it: the refit
     # kernels' from the fleet (pendulum_batch_sqp, PR 8's main path), the
@@ -3829,6 +4188,11 @@ def main() -> int:
         }
         if len(wrappers) > 1:
             entry["entries"] = list(wrappers)
+        # the serving and active-learning tasks (f32, as registered but
+        # for [exploration-static]'s RUN_STATIC): each kernel's launches
+        entry["task_launches"] = {
+            name: sum(counts.get(w, 0) for w in wrappers)
+            for name, counts in task_launches.items()}
         if short in batch_kern["timings_cartpole"]:
             rc = batch_kern["timings_cartpole"][short]
             entry["cartpole_fleet"] = {
@@ -3914,6 +4278,9 @@ def main() -> int:
               "sparse_kernels": sparse_kern, "sparse_refit": sparse_refit,
               "sparse_batch": sparse_batch, "sparse_cem": sparse_cem,
               "episode_sparse": episode_sparse,
+              "serve": serve, "serve_parity": serve_parity,
+              "uncertainty": uncertainty, "exploration": exploration,
+              "exploration_static": exploration_static,
               "phase_s": phase_s,
               "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}

@@ -21,6 +21,8 @@ counterpart, and runs on an NVIDIA GPU (Hopper, ``sm_90a``):
                          Gauss-Newton AL SQP, the portable and the lane-major
                          constrained CEM, the SafeMPC state machines
   runtime/config.py      ExperimentConfig + build_experiment
+  runtime/               the CLI's runners (main.py): episodic, batch, serve
+                         (ServeController), uncertainty, exploration
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 device given and no GPU present they raise instead of quietly running on the

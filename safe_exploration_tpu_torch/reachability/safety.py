@@ -36,8 +36,9 @@ def is_ellipsoid_inside_polytope(p, q, h_mat, h_vec):
 
 
 def trajectory_inside_ellipsoids(x_traj, p_traj, q_traj):
-    """Per stage: is the realized state (T, n) inside the predicted
-    ellipsoid (p (T, n), Q (T, n, n))?"""
+    """Per stage: is the realized state (..., T, n) inside the predicted
+    ellipsoid (p (T, n), Q (T, n, n))? Leading dims of ``x_traj`` are a
+    batch of rollouts."""
     d = (x_traj - p_traj)[..., None]
     sol = torch.linalg.solve(q_traj, d)
     return (d * sol).sum((-2, -1)) <= 1.0
@@ -48,18 +49,22 @@ def verify_trajectory_safety(env: Env, generator, x0, k_ff_all, k_fb_all,
     """Roll the noisy plant under the planned feedback policy (feedback
     relative to the previous stage center; x0 at stage 0) and check the
     state constraints and the containment in the predicted tube. ``noise``
-    (T, n_s) replaces the standard-normal plant draws of ``generator``.
-    Returns (all constraints hold, per-stage containment)."""
+    (..., T, n_s) replaces the standard-normal plant draws of ``generator``;
+    its leading dims are a batch of rollouts from the same x0 (the JAX
+    package's ``vmap`` over keys). Returns (all constraints hold (...),
+    per-stage containment (..., T))."""
     spec = env.spec
     p_prev = torch.cat([x0[None], p_traj[:-1]], dim=0)
-    x, xs = x0, []
+    lead = () if noise is None else tuple(noise.shape[:-2])
+    x, xs = x0.expand(lead + x0.shape), []
     for t in range(k_ff_all.shape[0]):
-        u = k_ff_all[t] + k_fb_all[t] @ (x - p_prev[t])
+        u = k_ff_all[t] + (x - p_prev[t]) @ k_fb_all[t].T
         _, x = env_step(env, x, u, generator=generator,
-                        noise=None if noise is None else noise[t])
+                        noise=None if noise is None else noise[..., t, :])
         xs.append(x)
-    x_traj = torch.stack(xs)
-    ok = torch.all(x_traj @ spec.h_mat_obs.T - spec.h_obs <= 0.0)
+    x_traj = torch.stack(xs, dim=-2)
+    margins = x_traj @ spec.h_mat_obs.T - spec.h_obs
+    ok = torch.all((margins <= 0.0).flatten(-2), dim=-1)
     return ok, trajectory_inside_ellipsoids(x_traj, p_traj, q_traj)
 
 

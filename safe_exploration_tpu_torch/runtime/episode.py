@@ -43,7 +43,8 @@ from safe_exploration_tpu_torch.models.ssm import (
 )
 from safe_exploration_tpu_torch.solvers.safempc import SafeMPCState
 
-__all__ = ["collect_initial_data", "episode_draws", "rollout_episode",
+__all__ = ["collect_initial_data", "episode_draws", "first_model",
+           "fit_and_calibrate", "on_device", "rollout_episode",
            "run_episodic"]
 
 
@@ -95,6 +96,37 @@ def collect_initial_data(env: Env, n_samples: int, a: torch.Tensor,
     u_app, x_next = env_step(env, xs, us, noise=noise)
     resid = x_next - (xs @ a.T + u_app @ b.T)
     return xs, u_app, resid
+
+
+def on_device(draws: dict, a: torch.Tensor) -> dict:
+    """``draws`` as tensors of ``a``'s dtype on ``a``'s device."""
+    return {k: torch.as_tensor(v).to(dtype=a.dtype, device=a.device)
+            for k, v in draws.items()}
+
+
+def fit_and_calibrate(ssm, spec, hyp_iters: int, draws: dict | None):
+    """A hyperparameter fit of ``ssm``, then (unless ``draws`` is ``None``)
+    its Lipschitz calibration over the training buffer and the operating
+    region's probes ``draws["region_x"]``, ``draws["region_u"]``."""
+    ssm = ssm_fit(ssm, iters=hyp_iters)
+    if draws is None:
+        return ssm
+    region = (draws["region_x"], draws["region_u"])
+    return _calibrate_lipschitz(ssm, spec, n_region=region[0].shape[0],
+                                draws=region)
+
+
+def first_model(env: Env, a: torch.Tensor, b: torch.Tensor,
+                k_fb: torch.Tensor, draws: dict, make_ssm: Callable, *,
+                n_init: int, hyp_iters: int, calibrate: bool = True):
+    """The runners' first model: ``n_init`` initial transitions from
+    ``draws`` (:func:`collect_initial_data`), the model ``make_ssm(xs, us,
+    resid)`` builds from them, fitted and (with ``calibrate``) calibrated
+    (:func:`fit_and_calibrate`)."""
+    xs, us, resid = collect_initial_data(env, n_init, a, b, k_fb,
+                                         draws=draws)
+    return fit_and_calibrate(make_ssm(xs, us, resid), env.spec, hyp_iters,
+                             draws if calibrate else None)
 
 
 def rollout_episode(env: Env, get_action: Callable, mpc_state: SafeMPCState,
@@ -177,28 +209,17 @@ def run_episodic(
         draws = episode_draws(generator, spec, n_ep=n_ep, n_steps=n_steps,
                               n_init=n_init_samples, n_region=128 * d_in,
                               plan_shape=plan_noise_shape, dtype=a.dtype)
-    draws = {k: torch.as_tensor(v).to(dtype=a.dtype, device=a.device)
-             for k, v in draws.items()}
+    draws = on_device(draws, a)
+    if make_ssm is None:
+        def make_ssm(xs, us, resid):
+            return make_gp_ssm(kern_types, xs, us, resid, n_max=n_max,
+                               l_mu=l_mu, l_sigma=l_sigma,
+                               log_noise=log_noise)
 
-    xs, us, resid = collect_initial_data(env, n_init_samples, a, b, k_fb,
-                                         draws=draws)
-    if make_ssm is not None:
-        ssm = make_ssm(xs, us, resid)
-    else:
-        ssm = make_gp_ssm(kern_types, xs, us, resid, n_max=n_max, l_mu=l_mu,
-                          l_sigma=l_sigma, log_noise=log_noise)
-
-    region = (draws["region_x"], draws["region_u"])
-
-    def fit_and_calibrate(s):
-        s = ssm_fit(s, iters=hyp_iters)
-        if calibrate_lipschitz:
-            # training buffer + the operating region's probes
-            s = _calibrate_lipschitz(s, spec, n_region=region[0].shape[0],
-                                     draws=region)
-        return s
-
-    ssm = fit_and_calibrate(ssm)
+    ssm = first_model(env, a, b, k_fb, draws, make_ssm,
+                      n_init=n_init_samples, hyp_iters=hyp_iters,
+                      calibrate=calibrate_lipschitz)
+    region = draws if calibrate_lipschitz else None
     series: dict[str, list] = {
         "violations": [], "feasibility_rate": [], "model_error": [],
         "mean_cost": [], "episode_time_s": [], "n_data": [],
@@ -227,7 +248,7 @@ def run_episodic(
 
         ssm = ssm_update(ssm, traj["x"], traj["u"], traj["resid"])
         if opt_hyp_every and (ep + 1) % opt_hyp_every == 0:
-            ssm = fit_and_calibrate(ssm)
+            ssm = fit_and_calibrate(ssm, spec, hyp_iters, region)
 
         if metrics is not None:
             for name, vals in series.items():

@@ -1,16 +1,17 @@
-"""Experiment CLI — port of ``safe_exploration_tpu/runtime/main.py`` for the
-episodic task and the batch (fleet) task on both its backends:
+"""Experiment CLI — port of ``safe_exploration_tpu/runtime/main.py``: every
+task of the JAX CLI (episodic, batch on both backends, serve, uncertainty,
+exploration, exploration_static):
 
     python -m safe_exploration_tpu_torch.runtime.main --config pendulum_episode \\
         [--set n_ep=3 n_steps=20] [--x64] [--out results/] [--device cpu]
-    python -m safe_exploration_tpu_torch.runtime.main --config pendulum_batch_sqp
-    python -m safe_exploration_tpu_torch.runtime.main --config pendulum_batch
+    python -m safe_exploration_tpu_torch.runtime.main --config pendulum_serve
 
 It runs on CUDA unless ``--device cpu`` is given (and raises without a
 GPU). The summary it prints has the JAX CLI's keys (``wall_time_s``,
-``metrics``, ``series``; the file under ``--out`` adds ``config``). Other
-tasks, and the batch task's stacked backend under the NLP, raise naming
-the ROADMAP item that brings them.
+``metrics``, and ``series``, or for the uncertainty task its containment
+keys; the file under ``--out`` adds ``config``). The batch task's stacked
+backend under the NLP and the MC-dropout models raise naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -25,14 +26,6 @@ import warnings
 import torch
 
 __all__ = ["main", "run_experiment"]
-
-_TASK_ITEMS = {
-    "exploration": "runtime/exploration.py: ROADMAP Queue 1, item 12",
-    "exploration_static": "runtime/exploration.py: ROADMAP Queue 1, item 12",
-    "serve": "runtime/serve.py: ROADMAP Queue 1, item 12",
-    "uncertainty": "runtime/uncertainty.py: ROADMAP Queue 1, item 12",
-}
-
 
 def _apply_overrides(cfg, overrides: list[str]):
     """``--set key=value ...`` overrides on the frozen dataclass config."""
@@ -61,18 +54,17 @@ def run_experiment(cfg, *, out_dir: str | None = None, dtype=None,
     """Build and run one experiment on ``device`` (CUDA unless ``"cpu"``).
     The run's draws come from ``generator`` (``None``: a CPU generator
     seeded ``cfg.seed``, so the CPU and the GPU see the same draws) or from
-    ``draws`` (see :mod:`runtime.episode`, and :mod:`runtime.batch` for the
-    batch task). ``out_dir`` receives the metrics and the summary;
-    checkpoints are not ported (ROADMAP Queue 1, item 12)."""
+    ``draws`` (see :mod:`runtime.episode` for the episodic and serve tasks,
+    :mod:`runtime.batch` for the batch task, :mod:`runtime.exploration` for
+    the exploration tasks; the uncertainty task takes the initial data's
+    and the region's and ``rollout`` (256, n_safe, n_s)). ``out_dir``
+    receives the metrics and the summary; checkpoints are not ported
+    (ROADMAP Queue 1, item 12)."""
     from safe_exploration_tpu_torch.runtime.config import build_experiment
     from safe_exploration_tpu_torch.runtime.metrics import AggregatedMetrics
 
-    if cfg.task not in ("episodic", "batch"):
-        where = _TASK_ITEMS.get(cfg.task)
-        if where is None:
-            raise SystemExit(f"unknown task: {cfg.task}")
-        raise NotImplementedError(f"task={cfg.task!r} is not ported yet "
-                                  f"({where})")
+    if cfg.task != "episodic" and cfg.task not in _RUNNERS:
+        raise SystemExit(f"unknown task: {cfg.task}")
     if (cfg.task == "batch" and cfg.batch_backend != "lanes"
             and cfg.solver == "sqp"):
         raise NotImplementedError(_STACKED_NLP.format(cfg.batch_backend))
@@ -82,17 +74,22 @@ def run_experiment(cfg, *, out_dir: str | None = None, dtype=None,
     if generator is None and draws is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     t0 = time.perf_counter()
-    if cfg.task == "batch":
-        out = _run_batch(cfg, exp, metrics, generator, draws)
-    else:
+    if cfg.task == "episodic":
         out = _run_episodic(cfg, exp, metrics, generator, draws, resume)
+    else:
+        out = _RUNNERS[cfg.task](cfg, exp, metrics, generator, draws)
     wall = time.perf_counter() - t0
     summary = {
         "config": dataclasses.asdict(cfg),
         "wall_time_s": wall,
         "metrics": metrics.summary(),
-        "series": out["series"],
     }
+    if "series" in out:
+        summary["series"] = out["series"]
+    else:
+        for k in ("per_stage_containment", "overall_containment",
+                  "violation_rate"):
+            summary[k] = out[k]
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, f"{cfg.name}.summary.json"), "w") as f:
@@ -134,14 +131,8 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
         lane_shrink_to_bucket,
         lane_stack_ssm,
     )
-    from safe_exploration_tpu_torch.models.ssm import (
-        calibrate_lipschitz,
-        ssm_fit,
-    )
     from safe_exploration_tpu_torch.runtime import batch as batch_mod
-    from safe_exploration_tpu_torch.runtime.episode import (
-        collect_initial_data,
-    )
+    from safe_exploration_tpu_torch.runtime.episode import on_device
 
     env, a = exp["env"], exp["a"]
     spec = env.spec
@@ -151,14 +142,8 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
             generator, spec, batch=lanes, n_ep=cfg.n_ep, n_steps=cfg.n_steps,
             n_init=cfg.n_init_samples, n_region=128 * (spec.n_s + spec.n_u),
             dtype=a.dtype, plan_shape=exp["batch_noise_shape"])
-    draws = {k: torch.as_tensor(v).to(dtype=a.dtype, device=a.device)
-             for k, v in draws.items()}
-    region = (draws["region_x"], draws["region_u"])
-    xs, us, resid = collect_initial_data(env, cfg.n_init_samples, a, exp["b"],
-                                         exp["k_fb"], draws=draws)
-    ssm = exp["make_ssm"](xs, us, resid)
-    ssm = calibrate_lipschitz(ssm_fit(ssm, iters=cfg.hyp_iters), spec,
-                              n_region=region[0].shape[0], draws=region)
+    draws = on_device(draws, a)
+    ssm = _first_model(cfg, exp, draws, exp["make_ssm"])
     lbs = exp["lane_batch_supported"]
     lanes_ok = lbs is not None and lbs(ssm)
     if cfg.batch_backend == "lanes" and not lanes_ok:
@@ -213,6 +198,150 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
             metrics.log_scalar(name, vals[0], step=0)
     metrics.flush()
     return {"series": series}
+
+
+def _first_model(cfg, exp, draws, make_ssm):
+    """:func:`runtime.episode.first_model` at ``cfg``'s sizes."""
+    from safe_exploration_tpu_torch.runtime.episode import first_model
+
+    return first_model(exp["env"], exp["a"], exp["b"], exp["k_fb"], draws,
+                       make_ssm, n_init=cfg.n_init_samples,
+                       hyp_iters=cfg.hyp_iters)
+
+
+def _run_serve(cfg, exp, metrics, generator, draws) -> dict:
+    """The serve task as the JAX CLI runs it: a fitted and calibrated first
+    model behind a :class:`ServeController` (``on_full="drop"``), then
+    ``n_steps`` of step / plant step / observe from a reset state; the
+    series feasibility_rate, violations, recompiles, dropped_points and the
+    step latency's p50 / p99. ``draws`` as :func:`run_episodic`'s for one
+    episode of n_steps."""
+    import numpy as np
+
+    from safe_exploration_tpu_torch.envs.base import env_reset, env_step
+    from safe_exploration_tpu_torch.runtime import serve as serve_mod
+    from safe_exploration_tpu_torch.runtime.episode import (
+        episode_draws,
+        on_device,
+    )
+
+    env, a = exp["env"], exp["a"]
+    spec = env.spec
+    if draws is None:
+        draws = episode_draws(
+            generator, spec, n_ep=1, n_steps=cfg.n_steps,
+            n_init=cfg.n_init_samples, n_region=128 * (spec.n_s + spec.n_u),
+            plan_shape=exp["planner_noise_shape"], dtype=a.dtype)
+    draws = on_device(draws, a)
+    ssm = _first_model(cfg, exp, draws, exp["make_ssm"])
+    ctrl = serve_mod.ServeController(exp, ssm, generator, on_full="drop")
+    h_mat, h_obs = spec.h_mat_obs.cpu().numpy(), spec.h_obs.cpu().numpy()
+    x = env_reset(env, noise=draws["reset"][0]).cpu().numpy()
+    plans = draws["plan"][0] if "plan" in draws else None
+    feas, viol = [], 0
+    for i in range(cfg.n_steps):
+        u = ctrl.step(x, noise=None if plans is None else plans[i])
+        _, x_next = env_step(env, torch.as_tensor(x).to(a.device),
+                             torch.as_tensor(u).to(a.device),
+                             noise=draws["step"][0, i])
+        x_next = x_next.cpu().numpy()
+        ctrl.observe(x, u, x_next)
+        feas.append(ctrl.last_feasible)
+        if np.any(h_mat @ x_next - h_obs > 0.0):
+            viol += 1
+        x = x_next
+    stats = ctrl.latency_stats()
+    series = {
+        "feasibility_rate": [float(np.mean(feas))],
+        "violations": [viol],
+        "recompiles": [ctrl.recompiles],
+        "dropped_points": [ctrl.dropped_points],
+        "latency_p50_ms": [stats["p50_ms"]],
+        "latency_p99_ms": [stats["p99_ms"]],
+    }
+    for name, vals in series.items():
+        # a percentile is None (JSON null) when every step was a build's
+        # first: not logged as a scalar
+        if vals[0] is not None:
+            metrics.log_scalar(name, vals[0], step=0)
+    metrics.flush()
+    return {"series": series}
+
+
+def _run_uncertainty(cfg, exp, metrics, generator, draws) -> dict:
+    """The uncertainty task as the JAX CLI runs it: a GP-SSM on raw inputs
+    (no input scales) fitted and calibrated, then the tube of the zero plan
+    from the origin against 256 noisy rollouts. ``draws``: the initial
+    data's and the region's, and ``rollout`` (256, n_safe, n_s)."""
+    from safe_exploration_tpu_torch.models.ssm import make_gp_ssm
+    from safe_exploration_tpu_torch.runtime.episode import (
+        episode_draws,
+        on_device,
+    )
+    from safe_exploration_tpu_torch.runtime.uncertainty import (
+        run_uncertainty_estimation,
+    )
+
+    env, a = exp["env"], exp["a"]
+    spec = env.spec
+    kw = {"dtype": a.dtype, "device": a.device}
+    if draws is None:
+        draws = episode_draws(
+            generator, spec, n_ep=0, n_steps=0, n_init=cfg.n_init_samples,
+            n_region=128 * (spec.n_s + spec.n_u), plan_shape=None,
+            dtype=a.dtype)
+        draws["rollout"] = torch.randn(
+            (256, cfg.n_safe, spec.n_s), generator=generator, dtype=a.dtype,
+            device=generator.device)
+    draws = on_device(draws, a)
+
+    def make_ssm(xs, us, resid):
+        return make_gp_ssm(exp["kern_types"], xs, us, resid, n_max=cfg.n_max,
+                           l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
+                           log_noise=cfg.log_noise)
+
+    ssm = _first_model(cfg, exp, draws, make_ssm)
+    return run_uncertainty_estimation(
+        env, ssm, a, exp["b"], exp["k_fb"], x0=torch.zeros((spec.n_s,), **kw),
+        k_ff_all=torch.zeros((cfg.n_safe, spec.n_u), **kw),
+        c_safety=cfg.c_safety, noise=draws["rollout"], metrics=metrics)
+
+
+def _run_exploration(cfg, exp, metrics, generator, draws) -> dict:
+    """The greedy exploration task: ``n_ep * n_steps`` iterations."""
+    from safe_exploration_tpu_torch.runtime.exploration import run_exploration
+
+    return run_exploration(
+        exp["env"], exp["init_state"], exp["get_action"], exp["a"], exp["b"],
+        exp["k_fb"], kern_types=exp["kern_types"], n_max=cfg.n_max,
+        l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
+        n_iterations=cfg.n_ep * cfg.n_steps,
+        n_init_samples=cfg.n_init_samples, hyp_iters=cfg.hyp_iters,
+        metrics=metrics, make_ssm=exp["make_ssm"], generator=generator,
+        draws=draws, plan_noise_shape=exp["planner_noise_shape"])
+
+
+def _run_exploration_static(cfg, exp, metrics, generator, draws) -> dict:
+    """The static exploration task: ``n_ep * n_steps`` probe solves (the
+    exact-Hessian AL NLP at ``sqp_outer`` x ``sqp_inner``, 8 restarts)."""
+    from safe_exploration_tpu_torch.runtime.exploration import (
+        run_exploration_static,
+    )
+
+    return run_exploration_static(
+        exp["env"], exp["a"], exp["b"], exp["k_fb"],
+        kern_types=exp["kern_types"], n_max=cfg.n_max, l_mu=exp["l_mu"],
+        l_sigma=exp["l_sigma"], n_iterations=cfg.n_ep * cfg.n_steps,
+        n_init_samples=cfg.n_init_samples, n_safe=cfg.n_safe,
+        c_safety=cfg.c_safety, sqp_outer=cfg.sqp_outer,
+        sqp_inner=cfg.sqp_inner, hyp_iters=cfg.hyp_iters,
+        log_noise=cfg.log_noise, metrics=metrics, make_ssm=exp["make_ssm"],
+        generator=generator, draws=draws)
+
+
+_RUNNERS = {"batch": _run_batch, "serve": _run_serve,
+            "uncertainty": _run_uncertainty, "exploration": _run_exploration,
+            "exploration_static": _run_exploration_static}
 
 
 def main(argv: list[str] | None = None) -> int:

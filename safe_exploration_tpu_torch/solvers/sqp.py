@@ -150,13 +150,17 @@ def _damped_direction(h: torch.Tensor, rhs: torch.Tensor,
 def _rollout_jacobian(fn: Callable, u: torch.Tensor, m: int):
     """(J (m, n), fn(u) (m,)) of fn: R^n -> R^m in one backward pass: m
     folded copies of u (a leading batch axis, which ``fn`` takes), copy i
-    pulled back with the unit cotangent e_i."""
-    uu = u.detach().expand(m, u.shape[-1]).clone().requires_grad_(True)
-    eye = torch.eye(m, dtype=u.dtype, device=u.device)
+    pulled back with the unit cotangent e_i. A batch of points u (R, n)
+    gives (J (R, m, n), fn(u) (R, m)) from the same one pass (``fn`` takes
+    (m, R, n))."""
+    lead = u.shape[:-1]
+    uu = u.detach().expand((m,) + u.shape).clone().requires_grad_(True)
+    eye = torch.eye(m, dtype=u.dtype, device=u.device).reshape(
+        (m,) + (1,) * len(lead) + (m,)).expand((m,) + lead + (m,))
     with torch.enable_grad():
         y = fn(uu)
         (jac,) = torch.autograd.grad(y, uu, grad_outputs=eye)
-    return jac, y[0].detach()
+    return jac.movedim(0, -2), y[0].detach()
 
 
 def _relu(x: torch.Tensor) -> torch.Tensor:
@@ -303,19 +307,25 @@ def _make_polish(cfg: SqpConfig, jac_and_g: Callable, violations: Callable,
     """The Gauss-Newton feasibility polish: damped GN steps on the violation
     only, each backtracking over 1, 1/2, 1/4, 1/8 of its direction and
     never increasing the summed violation. ``jac_and_g(u) -> (dg/du, g)``;
-    ``violations(cands)`` sums each candidate row's violation."""
-    eye = torch.eye(like.shape[0], dtype=like.dtype, device=like.device)
+    ``violations(cands)`` sums each candidate row's violation. A batch of
+    points (``like`` (R, n)) takes its Jacobians batched from
+    ``jac_and_g`` and the step vmapped over the batch."""
+    eye = torch.eye(like.shape[-1], dtype=like.dtype, device=like.device)
     alphas = _alphas(4, like)
+
+    def step(u, jac, g):
+        v = _relu(g)
+        jtv = jac.T @ v
+        jtj = jac.T @ (jac * (g > 0.0).to(u.dtype)[:, None])
+        d = _newton_solve(jtj + 1e-6 * eye, -jtv)
+        cands = _candidates(u, d, alphas, lo, hi)
+        return _pick(violations(cands), cands, torch.sum(v), u)
+
+    step = vmap(step) if like.dim() == 2 else step
 
     def do_polish(u, n_steps=0):
         for _ in range(n_steps or cfg.n_polish):
-            jac, g = jac_and_g(u)
-            v = _relu(g)
-            jtv = jac.T @ v
-            jtj = jac.T @ (jac * (g > 0.0).to(u.dtype)[:, None])
-            d = _newton_solve(jtj + 1e-6 * eye, -jtv)
-            cands = _candidates(u, d, alphas, lo, hi)
-            u = _pick(violations(cands), cands, torch.sum(v), u)
+            u = step(u, *jac_and_g(u))
         return u
 
     return do_polish
@@ -346,7 +356,9 @@ def _schedule(cfg: SqpConfig, outer_step: Callable, do_polish: Callable,
             u = do_polish(u)
     g_gate = gate_fn(u)
     if cfg.n_polish_extra > 0:
-        still_bad = torch.sum(_relu(g_gate)) > cfg.feas_tol
+        # per start: a batch of starts (rows) is gated row by row
+        still_bad = torch.sum(_relu(g_gate), dim=-1,
+                              keepdim=True) > cfg.feas_tol
         u2 = do_polish(u, cfg.n_polish_extra)
         g2 = gate_fn(u2)
         return (torch.where(still_bad, u2, u), lam_fin,
@@ -365,9 +377,14 @@ def solve_al_nlp(objective: Callable, constraints: Callable,
 
     AL outer loop, damped projected-Newton inner steps and the
     :func:`_schedule` of the JAX package; ``constraints`` takes leading
-    batch dims (the polish's Jacobian copies and candidates). Returns
-    (u_fin, lam_fin, g_fin): the final primal, multipliers and
-    constraints."""
+    batch dims (the polish's Jacobian copies and candidates). ``u0`` (n,),
+    or (R, n): R starts of the same NLP solved together, as the JAX
+    package vmaps this core (the Newton and polish steps vmapped over the
+    starts, the polish's Jacobians one backward pass over all of them, the
+    extra polish gated start by start). Returns (u_fin, lam_fin, g_fin): the final
+    primal, multipliers and constraints, with the starts' axis in front
+    for a batch."""
+    batched = u0.dim() == 2
 
     def al_value(u, lam, mu):
         g = constraints(u)
@@ -387,16 +404,18 @@ def solve_al_nlp(objective: Callable, constraints: Callable,
         vals = torch.where(torch.isfinite(vals), vals, torch.inf)
         return _pick(vals, cands, f0, u)
 
+    step = vmap(newton_step, in_dims=(0, 0, None)) if batched else newton_step
+
     def outer_step(u, lam, mu):
         for _ in range(cfg.n_inner):
-            u = newton_step(u, lam, mu)
+            u = step(u, lam, mu)
         lam = _relu(lam + mu * constraints(u))
         return u, lam, mu * cfg.mu_growth
 
     u = torch.clamp(u0, lo, hi)
     lam = (torch.zeros_like(constraints(u)) if lam_init is None
            else lam_init)
-    n_con = lam.shape[0]
+    n_con = lam.shape[-1]
     do_polish = _make_polish(
         cfg, lambda uu: _rollout_jacobian(constraints, uu, n_con),
         lambda cands: torch.sum(_relu(constraints(cands)), dim=-1), lo, hi,

@@ -473,7 +473,7 @@ def test_registry_matches_jax_and_unported_choices_raise():
                                         ["batch_backend=vmapped"]),
                        device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
-        run_experiment(CONFIGS["pendulum_serve"], device="cpu")
+        run_experiment(CONFIGS["pendulum_episode_mcdropout"], device="cpu")
     exp = build_experiment(ExperimentConfig(n_max=16), dtype=torch.float64,
                            device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):

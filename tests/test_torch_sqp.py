@@ -233,6 +233,27 @@ def test_nlp_cores_match_jax_on_a_small_nlp(core):
     assert min(gate) <= cfg.feas_tol < max(gate), gate
 
 
+def test_exact_core_gates_the_extra_polish_start_by_start():
+    """``solve_al_nlp`` on a batch of starts (the static exploration
+    planner's bank) with the violation-gated extra polish: the two starts
+    above, one gated and one not at a 1e-9 feasibility gate, solved
+    together give each start's own solve (u, lam, g at 1e-12)."""
+    tcfg = tsqp.SqpConfig(**SMALL, hessian="exact", feas_tol=1e-9)
+    _, _, _, tobj, tcon = _nlp(torch)
+    lo, hi = _t([-1.0, -1.0, -0.3]), _t([1.0, 0.8, 1.0])
+    u0 = _t([[0.2, -0.3, 0.6], [-0.9, 0.7, -0.2]])
+    bu, bl, bg = tsqp.solve_al_nlp(tobj, tcon, u0, lo, hi, tcfg)
+    gate = []
+    for r in range(2):
+        su, sl, sg = tsqp.solve_al_nlp(tobj, tcon, u0[r], lo, hi, tcfg)
+        for b, s in ((bu[r], su), (bl[r], sl), (bg[r], sg)):
+            assert _rel(b.numpy(), s.numpy()) < 1e-12
+        _, _, g0 = tsqp.solve_al_nlp(tobj, tcon, u0[r], lo, hi,
+                                     tcfg._replace(n_polish_extra=0))
+        gate.append(float(torch.clamp(g0, min=0.0).sum()))
+    assert min(gate) <= tcfg.feas_tol < max(gate), gate
+
+
 def test_planner_meets_the_cfg1_golden(cfg1):
     """``build_experiment``'s SQP planner (``make_sqp_planner`` at the
     golden's 8 x 4 budget) from zeros: feasible where the golden was, cost

@@ -222,6 +222,20 @@ Phases (any failure exits non-zero, without the final ``ok`` line):
  32. exploration-static  pendulum_exploration_static (9 exact-Hessian probe
               solves an iteration) for 1 of its 6 iterations, f32, the same
               gates; f64 series GPU vs CPU at a 1 x 1 budget
+ 33. mcdropout  pendulum_episode_mcdropout and pendulum_episode_concrete as
+              registered (n_max 512, hidden (64, 64), 16 passes, 200 fit
+              steps, the portable CEM), 1 of their 6 episodes and MC_STEPS
+              of their 50 steps, f32: wall, fit s, s a step, feasibility,
+              0 violations, no kernel launched; f64 GPU vs CPU at n_max 64
+              for 3 steps as registered (no step feasible) and for 10 steps
+              at the JAX package's small Lipschitz constants without the
+              calibration (some steps feasible, gated): counts equal,
+              floats, final weights and applied controls 1e-9
+ 34. resume   on the card, f64: a 2-episode run against a 1-episode run
+              resumed to 2 (run_experiment's checkpoints under out_dir), for
+              a GP (pendulum_episode) and an MC-dropout network: counts
+              equal, floats and the final model 1e-12, bit-for-bit equality
+              printed
 
 The second-to-last lines are one JSON object ``{"kernels": [...]}`` and the
 card's name and power limit; the last line is ``{"ok": true, "device": ...}``.
@@ -3979,6 +3993,258 @@ def phase_exploration_static(seed: int) -> dict:
                               STATIC_PARITY_SETS)
 
 
+# the MC-dropout networks (pendulum_episode_mcdropout and
+# pendulum_episode_concrete: n_max 512, hidden (64, 64), 16 passes, 40
+# initial points, 200 fit steps, the portable CEM), 1 of their 6 episodes
+# and MC_STEPS of their 50 steps; their f64 card-vs-CPU check at a small
+# buffer; the runners' checkpoint / resume on the card
+MC_CONFIGS = ("pendulum_episode_mcdropout", "pendulum_episode_concrete")
+MC_STEPS = 50
+MC_PARITY_SETS = ("n_ep=1", "n_steps=3", "n_max=64", "n_init_samples=20",
+                  "cem_samples=32", "cem_elites=8", "cem_iterations=2")
+# the JAX package's own cut of the MC episode (l_mu 0.05, l_sigma 0.02,
+# log_noise -4) with the Lipschitz calibration off: the calibrated
+# constants leave no step feasible (ROADMAP Queue 3), these take the plan
+MC_FEASIBLE_SETS = ("n_ep=1", "n_steps=10", "n_max=64", "n_init_samples=20",
+                    "cem_samples=32", "cem_elites=8", "cem_iterations=2",
+                    "l_mu=0.05", "l_sigma=0.02", "log_noise=-4.0")
+MC_TOL = 1e-9
+RESUME_SETS = ("n_ep=2", "n_steps=2", "n_max=64", "n_init_samples=20",
+               "hyp_iters=5", "cem_samples=32", "cem_elites=8",
+               "cem_iterations=2")
+RESUME_CONFIGS = (("gp", "pendulum_episode"),
+                  ("mc", "pendulum_episode_mcdropout"))
+RESUME_TOL = 1e-12
+
+
+def _mc_draws(cfg, exp, seed: int) -> dict:
+    """One set of draws for an MC-dropout run from a CPU generator: the
+    episodic runner's (with the first model's) and the fit's
+    (``mc_fit_draws``), which the runner otherwise draws on the model's
+    device."""
+    from safe_exploration_tpu_torch.models.nn_ssm import mc_fit_draws
+    from safe_exploration_tpu_torch.runtime.episode import episode_draws
+
+    spec = exp["env"].spec
+    gen = torch.Generator().manual_seed(seed)
+    draws = episode_draws(
+        gen, spec, n_ep=cfg.n_ep, n_steps=cfg.n_steps,
+        n_init=cfg.n_init_samples, n_region=128 * (spec.n_s + spec.n_u),
+        plan_shape=exp["planner_noise_shape"], dtype=torch.float64,
+        ssm_shapes=exp["ssm_draw_shapes"])
+    fit = mc_fit_draws(
+        cfg.mc_hidden, max(cfg.hyp_iters, 200),
+        n_max=None if cfg.ssm == "mc_dropout" else cfg.n_max, generator=gen,
+        dtype=torch.float64)
+    draws.update({f"mc_fit{i}": u for i, u in enumerate(fit)})
+    return draws
+
+
+def _tensor_leaves(obj) -> list:
+    """The tensors of a model (dataclass fields, nested tuples)."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in _tensor_leaves(v)]
+    return []
+
+
+def _model_rel(a, b) -> tuple[float, bool]:
+    """Largest relative difference over two models' tensors, and whether
+    every tensor is equal bit for bit."""
+    la, lb = _tensor_leaves(a), _tensor_leaves(b)
+    if len(la) != len(lb):
+        _fail(f"models differ in structure: {len(la)} vs {len(lb)} tensors")
+        return float("inf"), False
+    rel = max(_rel(x.to(y.device, y.dtype), y) for x, y in zip(la, lb))
+    same = all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(la, lb))
+    return rel, same
+
+
+def _mc_card_vs_cpu(config: str, sets: tuple, seed: int,
+                    calibrate: bool = True) -> dict:
+    """``config`` at ``sets`` in f64 on the card and on the CPU on one set
+    of draws (``_mc_draws``), the Lipschitz calibration on or off: counts
+    and flags equal, the float series, the final model and the applied
+    controls (the episode's rows of the buffer) within MC_TOL; the
+    feasible share printed, and without the calibration (where the plan
+    is taken) gated above 0."""
+    import safe_exploration_tpu_torch.runtime.episode as ep_mod
+    from safe_exploration_tpu_torch.runtime.config import build_experiment
+
+    pcfg = _episode_cfg(config, list(sets) + [f"seed={seed}"])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        exp = build_experiment(pcfg, dtype=torch.float64, device=dev)
+        draws = _mc_draws(pcfg, exp, seed)
+        t0 = time.perf_counter()
+        runs[dev] = ep_mod.run_episodic(
+            exp["env"], exp["init_state"], exp["get_action"], exp["a"],
+            exp["b"], exp["k_fb"], kern_types=exp["kern_types"],
+            n_max=pcfg.n_max, l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
+            n_ep=pcfg.n_ep, n_steps=pcfg.n_steps,
+            n_init_samples=pcfg.n_init_samples, hyp_iters=pcfg.hyp_iters,
+            calibrate_lipschitz=calibrate, make_ssm=exp["make_ssm"],
+            draws=draws)
+        runs[dev]["s"] = time.perf_counter() - t0
+    gs, cs = runs["cuda"]["series"], runs["cpu"]["series"]
+    counts_equal = all(gs[k] == cs[k] for k in (
+        "violations", "feasibility_rate", "n_data"))
+    floats = {k: max(abs(x - y) / max(abs(y), 1e-300)
+                     for x, y in zip(gs[k], cs[k]))
+              for k in ("model_error", "mean_cost")}
+    weights_rel, _ = _model_rel(runs["cuda"]["ssm"], runs["cpu"]["ssm"])
+    rows = slice(pcfg.n_init_samples,
+                 pcfg.n_init_samples + pcfg.n_ep * pcfg.n_steps)
+    n_s = runs["cpu"]["ssm"].n_s
+    u_rel = _rel(runs["cuda"]["ssm"].x[rows, n_s:].cpu(),
+                 runs["cpu"]["ssm"].x[rows, n_s:])
+    feasible = gs["feasibility_rate"]
+    r = {"sets": list(sets), "calibrate": calibrate,
+         "counts_equal": counts_equal, "series_rel": floats,
+         "final_model_rel": weights_rel, "applied_u_rel": u_rel,
+         "feasibility_rate": feasible, "series_cpu": cs,
+         "gpu_s": runs["cuda"]["s"], "cpu_s": runs["cpu"]["s"]}
+    print(f"[mcdropout] f64 {pcfg.name} {list(sets)}, calibration "
+          f"{calibrate}, GPU vs CPU: counts equal {counts_equal} (feasible "
+          f"share {feasible}), float series rel {floats}, applied u rel "
+          f"{u_rel:.3e}, final model rel {weights_rel:.3e} (tol "
+          f"{MC_TOL:g}); GPU {runs['cuda']['s']:.1f} s, CPU "
+          f"{runs['cpu']['s']:.1f} s", flush=True)
+    if not counts_equal or max(floats.values()) > MC_TOL \
+            or weights_rel > MC_TOL or u_rel > MC_TOL:
+        _fail(f"[mcdropout] {pcfg.name} f64 GPU vs CPU: {r}")
+    if not calibrate and not any(f > 0.0 for f in feasible):
+        _fail(f"[mcdropout] {pcfg.name} {list(sets)}: no step feasible, "
+              "the plan was never taken")
+    return r
+
+
+def phase_mcdropout(seed: int) -> dict:
+    """pendulum_episode_mcdropout and pendulum_episode_concrete as
+    registered, f32 on the card, 1 of their 6 episodes and MC_STEPS of
+    their 50 steps, counts zeroed just before each run (the MC path runs
+    the portable CEM on its plain path and launches none of the kernels):
+    wall, fit s, s a step, feasibility, violations; gates 0 violations, a
+    finite series, n_data as scheduled. Then each in f64, card against
+    CPU (:func:`_mc_card_vs_cpu`), at MC_PARITY_SETS as registered (no
+    step feasible) and at MC_FEASIBLE_SETS without the calibration (the
+    plan taken)."""
+    import safe_exploration_tpu_torch.runtime.episode as ep_mod
+    from safe_exploration_tpu_torch.ops.kernels import KERNEL_WRAPPERS
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    out = {}
+    for config in MC_CONFIGS:
+        cfg = _episode_cfg(config, ["n_ep=1", f"n_steps={MC_STEPS}",
+                                    f"seed={seed}"])
+        fit_s = []
+        saved = ep_mod.ssm_fit
+        ep_mod.ssm_fit = _timed(fit_s, saved)
+        try:
+            for w in KERNEL_WRAPPERS:
+                w.launches = 0
+            t0 = time.perf_counter()
+            summary = run_experiment(cfg, dtype=torch.float32, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+        finally:
+            ep_mod.ssm_fit = saved
+        series = summary["series"]
+        step_s = [t / cfg.n_steps for t in series["episode_time_s"]]
+        r = {"config": {k: getattr(cfg, k) for k in (
+                 "n_max", "n_init_samples", "hyp_iters", "n_ep", "n_steps",
+                 "mc_hidden", "mc_samples", "cem_samples", "cem_iterations")},
+             "series": series, "wall_s": wall, "fit_s": fit_s,
+             "seconds_per_step": step_s, "launches": launches}
+        print(f"[mcdropout] {cfg.name} {r['config']} f32: wall {wall:.1f} s, "
+              f"fit s {[round(v, 3) for v in fit_s]}, s a step "
+              f"{[round(v, 4) for v in step_s]}", flush=True)
+        for key in ("violations", "feasibility_rate", "model_error",
+                    "mean_cost", "n_data"):
+            print(f"[mcdropout]   {key}: {series[key]}", flush=True)
+        print(f"[mcdropout]   kernel launches "
+              f"{ {k: v for k, v in launches.items() if v} or 'none'}",
+              flush=True)
+        finite = all(np.isfinite(v).all() for v in series.values())
+        if any(series["violations"]) or not finite:
+            _fail(f"[mcdropout] {cfg.name}: violations "
+                  f"{series['violations']}, finite {finite}")
+        if series["n_data"] != [cfg.n_init_samples]:
+            _fail(f"[mcdropout] {cfg.name}: n_data {series['n_data']}")
+
+        r["parity"] = _mc_card_vs_cpu(config, MC_PARITY_SETS, seed)
+        r["parity_feasible"] = _mc_card_vs_cpu(config, MC_FEASIBLE_SETS,
+                                               seed, calibrate=False)
+        out[config] = r
+    return out
+
+
+def phase_resume(seed: int) -> dict:
+    """On the card in f64, for a GP and an MC-dropout episodic run at
+    RESUME_SETS: the 2-episode run against a 1-episode run resumed to 2
+    through ``run_experiment(out_dir=..., resume=True)``. Counts equal;
+    float series (wall times aside) and the final model (each run's last
+    checkpoint) within RESUME_TOL; printed: whether they are equal bit
+    for bit."""
+    import shutil
+
+    from safe_exploration_tpu_torch.runtime.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+    )
+    from safe_exploration_tpu_torch.runtime.main import run_experiment
+
+    root = os.path.join("build", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for tag, config in RESUME_CONFIGS:
+        cfg = _episode_cfg(config, list(RESUME_SETS) + [f"seed={seed}"])
+        one = _episode_cfg(config, list(RESUME_SETS) + [f"seed={seed}",
+                                                        "n_ep=1"])
+        full_dir, part_dir = (os.path.join(root, tag, k)
+                              for k in ("full", "part"))
+        t0 = time.perf_counter()
+        full = run_experiment(cfg, out_dir=full_dir, dtype=torch.float64,
+                              device="cuda")["series"]
+        run_experiment(one, out_dir=part_dir, dtype=torch.float64,
+                       device="cuda")
+        resumed = run_experiment(cfg, out_dir=part_dir, dtype=torch.float64,
+                                 device="cuda", resume=True)["series"]
+        wall = time.perf_counter() - t0
+        models = [load_checkpoint(latest_checkpoint(os.path.join(
+            d, f"{cfg.name}.ckpt")), map_location="cuda")["ssm"]
+            for d in (full_dir, part_dir)]
+        counts = ("violations", "feasibility_rate", "n_data")
+        counts_equal = all(full[k] == resumed[k] for k in counts)
+        floats = {k: max(abs(x - y) / max(abs(y), 1e-300)
+                         for x, y in zip(full[k], resumed[k]))
+                  for k in ("model_error", "mean_cost")}
+        series_same = all(full[k] == resumed[k] for k in full
+                          if k != "episode_time_s")
+        model_rel, model_same = _model_rel(models[1], models[0])
+        r = {"counts_equal": counts_equal, "series_rel": floats,
+             "series_bit_equal": series_same, "model_rel": model_rel,
+             "model_bit_equal": model_same, "wall_s": wall,
+             "series": full}
+        print(f"[resume] ({tag}) {cfg.name} f64 on the card, 2 episodes "
+              f"against 1 resumed to 2: counts equal {counts_equal} "
+              f"(feasibility {full['feasibility_rate']}, n_data "
+              f"{full['n_data']}), float series rel {floats}, final model "
+              f"rel {model_rel:.3e} (tol {RESUME_TOL:g}); bit for bit: series "
+              f"{series_same}, model {model_same}; {wall:.1f} s", flush=True)
+        if not counts_equal or max(floats.values()) > RESUME_TOL \
+                or model_rel > RESUME_TOL:
+            _fail(f"[resume] ({tag}) resumed run differs: {r}")
+        out[tag] = r
+    return out
+
+
 # the kernels line: per Pallas kernel its name, CUDA source, the Pallas
 # kernel it replaces and the wrappers whose launches count for it (trsm's
 # three entries replace _trsm_kernel together)
@@ -4043,6 +4309,7 @@ def _partial_run(args, timed, t_start) -> int:
         "uncertainty": (phase_uncertainty,),
         "exploration": (phase_exploration,),
         "exploration-static": (phase_exploration_static,),
+        "mcdropout": (phase_mcdropout,), "resume": (phase_resume,),
     }
     record = {}
     for label in args.phases.split(","):
@@ -4145,9 +4412,12 @@ def main() -> int:
     exploration = timed("exploration", phase_exploration, args.seed)
     exploration_static = timed("exploration-static", phase_exploration_static,
                                args.seed)
+    mcdropout = timed("mcdropout", phase_mcdropout, args.seed)
+    resume = timed("resume", phase_resume, args.seed)
     task_launches = dict(zip(TASK_CONFIGS, (
         serve["launches"], uncertainty["launches"], exploration["launches"],
         exploration_static["launches"])))
+    task_launches.update({c: mcdropout[c]["launches"] for c in MC_CONFIGS})
 
     # each kernel's launches are those of the path that runs it: the refit
     # kernels' from the fleet (pendulum_batch_sqp, PR 8's main path), the
@@ -4189,7 +4459,8 @@ def main() -> int:
         if len(wrappers) > 1:
             entry["entries"] = list(wrappers)
         # the serving and active-learning tasks (f32, as registered but
-        # for [exploration-static]'s RUN_STATIC): each kernel's launches
+        # for [exploration-static]'s RUN_STATIC) and the MC-dropout
+        # episodes ([mcdropout], none): each kernel's launches
         entry["task_launches"] = {
             name: sum(counts.get(w, 0) for w in wrappers)
             for name, counts in task_launches.items()}
@@ -4281,6 +4552,7 @@ def main() -> int:
               "serve": serve, "serve_parity": serve_parity,
               "uncertainty": uncertainty, "exploration": exploration,
               "exploration_static": exploration_static,
+              "mcdropout": mcdropout, "resume": resume,
               "phase_s": phase_s,
               "failures": FAILURES,
               "seconds": time.perf_counter() - t_start}

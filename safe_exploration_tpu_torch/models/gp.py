@@ -393,11 +393,15 @@ def gp_fit(gp: GP, *, iters: int = 200, lr: float = 5e-2,
 
 
 def adam_fit(loss, theta: list, *, n_prior: int | None, iters: int,
-             lr: float, prior_strength: float) -> list:
-    """``iters`` Adam steps on ``loss(leaves)`` plus ``prior_strength``
-    times the squared distance of the first ``n_prior`` leaves (all when
-    None) from their start, in optax's order of operations; returns the
-    final leaves."""
+             lr: float, prior_strength: float, weight_decay: float = 0.0,
+             step_inputs: tuple = ()) -> list:
+    """``iters`` Adam steps on ``loss(leaves, *inputs)`` plus
+    ``prior_strength`` times the squared distance of the first ``n_prior``
+    leaves (all when None) from their start, in optax's order of
+    operations; returns the final leaves. ``inputs`` are step t's rows of
+    ``step_inputs`` (each with a leading ``iters`` axis). ``weight_decay``
+    is optax's decoupled decay (``adamw``): each step moves a leaf by
+    ``-lr (m_hat / (sqrt(v_hat) + eps) + weight_decay * leaf)``."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     ref = [t.detach() for t in theta]
     theta = [t.clone() for t in ref]
@@ -406,7 +410,7 @@ def adam_fit(loss, theta: list, *, n_prior: int | None, iters: int,
     for count in range(1, iters + 1):
         leaves = [t.requires_grad_(True) for t in theta]
         with torch.enable_grad():
-            obj = loss(leaves)
+            obj = loss(leaves, *(s[count - 1] for s in step_inputs))
             if prior_strength > 0.0:
                 prior = None
                 for t, t0 in list(zip(leaves, ref))[:n_prior]:
@@ -420,7 +424,10 @@ def adam_fit(loss, theta: list, *, n_prior: int | None, iters: int,
             mu[i] = (1 - b1) * g + b1 * mu[i]
             nu[i] = (1 - b2) * g ** 2 + b2 * nu[i]
             step = (mu[i] / c1) / (torch.sqrt(nu[i] / c2) + eps)
-            new.append(t.detach() + -lr * step)
+            t = t.detach()
+            if weight_decay:
+                step = step + weight_decay * t
+            new.append(t + -lr * step)
         theta = new
     return theta
 

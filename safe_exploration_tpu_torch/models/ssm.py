@@ -16,9 +16,14 @@ at points with the lane axis in front ((L, ..., n_s)), and
 :func:`ssm_update` and :func:`ssm_bucketed` take one model only.
 
 The entries dispatch over the model families the port carries: the exact
-:class:`GPSSM` and the inducing-point
+:class:`GPSSM`, the inducing-point
 :class:`~safe_exploration_tpu_torch.models.sparse_gp.SparseGPSSM`
-(its probe points are the inducing inputs; its bucketed view is itself).
+(its probe points are the inducing inputs; its bucketed view is itself)
+and the MC-dropout network
+:class:`~safe_exploration_tpu_torch.models.nn_ssm.McDropoutSSM` (raw
+inputs; its probe points are the whole padded buffer, its bucketed view
+is itself, its fit runs at least 200 steps at its own rate; it has no
+incremental append).
 """
 
 from __future__ import annotations
@@ -30,6 +35,12 @@ import torch
 from safe_exploration_tpu_torch.models import gp as gp_mod
 from safe_exploration_tpu_torch.models.gp import GP
 from safe_exploration_tpu_torch.models.kernels import init_kernel_params
+from safe_exploration_tpu_torch.models.nn_ssm import (
+    McDropoutSSM,
+    mc_fit,
+    mc_predict_mean_jac,
+    mc_update_data,
+)
 from safe_exploration_tpu_torch.models.sparse_gp import (
     SparseGPSSM,
     sparse_gp_fit,
@@ -149,9 +160,13 @@ def ssm_predict_jac(ssm, x: torch.Tensor, u: torch.Tensor):
     (..., n_s), (..., n_u) -> (mu, var, jac_mu_x (..., n_s, n_s),
     jac_mu_u (..., n_s, n_u)); the Jacobian is the closed form of either
     GP family, taken in raw inputs (the chain rule of ``z_scale``
-    applied). A stacked model takes (L, ..., n_s) as :func:`ssm_predict`."""
-    _require_gp(ssm, "ssm_predict_jac")
+    applied), or the MC-dropout network's closed form through its tanh
+    layers. A stacked model takes (L, ..., n_s) as :func:`ssm_predict`."""
     n_s = x.shape[-1]
+    if isinstance(ssm, McDropoutSSM):
+        mu, var, jac = mc_predict_mean_jac(ssm, torch.cat([x, u], dim=-1))
+        return mu, var, jac[..., :n_s], jac[..., n_s:]
+    _require_family(ssm, "ssm_predict_jac")
     z = _normalized(ssm, torch.cat([x, u], dim=-1))
     if isinstance(ssm, SparseGPSSM):
         mu, var, jac = sparse_gp_predict_mean_jac(ssm.sgp, z)
@@ -170,8 +185,11 @@ def ssm_noise_var(ssm) -> torch.Tensor:
 
 def ssm_update(ssm, x: torch.Tensor, u: torch.Tensor, y: torch.Tensor,
                *, replace_old: bool = True):
-    """Append observed transitions (batch) and refit the model."""
-    _require_gp(ssm, "ssm_update")
+    """Append observed transitions (batch) and refit the model (the
+    MC-dropout network's ring buffer only: its fit is :func:`ssm_fit`)."""
+    if isinstance(ssm, McDropoutSSM):
+        return mc_update_data(ssm, x, u, y)
+    _require_family(ssm, "ssm_update")
     if isinstance(ssm, GPSSM):
         gp_mod._require_single(ssm.gp, "ssm_update")
     z = torch.cat([x, u], dim=-1)
@@ -201,24 +219,28 @@ def ssm_append_point(ssm, x: torch.Tensor, u: torch.Tensor,
 def ssm_bucketed(ssm):
     """Bucketed view of the model for the planner's hot loop (see
     :func:`gp_shrink_to_bucket`); a sparse model, whose posterior runs over
-    its inducing set whatever the buffer holds, is its own view."""
-    if isinstance(ssm, SparseGPSSM):
+    its inducing set whatever the buffer holds, is its own view, as is the
+    MC-dropout network."""
+    if isinstance(ssm, (SparseGPSSM, McDropoutSSM)):
         return ssm
     return ssm.replace(gp=gp_mod.gp_shrink_to_bucket(ssm.gp))
 
 
-def _require_gp(ssm, what: str) -> None:
+def _require_family(ssm, what: str) -> None:
     if not isinstance(ssm, (GPSSM, SparseGPSSM)):
-        raise NotImplementedError(
-            f"{what} of {type(ssm).__name__}: the port carries the exact and "
-            "the sparse GP models (MC-dropout: ROADMAP Queue 1, item 12)")
+        raise TypeError(f"{what}: unknown SSM family {type(ssm).__name__}")
 
 
-def ssm_fit(ssm, *, iters: int = 200, lr: float = 5e-2):
+def ssm_fit(ssm, *, iters: int = 200, lr: float = 5e-2, draws=None):
     """Re-optimize the model's hyperparameters (:func:`gp_mod.gp_fit`; the
     sparse model's with its inducing inputs, ``sparse_gp_fit``) and
-    refit."""
-    _require_gp(ssm, "ssm_fit")
+    refit; the MC-dropout network's weights by ``mc_fit`` for max(iters,
+    200) steps at its own rate (3e-3, not ``lr``), on ``draws``
+    (``mc_fit_draws``' shapes) or else the draws of a generator seeded 0
+    on the model's device, as the JAX package's fixed PRNGKey(0)."""
+    if isinstance(ssm, McDropoutSSM):
+        return mc_fit(ssm, iters=max(iters, 200), draws=draws)
+    _require_family(ssm, "ssm_fit")
     if isinstance(ssm, SparseGPSSM):
         return ssm.replace(sgp=sparse_gp_fit(ssm.sgp, iters=iters, lr=lr))
     return ssm.replace(gp=gp_mod.gp_fit(ssm.gp, iters=iters, lr=lr))
@@ -226,7 +248,9 @@ def ssm_fit(ssm, *, iters: int = 200, lr: float = 5e-2):
 
 def ssm_n_points(ssm) -> torch.Tensor:
     """Number of valid transitions the model holds (a 0-d int32 tensor)."""
-    _require_gp(ssm, "ssm_n_points")
+    if isinstance(ssm, McDropoutSSM):
+        return torch.sum(ssm.mask).to(torch.int32)
+    _require_family(ssm, "ssm_n_points")
     return (ssm.sgp if isinstance(ssm, SparseGPSSM) else ssm.gp).n_points
 
 
@@ -236,8 +260,11 @@ def ssm_probe_points(ssm) -> torch.Tensor:
     of a sparse model its inducing inputs (m, d_in).
     ``predict_latent`` divides them by ``z_scale`` again; the pendulum's
     scales are powers of two, so that round trip gives the buffer's rows
-    back exactly and a probe's distance to its own row is exactly 0."""
-    _require_gp(ssm, "ssm_probe_points")
+    back exactly and a probe's distance to its own row is exactly 0. The
+    MC-dropout network's is its whole padded buffer (raw inputs)."""
+    if isinstance(ssm, McDropoutSSM):
+        return ssm.x
+    _require_family(ssm, "ssm_probe_points")
     rows = ssm.sgp.z if isinstance(ssm, SparseGPSSM) else ssm.gp.x
     if ssm.z_scale is None:
         return rows

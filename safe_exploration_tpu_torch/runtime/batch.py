@@ -38,8 +38,16 @@ from the caller as ``draws``, a dict of tensors:
       stacked backend (``build_experiment``'s ``batch_noise_shape``; none
       for a planner that draws nothing)
 
+The generator makes the first draws up front, then each episode's
+``reset``, ``step`` and ``plan`` in episode order (as
+``runtime/episode.py``), so episode k's draws do not depend on how many
+episodes follow. With ``ckpt_dir`` :func:`run_batched_learning` writes
+``ckpt_dir/ckpt_{ep}.pt`` after every episode's fits (the fleet's model,
+the episode index, the series); ``resume`` continues from the latest one,
+bit for bit.
+
 Not ported yet, and raising: the portable NLP over a stacked model (ROADMAP
-Queue 1, item 7), checkpointing (item 12) and the device mesh (item 13).
+Queue 1, item 7) and the device mesh (item 13).
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ from safe_exploration_tpu_torch.models.ssm import (
     ssm_fit,
     ssm_predict,
 )
+from safe_exploration_tpu_torch.runtime import checkpoint as ckpt
+from safe_exploration_tpu_torch.runtime.episode import episode_draws
 
 __all__ = ["batch_draws", "stack_ssm", "run_batched_episodes",
            "run_batched_episodes_lanes", "run_batched_learning"]
@@ -121,23 +131,12 @@ def batch_draws(generator: torch.Generator, spec, *, batch: int, n_ep: int,
                 n_steps: int, n_init: int, n_region: int, dtype,
                 plan_shape: tuple | None = None) -> dict:
     """Every draw of one fleet run from ``generator``, made on its device in
-    a fixed order (keys as in the module docstring; ``plan`` only when one
-    lane's planner draw shape ``plan_shape`` is given)."""
-    n_s, n_u = spec.n_s, spec.n_u
-    kw = {"generator": generator, "dtype": dtype, "device": generator.device}
-
-    def sym(*shape):
-        return 2.0 * torch.rand(shape, **kw) - 1.0
-
-    draws = {"init_x": sym(n_init, n_s), "init_u": sym(n_init, n_u),
-             "init_noise": torch.randn((n_init, n_s), **kw),
-             "region_x": torch.rand((n_region, n_s), **kw),
-             "region_u": torch.rand((n_region, n_u), **kw),
-             "reset": torch.randn((n_ep, batch, n_s), **kw),
-             "step": torch.randn((n_ep, n_steps, batch, n_s), **kw)}
-    if plan_shape is not None:
-        draws["plan"] = torch.randn((n_ep, n_steps, batch, *plan_shape), **kw)
-    return draws
+    a fixed order: the first draws, then each episode's (keys as in the
+    module docstring; ``plan`` only when one lane's planner draw shape
+    ``plan_shape`` is given)."""
+    return episode_draws(generator, spec, n_ep=n_ep, n_steps=n_steps,
+                         n_init=n_init, n_region=n_region,
+                         plan_shape=plan_shape, dtype=dtype, lead=(batch,))
 
 
 def _step_record(spec, xs, u_app, x_next, resid, mu_pred, info) -> dict:
@@ -241,6 +240,7 @@ def run_batched_learning(env: Env, exp: dict, ssm, batch: int, n_ep: int,
                          backend: str | None = None,
                          mesh=None, ckpt_dir: str | None = None,
                          resume: bool = False,
+                         run_config: dict | None = None,
                          generator: torch.Generator | None = None,
                          draws: dict | None = None) -> dict:
     """``batch`` independent full safe-learning runs: each episode through
@@ -261,13 +261,11 @@ def run_batched_learning(env: Env, exp: dict, ssm, batch: int, n_ep: int,
 
     Returns {"series": per-episode lists (lane means, the names of the
     episodic runner), "model": the final LaneGPSSM or stacked GPSSM}.
-    ``mesh`` and checkpointing (``ckpt_dir``, ``resume``) raise: not
-    ported yet."""
+    ``ckpt_dir`` writes the fleet's state after every episode's fits (and
+    ``run_config``; see ``run_episodic``); ``resume`` continues from the
+    latest checkpoint there on the same ``draws`` (the uninterrupted
+    run's, bit for bit). ``mesh`` raises: not ported yet."""
     _require_no_mesh(mesh)
-    if ckpt_dir is not None or resume:
-        raise NotImplementedError(
-            "checkpointing and resume (runtime/checkpoint.py) are not ported "
-            "yet (ROADMAP Queue 1, item 12)")
     lbs = exp.get("lane_batch_supported")
     if backend is None:
         backend = ("lanes" if exp.get("get_action_batch") is not None
@@ -297,13 +295,22 @@ def run_batched_learning(env: Env, exp: dict, ssm, batch: int, n_ep: int,
                                      draws=region)
         return s
 
-    model = lane_stack_ssm(ssm, batch) if lanes else stack_ssm(ssm, batch)
     plans = draws.get("plan")
     series: dict[str, list] = {
         "violations": [], "feasibility_rate": [], "model_error": [],
         "mean_cost": [], "episode_time_s": [], "n_data": [],
     }
-    for ep in range(n_ep):
+    restored = ckpt.restore(ckpt_dir, resume, run_config,
+                            map_location=a.device)
+    start_ep = 0
+    if restored is None:
+        model = (lane_stack_ssm(ssm, batch) if lanes
+                 else stack_ssm(ssm, batch))
+    else:
+        model = restored["model"]
+        start_ep = restored["episode"] + 1
+        series = {k: list(v) for k, v in restored["series"].items()}
+    for ep in range(start_ep, n_ep):
         x0s = env_reset(env, batch=(batch,), noise=draws["reset"][ep])
         t0 = time.perf_counter()
         if lanes:
@@ -336,4 +343,8 @@ def run_batched_learning(env: Env, exp: dict, ssm, batch: int, n_ep: int,
         if opt_hyp_every and (ep + 1) % opt_hyp_every == 0:
             model = (lane_restack_ssm(fit_one(lane_unstack_ssm(model)))
                      if lanes else fit_one(model))
+        if ckpt_dir is not None:
+            ckpt.save_checkpoint(ckpt.checkpoint_path(ckpt_dir, ep),
+                                 {"model": model, "episode": ep,
+                                  "series": series, "config": run_config})
     return {"series": series, "model": model}

@@ -6,7 +6,8 @@
 same thing on both sides. :func:`build_experiment` wires what the port
 carries: the pendulum, the cart-pole and the planar quadrotor (with or
 without a performance trajectory), the exact and the sparse
-(inducing-point) GP state-space models, the tracking, exploration and
+(inducing-point) GP state-space models and the MC-dropout networks (plain
+and concrete), the tracking, exploration and
 risk-priced tracking objectives, and the two solvers with the
 single-instance and the batched SafeMPC machines — the SQP (the single-instance ``planner`` on
 the portable NLP, the batched ``batch_planner`` on the lane SQP, and the
@@ -34,6 +35,10 @@ from safe_exploration_tpu_torch.envs import (
     make_quadrotor,
 )
 from safe_exploration_tpu_torch.models.gp_lanes import LaneGPSSM
+from safe_exploration_tpu_torch.models.nn_ssm import (
+    make_mc_dropout_ssm,
+    mc_draw_shapes,
+)
 from safe_exploration_tpu_torch.models.sparse_gp import make_sparse_gp_ssm
 from safe_exploration_tpu_torch.models.ssm import GPSSM, make_gp_ssm
 from safe_exploration_tpu_torch.ops.linalg import dlqr
@@ -68,8 +73,10 @@ from safe_exploration_tpu_torch.solvers.sqp_lanes import (
     make_sqp_lane_solver,
 )
 
-__all__ = ["ExperimentConfig", "CONFIGS", "build_experiment",
+__all__ = ["ExperimentConfig", "CONFIGS", "MC_FAMILIES", "build_experiment",
            "register_config"]
+
+MC_FAMILIES = ("mc_dropout", "mc_dropout_concrete")
 
 ENV_FACTORIES = {"pendulum": make_pendulum, "cartpole": make_cartpole,
                  "quadrotor": make_quadrotor}
@@ -152,11 +159,7 @@ def _require_ported(cfg: ExperimentConfig) -> None:
         raise ValueError(f"unknown env {cfg.env!r} ({'|'.join(ENV_FACTORIES)})")
     if cfg.objective not in ("tracking", "exploration", "risk_tracking"):
         raise ValueError(f"unknown objective {cfg.objective!r}")
-    if cfg.ssm in ("mc_dropout", "mc_dropout_concrete"):
-        raise NotImplementedError(
-            f"ssm={cfg.ssm!r} is not ported yet (MC-dropout models: ROADMAP "
-            "Queue 1, item 12)")
-    if cfg.ssm not in ("gp", "sparse_gp"):
+    if cfg.ssm not in ("gp", "sparse_gp") + MC_FAMILIES:
         raise ValueError(f"unknown ssm family: {cfg.ssm}")
 
 
@@ -190,8 +193,11 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     nothing), the batch entries (``batch_planner``,
     ``init_state_batch``, ``get_action_batch``, ``lane_batch_supported``:
     None for the CEM; ``batch_noise_shape``, one lane's draws of the
-    batched planner on a stacked model: None for the SQP), ``make_ssm``,
-    ``env``,
+    batched planner on a stacked model: None for the SQP), ``make_ssm``
+    (``make_ssm(xs, us, resid[, init])``; ``init`` the MC-dropout
+    network's draws), ``ssm_draw_shapes`` (the draws a first model takes:
+    for the MC-dropout networks ``mc_*`` keys as ``mc_draw_shapes``' with
+    the prefix, else None), ``env``,
     ``a``, ``b``, ``k_fb``, ``cost_fn``, ``kern_types``, ``l_mu``,
     ``l_sigma`` and ``cfg``."""
     dev = resolve_device(device)
@@ -250,9 +256,13 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         n_u = spec.n_u
         batch_noise_shape = (cfg.cem_iterations, cfg.cem_samples, warm_len,
                              n_u)
+        # the lane CEM covers the GP families; an MC-dropout network plans
+        # through the portable CEM whatever the backend (the JAX package's
+        # lane planner falls back to it)
+        lane_cem = cfg.cem_backend == "lanes" and cfg.ssm not in MC_FAMILIES
         noise_shape = ((cfg.cem_iterations, cfg.cem_samples, warm_len * n_u, 1)
-                       if cfg.cem_backend == "lanes" else batch_noise_shape)
-        if cfg.cem_backend == "lanes":
+                       if lane_cem else batch_noise_shape)
+        if lane_cem:
             def planner(generator, ssm, x0, warm_mean, noise=None):
                 """Single instance through the lane CEM (B = 1)."""
                 k_ff, feas, viol, info = batch_planner(
@@ -325,8 +335,27 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
     l_mu = torch.full((spec.n_s,), cfg.l_mu, **kw)
     l_sigma = torch.full((spec.n_s,), cfg.l_sigma, **kw)
 
-    def make_ssm(xs, us, resid):
-        """The model factory of this configuration (``cfg.ssm``)."""
+    mc_hidden = tuple(int(h) for h in cfg.mc_hidden)
+    ssm_draw_shapes = None
+    if cfg.ssm in MC_FAMILIES:
+        ssm_draw_shapes = {
+            f"mc_{k}": v for k, v in mc_draw_shapes(
+                spec.n_s + spec.n_u, spec.n_s, hidden=mc_hidden,
+                n_samples=cfg.mc_samples).items()}
+
+    def make_ssm(xs, us, resid, init=None):
+        """The model factory of this configuration (``cfg.ssm``);
+        ``init`` holds an MC-dropout network's draws (``ssm_draw_shapes``'
+        keys; ``None``: a CPU generator seeded 0 draws them)."""
+        if cfg.ssm in MC_FAMILIES:
+            # the MC-dropout network takes raw inputs, as the JAX package's
+            return make_mc_dropout_ssm(
+                xs, us, resid, n_max=cfg.n_max, l_mu=l_mu, l_sigma=l_sigma,
+                hidden=mc_hidden, n_samples=cfg.mc_samples,
+                log_noise=cfg.log_noise,
+                concrete=cfg.ssm == "mc_dropout_concrete",
+                draws=None if init is None else {
+                    k[len("mc_"):]: v for k, v in init.items()})
         z_scale = (torch.cat([spec.norm_x, spec.norm_u])
                    if cfg.normalize_inputs else None)
         if cfg.ssm == "sparse_gp":
@@ -357,6 +386,7 @@ def build_experiment(cfg: ExperimentConfig, dtype=torch.float32,
         "lane_batch_supported": lane_batch_supported,
         "kern_types": kern_types,
         "make_ssm": make_ssm,
+        "ssm_draw_shapes": ssm_draw_shapes,
         "l_mu": l_mu,
         "l_sigma": l_sigma,
         "cfg": cfg,

@@ -46,6 +46,7 @@ from safe_exploration_tpu_torch.runtime.episode import (
     episode_draws,
     first_model,
     fit_and_calibrate,
+    mc_fit_of,
     on_device,
 )
 
@@ -57,7 +58,7 @@ _SERIES = ("info_gain", "pred_std_sum", "model_error", "feasibility_rate",
 
 def _setup(env, a, b, k_fb, *, kern_types, n_max, l_mu, l_sigma, log_noise,
            n_init_samples, n_iterations, hyp_iters, make_ssm, generator,
-           draws, plan_noise_shape):
+           draws, plan_noise_shape, ssm_draw_shapes=None):
     """The runs' draws on the device, the first model
     (:func:`runtime.episode.first_model`) and the fit-and-calibrate step
     both runners repeat."""
@@ -66,7 +67,8 @@ def _setup(env, a, b, k_fb, *, kern_types, n_max, l_mu, l_sigma, log_noise,
         draws = episode_draws(
             generator, spec, n_ep=1, n_steps=n_iterations,
             n_init=n_init_samples, n_region=128 * (spec.n_s + spec.n_u),
-            plan_shape=plan_noise_shape, dtype=a.dtype)
+            plan_shape=plan_noise_shape, dtype=a.dtype,
+            ssm_shapes=ssm_draw_shapes)
     draws = on_device(draws, a)
     if make_ssm is None:
         def make_ssm(xs, us, resid):
@@ -76,7 +78,8 @@ def _setup(env, a, b, k_fb, *, kern_types, n_max, l_mu, l_sigma, log_noise,
 
     ssm = first_model(env, a, b, k_fb, draws, make_ssm,
                       n_init=n_init_samples, hyp_iters=hyp_iters)
-    return draws, ssm, lambda s: fit_and_calibrate(s, spec, hyp_iters, draws)
+    return draws, ssm, lambda s: fit_and_calibrate(
+        s, spec, hyp_iters, draws, fit_draws=mc_fit_of(draws))
 
 
 def _probe(env, ssm, a, b, x, u, noise):
@@ -135,6 +138,7 @@ def run_exploration(
     generator: torch.Generator | None = None,
     draws: dict | None = None,
     plan_noise_shape: tuple | None = None,
+    ssm_draw_shapes: dict | None = None,
 ) -> dict:
     """Greedy safe exploration: the planner's objective must be the
     exploration (max-predictive-std) cost. Each iteration plans from the
@@ -150,7 +154,8 @@ def run_exploration(
         env, a, b, k_fb, kern_types=kern_types, n_max=n_max, l_mu=l_mu,
         l_sigma=l_sigma, log_noise=log_noise, n_init_samples=n_init_samples,
         n_iterations=n_iterations, hyp_iters=hyp_iters, make_ssm=make_ssm,
-        generator=generator, draws=draws, plan_noise_shape=plan_noise_shape)
+        generator=generator, draws=draws, plan_noise_shape=plan_noise_shape,
+        ssm_draw_shapes=ssm_draw_shapes)
     plans = draws["plan"][0] if "plan" in draws else None
     x = env_reset(env, noise=draws["reset"][0])
     mstate = init_state()
@@ -193,6 +198,7 @@ def run_exploration_static(
     make_ssm: Callable | None = None,
     generator: torch.Generator | None = None,
     draws: dict | None = None,
+    ssm_draw_shapes: dict | None = None,
 ) -> dict:
     """Static safe active learning, the reference's exploration semantics:
     each iteration optimizes the probe input z = (x, u) (maximum predictive
@@ -219,7 +225,8 @@ def run_exploration_static(
         env, a, b, k_fb, kern_types=kern_types, n_max=n_max, l_mu=l_mu,
         l_sigma=l_sigma, log_noise=log_noise, n_init_samples=n_init_samples,
         n_iterations=n_iterations, hyp_iters=hyp_iters, make_ssm=make_ssm,
-        generator=generator, draws=draws, plan_noise_shape=None)
+        generator=generator, draws=draws, plan_noise_shape=None,
+        ssm_draw_shapes=ssm_draw_shapes)
     if "restart" not in draws:
         draws["restart"] = (2.0 * torch.rand(
             (n_iterations, n_restarts, n_flat), generator=generator,

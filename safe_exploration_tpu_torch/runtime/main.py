@@ -3,15 +3,20 @@ task of the JAX CLI (episodic, batch on both backends, serve, uncertainty,
 exploration, exploration_static):
 
     python -m safe_exploration_tpu_torch.runtime.main --config pendulum_episode \\
-        [--set n_ep=3 n_steps=20] [--x64] [--out results/] [--device cpu]
+        [--set n_ep=3 n_steps=20] [--x64] [--out results/ [--resume]] \\
+        [--device cpu]
     python -m safe_exploration_tpu_torch.runtime.main --config pendulum_serve
 
 It runs on CUDA unless ``--device cpu`` is given (and raises without a
 GPU). The summary it prints has the JAX CLI's keys (``wall_time_s``,
 ``metrics``, and ``series``, or for the uncertainty task its containment
-keys; the file under ``--out`` adds ``config``). The batch task's stacked
-backend under the NLP and the MC-dropout models raise naming the ROADMAP
-item that brings them.
+keys; the file under ``--out`` adds ``config``). With ``--out`` the
+episodic and batch tasks write a checkpoint after every episode under
+``<out>/<config>.ckpt/``, and ``--resume`` continues such a run from the
+latest one. The batch task's stacked backend under the NLP raises naming
+the ROADMAP item that brings it; the MC-dropout networks in the batch and
+serve tasks raise, as the JAX CLI fails there (they have no incremental
+append).
 """
 
 from __future__ import annotations
@@ -58,26 +63,35 @@ def run_experiment(cfg, *, out_dir: str | None = None, dtype=None,
     :mod:`runtime.batch` for the batch task, :mod:`runtime.exploration` for
     the exploration tasks; the uncertainty task takes the initial data's
     and the region's and ``rollout`` (256, n_safe, n_s)). ``out_dir``
-    receives the metrics and the summary; checkpoints are not ported
-    (ROADMAP Queue 1, item 12)."""
-    from safe_exploration_tpu_torch.runtime.config import build_experiment
+    receives the metrics and the summary, and for the episodic and batch
+    tasks a checkpoint after every episode under ``<out_dir>/<name>.ckpt``;
+    ``resume`` continues from the latest one there."""
+    from safe_exploration_tpu_torch.runtime.config import (
+        MC_FAMILIES,
+        build_experiment,
+    )
     from safe_exploration_tpu_torch.runtime.metrics import AggregatedMetrics
 
-    if cfg.task != "episodic" and cfg.task not in _RUNNERS:
+    if cfg.task not in _RUNNERS:
         raise SystemExit(f"unknown task: {cfg.task}")
+    if cfg.ssm in MC_FAMILIES and cfg.task in ("batch", "serve"):
+        raise NotImplementedError(_MC_APPEND.format(cfg.task, cfg.ssm))
     if (cfg.task == "batch" and cfg.batch_backend != "lanes"
             and cfg.solver == "sqp"):
         raise NotImplementedError(_STACKED_NLP.format(cfg.batch_backend))
+    if resume and not out_dir:
+        raise ValueError("resume continues a run from its checkpoints under "
+                         "out_dir; none was given")
     dtype = dtype or torch.float32
     exp = build_experiment(cfg, dtype=dtype, device=device)
     metrics = AggregatedMetrics(out_dir, run_name=cfg.name)
     if generator is None and draws is None:
         generator = torch.Generator().manual_seed(cfg.seed)
+    ckpt_dir = os.path.join(out_dir, f"{cfg.name}.ckpt") if out_dir else None
     t0 = time.perf_counter()
-    if cfg.task == "episodic":
-        out = _run_episodic(cfg, exp, metrics, generator, draws, resume)
-    else:
-        out = _RUNNERS[cfg.task](cfg, exp, metrics, generator, draws)
+    out = _RUNNERS[cfg.task](cfg, exp, metrics, generator, draws,
+                             ckpt_dir=ckpt_dir, resume=resume,
+                             run_config=_ckpt_config(cfg, dtype))
     wall = time.perf_counter() - t0
     summary = {
         "config": dataclasses.asdict(cfg),
@@ -97,7 +111,16 @@ def run_experiment(cfg, *, out_dir: str | None = None, dtype=None,
     return summary
 
 
-def _run_episodic(cfg, exp, metrics, generator, draws, resume) -> dict:
+def _ckpt_config(cfg, dtype) -> dict:
+    """What a checkpoint records of its run: the configuration's fields
+    and the dtype (a resume under another one raises)."""
+    return {**dataclasses.asdict(cfg), "dtype": str(dtype)}
+
+
+def _run_episodic(cfg, exp, metrics, generator, draws, *, ckpt_dir,
+                  resume, run_config) -> dict:
+    """The episodic task (``run_episodic``), checkpointed under
+    ``ckpt_dir`` when given."""
     from safe_exploration_tpu_torch.runtime.episode import run_episodic
 
     return run_episodic(
@@ -106,8 +129,10 @@ def _run_episodic(cfg, exp, metrics, generator, draws, resume) -> dict:
         l_mu=exp["l_mu"], l_sigma=exp["l_sigma"], n_ep=cfg.n_ep,
         n_steps=cfg.n_steps, n_init_samples=cfg.n_init_samples,
         hyp_iters=cfg.hyp_iters, metrics=metrics, make_ssm=exp["make_ssm"],
-        resume=resume, generator=generator, draws=draws,
+        ckpt_dir=ckpt_dir, resume=resume, run_config=run_config,
+        generator=generator, draws=draws,
         plan_noise_shape=exp["planner_noise_shape"],
+        ssm_draw_shapes=exp["ssm_draw_shapes"],
     )
 
 
@@ -117,12 +142,19 @@ _STACKED_NLP = (
     "yet (ROADMAP Queue 1, item 7); the port runs batch_backend='lanes' "
     "under the SQP")
 
+_MC_APPEND = (
+    "the {} task appends each transition to the model (the fleet's and the "
+    "serving controller's O(n^2) append), an exact-GP feature; ssm={!r} "
+    "has none, and the JAX CLI fails there too (ROADMAP Queue 1, item 14)")
 
-def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
+
+def _run_batch(cfg, exp, metrics, generator, draws, *, ckpt_dir,
+               resume, run_config) -> dict:
     """The batch task as the JAX CLI runs it: initial data, one fit and
     calibration, then on the lanes backend (when the configuration pins it
     and the lane runner covers the model) or else the stacked one
-    ``run_batched_learning`` for n_ep > 1 (per-lane fits between episodes)
+    ``run_batched_learning`` for n_ep > 1 (per-lane fits between episodes,
+    checkpointed under ``ckpt_dir`` when given)
     or one episode of ``run_batched_episodes_lanes`` /
     ``run_batched_episodes``; the same series keys, ``lane_backend``
     1 or 0."""
@@ -158,7 +190,8 @@ def _run_batch(cfg, exp, metrics, generator, draws) -> dict:
         res = batch_mod.run_batched_learning(
             env, exp, ssm, lanes, cfg.n_ep, cfg.n_steps,
             hyp_iters=cfg.hyp_iters,
-            backend="lanes" if use_lanes else "stacked", draws=draws)
+            backend="lanes" if use_lanes else "stacked", draws=draws,
+            ckpt_dir=ckpt_dir, resume=resume, run_config=run_config)
         series = dict(res["series"])
         roll_s = sum(series["episode_time_s"])
         series["lane_backend"] = [int(use_lanes)] * cfg.n_ep
@@ -209,7 +242,7 @@ def _first_model(cfg, exp, draws, make_ssm):
                        hyp_iters=cfg.hyp_iters)
 
 
-def _run_serve(cfg, exp, metrics, generator, draws) -> dict:
+def _run_serve(cfg, exp, metrics, generator, draws, **_) -> dict:
     """The serve task as the JAX CLI runs it: a fitted and calibrated first
     model behind a :class:`ServeController` (``on_full="drop"``), then
     ``n_steps`` of step / plant step / observe from a reset state; the
@@ -268,7 +301,7 @@ def _run_serve(cfg, exp, metrics, generator, draws) -> dict:
     return {"series": series}
 
 
-def _run_uncertainty(cfg, exp, metrics, generator, draws) -> dict:
+def _run_uncertainty(cfg, exp, metrics, generator, draws, **_) -> dict:
     """The uncertainty task as the JAX CLI runs it: a GP-SSM on raw inputs
     (no input scales) fitted and calibrated, then the tube of the zero plan
     from the origin against 256 noisy rollouts. ``draws``: the initial
@@ -307,7 +340,7 @@ def _run_uncertainty(cfg, exp, metrics, generator, draws) -> dict:
         c_safety=cfg.c_safety, noise=draws["rollout"], metrics=metrics)
 
 
-def _run_exploration(cfg, exp, metrics, generator, draws) -> dict:
+def _run_exploration(cfg, exp, metrics, generator, draws, **_) -> dict:
     """The greedy exploration task: ``n_ep * n_steps`` iterations."""
     from safe_exploration_tpu_torch.runtime.exploration import run_exploration
 
@@ -318,10 +351,11 @@ def _run_exploration(cfg, exp, metrics, generator, draws) -> dict:
         n_iterations=cfg.n_ep * cfg.n_steps,
         n_init_samples=cfg.n_init_samples, hyp_iters=cfg.hyp_iters,
         metrics=metrics, make_ssm=exp["make_ssm"], generator=generator,
-        draws=draws, plan_noise_shape=exp["planner_noise_shape"])
+        draws=draws, plan_noise_shape=exp["planner_noise_shape"],
+        ssm_draw_shapes=exp["ssm_draw_shapes"])
 
 
-def _run_exploration_static(cfg, exp, metrics, generator, draws) -> dict:
+def _run_exploration_static(cfg, exp, metrics, generator, draws, **_) -> dict:
     """The static exploration task: ``n_ep * n_steps`` probe solves (the
     exact-Hessian AL NLP at ``sqp_outer`` x ``sqp_inner``, 8 restarts)."""
     from safe_exploration_tpu_torch.runtime.exploration import (
@@ -336,10 +370,12 @@ def _run_exploration_static(cfg, exp, metrics, generator, draws) -> dict:
         c_safety=cfg.c_safety, sqp_outer=cfg.sqp_outer,
         sqp_inner=cfg.sqp_inner, hyp_iters=cfg.hyp_iters,
         log_noise=cfg.log_noise, metrics=metrics, make_ssm=exp["make_ssm"],
-        generator=generator, draws=draws)
+        generator=generator, draws=draws,
+        ssm_draw_shapes=exp["ssm_draw_shapes"])
 
 
-_RUNNERS = {"batch": _run_batch, "serve": _run_serve,
+_RUNNERS = {"episodic": _run_episodic, "batch": _run_batch,
+            "serve": _run_serve,
             "uncertainty": _run_uncertainty, "exploration": _run_exploration,
             "exploration_static": _run_exploration_static}
 
@@ -355,7 +391,13 @@ def main(argv: list[str] | None = None) -> int:
                         help="config field overrides")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume the episodic/batch task from the latest "
+                             "checkpoint under --out (bit-exact RNG stream)")
     args = parser.parse_args(argv)
+    if args.resume and not args.out:
+        parser.error("--resume continues a run from its checkpoints under "
+                     "--out; give --out")
 
     from safe_exploration_tpu_torch.runtime.config import CONFIGS
 
@@ -371,7 +413,7 @@ def main(argv: list[str] | None = None) -> int:
     summary = run_experiment(
         cfg, out_dir=args.out,
         dtype=torch.float64 if args.x64 else torch.float32,
-        device=args.device)
+        device=args.device, resume=args.resume)
     print(json.dumps({k: v for k, v in summary.items() if k != "config"},
                      indent=2, default=str))
     return 0

@@ -13,20 +13,19 @@ every step would fall back):
     ones at 1e-8;
   * one lane-SQP solve on a per-lane model at the lane-SQP parity gates
     of tests/test_torch_sqp_lanes.py;
-  * ``run_experiment`` on ``pendulum_batch_sqp``, fed the JAX CLI's draws
-    rebuilt from its key splits: each episode of
-    ``run_batched_episodes_lanes`` (feasible flags and violations equal,
-    trajectories at 1e-8, the applied controls and states at 1e-6), the
-    ``run_batched_learning`` series and final per-lane model at 1e-8;
-  * the CLI on ``--device cpu`` (JSON keys equal to JAX's), and what raises
-    naming its ROADMAP item (the stacked backend itself:
+  * what raises naming its ROADMAP item (the stacked backend itself:
     tests/test_torch_stacked.py).
+
+The fleet run as a whole (``run_experiment`` on this configuration against
+the JAX CLI's) and the single-model entries on a stacked model are in
+tests/test_torch_fleet.py: two files of 9 tests, so that pytest-xdist,
+which hands files out by their test counts, starts the long JAX files
+first.
 
 Each JAX program is built once for the module.
 """
 
 import dataclasses
-import json
 
 import jax
 import jax.numpy as jnp
@@ -38,13 +37,9 @@ torch = pytest.importorskip("torch")
 from safe_exploration_tpu.models import gp as jgp  # noqa: E402
 from safe_exploration_tpu.models import gp_lanes as jgl  # noqa: E402
 from safe_exploration_tpu.models import ssm as jssm_mod  # noqa: E402
-from safe_exploration_tpu.runtime import batch as jbatch  # noqa: E402
 from safe_exploration_tpu.runtime.config import (  # noqa: E402
     CONFIGS as JAX_CONFIGS,
     build_experiment as jax_build,
-)
-from safe_exploration_tpu.runtime.main import (  # noqa: E402
-    run_experiment as jax_run_experiment,
 )
 from safe_exploration_tpu_torch.models import gp as tgp  # noqa: E402
 from safe_exploration_tpu_torch.models import gp_lanes as tgl  # noqa: E402
@@ -57,11 +52,9 @@ from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
 )
 from safe_exploration_tpu_torch.runtime.main import (  # noqa: E402
     _apply_overrides,
-    main,
     run_experiment,
 )
 from test_torch_bridge import (  # noqa: E402,F401
-    jax_batch_draws,
     jax_gpssm_to_numpy,
     jax_region,
     jit_once,
@@ -275,30 +268,6 @@ def test_stacked_nll_refit_and_fit_match_jax_vmapped(lanes):
     assert not torch.equal(tfit.l_mu[0], tfit.l_mu[1])
 
 
-@pytest.mark.parametrize("entry", ["gp_predict", "gp_predict_mean_jac",
-                                   "gp_update_data", "gp_shrink_to_bucket",
-                                   "ssm_update", "ssm_bucketed"])
-def test_single_model_entries_raise_on_a_stacked_model(lanes, entry):
-    """The entries that take one model raise on the stacked GP (they would
-    read the lane axis as the buffer's), naming where per-lane models
-    predict and append."""
-    _, t = lanes
-    stacked = t["unstacked"]
-    z, y = torch.zeros((2, 3), dtype=torch.float64), torch.zeros(
-        (2, 2), dtype=torch.float64)
-    calls = {
-        "gp_predict": lambda: tgp.gp_predict(stacked.gp, z),
-        "gp_predict_mean_jac": lambda: tgp.gp_predict_mean_jac(stacked.gp, z),
-        "gp_update_data": lambda: tgp.gp_update_data(stacked.gp, z, y),
-        "gp_shrink_to_bucket": lambda: tgp.gp_shrink_to_bucket(stacked.gp),
-        "ssm_update": lambda: tssm_mod.ssm_update(stacked, z[:, :2],
-                                                  z[:, 2:], y),
-        "ssm_bucketed": lambda: tssm_mod.ssm_bucketed(stacked),
-    }
-    with pytest.raises(ValueError, match="gp_lanes"):
-        calls[entry]()
-
-
 def test_shrink_and_expand_match_jax(lanes):
     j, t = lanes
     jm, tm = j["appended"], t["appended"]
@@ -354,103 +323,13 @@ def test_lane_sqp_solve_on_per_lane_model_matches_jax(exps, lanes):
         texp["batch_planner"](ff, _t(x0s), _t(warm))
 
 
-def _jax_batch_draws(cfg, lanes_, dtype=F64) -> dict:
-    """The JAX CLI's batch-task draws (``jax_batch_draws``) as tensors."""
-    return {k: _t(v) for k, v in jax_batch_draws(cfg, lanes_, dtype).items()}
-
-
-def _recorder(monkeypatch, mod, name, store):
-    fn = getattr(mod, name)
-
-    def recorded(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        store.append(out)
-        return out
-
-    monkeypatch.setattr(mod, name, recorded)
-
-
-@pytest.fixture(scope="module")
-def fleet():
-    """run_experiment on pendulum_batch_sqp (tiny) by both packages, the
-    port on the JAX run's draws; each episode's (traj, model) and the
-    learning run's result recorded on both sides."""
-    rec = {k: [] for k in ("j_ep", "t_ep", "j_run", "t_run")}
-    with pytest.MonkeyPatch.context() as mp:
-        _recorder(mp, jbatch, "run_batched_episodes_lanes", rec["j_ep"])
-        _recorder(mp, jbatch, "run_batched_learning", rec["j_run"])
-        _recorder(mp, tbatch, "run_batched_episodes_lanes", rec["t_ep"])
-        _recorder(mp, tbatch, "run_batched_learning", rec["t_run"])
-        ref = jax_run_experiment(_jcfg(), dtype=F64)
-        out = run_experiment(CFG, dtype=torch.float64, device="cpu",
-                             draws=_jax_batch_draws(CFG, B))
-    return ref, out, rec
-
-
-def test_run_batched_episodes_lanes_matches_jax_with_its_draws(fleet):
-    """Each episode: feasible flags and violations equal, the lane model it
-    hands back (3 appends) and the residuals, model errors and violations
-    at 1e-8. The applied controls, and the states they drive, at 1e-6:
-    on feasible steps they are the SQP's solutions, which agree with JAX's
-    to ~1e-7 here (the lane-SQP gate of tests/test_torch_sqp_lanes.py is
-    1e-4)."""
-    _, _, rec = fleet
-    assert len(rec["t_ep"]) == len(rec["j_ep"]) == CFG.n_ep
-    for (tt, tm), (jt, jm) in zip(rec["t_ep"], rec["j_ep"]):
-        np.testing.assert_array_equal(_np(tt["feasible"]), jt["feasible"])
-        np.testing.assert_array_equal(_np(tt["constraint_ok"]),
-                                      jt["constraint_ok"])
-        assert tt["x"].shape == (B, CFG.n_steps, 2)
-        for k, tol in (("x", 1e-6), ("u", 1e-6), ("resid", 1e-8),
-                       ("model_err", 1e-8), ("violation", 1e-8)):
-            assert _rel(_np(tt[k]), jt[k]) < tol, k
-        _assert_lane_gp(tm.gp, jm.gp, 1e-8)
-
-
-def test_run_batched_learning_matches_jax_with_its_draws(fleet):
-    """The series (counts equal, floats at 1e-8) and the final per-lane
-    model (hyperparameters, Lipschitz constants and factors) at 1e-8."""
-    ref, out, rec = fleet
-    rs, ts = ref["series"], out["series"]
-    for k in ("violations", "feasibility_rate", "n_data", "lane_backend",
-              "lanes"):
-        assert ts[k] == rs[k], k
-    assert rs["violations"] == [0, 0] and rs["n_data"] == [11, 14]
-    print(rs["feasibility_rate"])
-    for k in ("model_error", "mean_cost"):
-        np.testing.assert_allclose(ts[k], rs[k], rtol=1e-8, atol=0)
-    (tr,), (jr,) = rec["t_run"], rec["j_run"]
-    tm, jm = tr["model"], jr["model"]
-    assert tm.gp.per_lane_hypers
-    _assert_lane_gp(tm.gp, jm.gp, 1e-8)
-    for f in ("l_mu", "l_sigma"):
-        assert _rel(_np(getattr(tm, f)), getattr(jm, f)) < 1e-8, f
-
-
-def test_batch_cli_on_cpu_prints_jax_keys(fleet, capsys):
-    """The CLI's summary keys and series keys equal the JAX CLI's, with 0
-    violations; the single-episode branch gives JAX's n_ep = 1 keys."""
-    ref, _, _ = fleet
-    rc = main(["--config", "pendulum_batch_sqp", "--device", "cpu", "--set",
-               *SET])
-    assert rc == 0
-    summary = json.loads(capsys.readouterr().out)
-    assert set(summary) == set(ref) - {"config"}
-    assert set(summary["series"]) == set(ref["series"])
-    assert summary["series"]["violations"] == [0, 0]
-    one = run_experiment(_apply_overrides(CFG, ["n_ep=1", "n_steps=1"]),
-                         dtype=torch.float64, device="cpu")["series"]
-    assert set(one) == {"lane_backend", "violations", "feasibility_rate",
-                        "model_error", "lanes", "steps_per_sec"}
-    assert one["violations"] == [0] and one["lanes"] == [B]
-
-
 def test_unported_batch_choices_raise_naming_their_item(exps, lanes):
     """What the fleet does not carry yet raises naming its Queue 1 item:
     the portable NLP over a stacked model (item 7: the SQP configurations
     on the stacked runner, and the batched planner handed a stacked
-    model), checkpoints (item 12), the device mesh (item 13) and the
-    kernel menu (item 3)."""
+    model), the device mesh (item 13) and the kernel menu (item 3); an
+    MC-dropout network in the fleet, where the JAX CLI fails too (item
+    14)."""
     _, texp = exps
     _, t = lanes
     for backend in ("auto", "vmapped"):
@@ -461,9 +340,9 @@ def test_unported_batch_choices_raise_naming_their_item(exps, lanes):
     with pytest.raises(NotImplementedError, match="item 7"):
         texp["batch_planner"](t["unstacked"], x0s,
                               torch.zeros((B, 2, 1), dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tbatch.run_batched_learning(texp["env"], texp, None, B, 1, 1,
-                                    ckpt_dir="ckpt")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run_experiment(_apply_overrides(CFG, ["ssm=mc_dropout"]),
+                       device="cpu")
     for run in (tbatch.run_batched_episodes, tbatch.run_batched_episodes_lanes):
         with pytest.raises(NotImplementedError, match="item 13"):
             run(texp["env"], None, None, None, x0s, 1, texp["a"], texp["b"],

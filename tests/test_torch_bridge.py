@@ -2,13 +2,15 @@
 SparseGPSSM's) state as numpy arrays, the JAX side of the bridge whose PyTorch side is
 ``safe_exploration_tpu_torch.models.convert``; the JAX runners' initial-data,
 Lipschitz-region, episode and fleet draws rebuilt from their keys; the
-safe-MPC NLP's closures held against JAX's on one instance; and one torch
-thread."""
+safe-MPC NLP's closures held against JAX's on one instance; one torch
+thread; and JAX's persistent compilation cache, shared by a session's
+workers."""
 
 import dataclasses
 import os
 import pickle
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,25 @@ import torch
 from filelock import FileLock
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _share_compilations():
+    """JAX's persistent compilation cache in one directory per test
+    session, shared by its xdist workers (``PYTEST_XDIST_TESTRUNUID``)
+    and kept across the modules whose in-memory caches the conftest
+    clears: a program the JAX references compile again (the same runner
+    in another module or worker, the same small op elsewhere) is read
+    back instead of compiled. It changes no result: an entry is keyed by
+    the program, its compile options and the JAX version, and an entry
+    read while another worker still writes it is compiled afresh (with a
+    warning)."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID", f"pid{os.getpid()}")
+    jax.config.update("jax_compilation_cache_dir", os.path.join(
+        tempfile.gettempdir(), f"safe_exploration_jax_cache_{run}"))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+
+
+_share_compilations()
 
 
 def jax_gpssm_to_numpy(ssm) -> dict:
@@ -72,6 +93,97 @@ def jax_region(n, dtype=jnp.float64, n_s=2, n_u=1):
             np.array(jax.random.uniform(ku, (n, n_u), dtype)))
 
 
+def _mc_p_dtype(keep_prob, dtype, concrete):
+    """The dtype of the JAX MC model's keep probability, which its dropout
+    uniforms take: the plain variant's ``jnp.asarray(keep_prob)`` (f64
+    under x64), the concrete variant's weights' dtype."""
+    return dtype if concrete else jnp.asarray(keep_prob).dtype
+
+
+def jax_mc_uniforms(mask_key, widths, n_samples, p_dtype) -> list:
+    """The S passes' dropout uniforms per hidden layer, (S, width), as
+    ``nn_ssm._dropout_masks`` draws them from ``mask_key``:
+    fold_in(fold_in(mask_key, s), layer)."""
+    return [np.asarray(jax.vmap(lambda s, i=i, w=w: jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(mask_key, s), i), (w,),
+        p_dtype))(jnp.arange(n_samples))) for i, w in enumerate(widths)]
+
+
+def jax_mc_init_draws(key, dims, n_samples, dtype=jnp.float64,
+                      concrete=False, keep_prob=0.9) -> dict:
+    """``make_mc_dropout_ssm``'s draws from its key as the port's
+    ``mc_draw_shapes`` keys: the weights' standard normals ``w{i}`` and the
+    prediction uniforms ``u{i}``."""
+    k_init, k_mask = jax.random.split(key)
+    out = {}
+    for i in range(len(dims) - 1):
+        k_init, kw = jax.random.split(k_init)
+        out[f"w{i}"] = np.asarray(jax.random.normal(
+            kw, (dims[i], dims[i + 1]), dtype))
+    us = jax_mc_uniforms(k_mask, dims[1:-1], n_samples,
+                         _mc_p_dtype(keep_prob, dtype, concrete))
+    out.update({f"u{i}": u for i, u in enumerate(us)})
+    return out
+
+
+def jax_mc_fit_draws(key, iters, widths, n_max, dtype=jnp.float64,
+                     concrete=False, keep_prob=0.9) -> list:
+    """``mc_fit``'s draws from its key, per hidden layer: the plain
+    variant's one mask a step (iters, width), from fold_in(fold_in(k, 0),
+    layer); the concrete variant's per point (iters, n_max, width) on (1e-6,
+    1 - 1e-6), from fold_in(fold_in(k, point), layer); k the step's key."""
+    p_dtype = _mc_p_dtype(keep_prob, dtype, concrete)
+
+    def step(k):
+        if not concrete:
+            return [jax.random.uniform(jax.random.fold_in(
+                jax.random.fold_in(k, 0), i), (w,), p_dtype)
+                for i, w in enumerate(widths)]
+        return [jax.vmap(lambda j, i=i, w=w: jax.random.uniform(
+            jax.random.fold_in(jax.random.fold_in(k, j), i), (w,), dtype,
+            1e-6, 1.0 - 1e-6))(jnp.arange(n_max))
+            for i, w in enumerate(widths)]
+
+    return [np.asarray(u) for u in jax.jit(jax.vmap(step))(
+        jax.random.split(key, iters))]
+
+
+def jax_mc_to_numpy(ssm) -> dict:
+    """A JAX McDropoutSSM's state as the arrays of
+    ``convert.mc_dropout_ssm_from_numpy``, its prediction uniforms drawn
+    from its ``mask_key``."""
+    from safe_exploration_tpu.models.nn_ssm import _layer_keep_probs
+
+    widths = [w.shape[1] for w, _ in ssm.weights[:-1]]
+    p_dtype = _layer_keep_probs(ssm)[0].dtype
+    return {
+        "n_s": ssm.n_s, "n_samples": ssm.n_samples,
+        "keep_prob": ssm.keep_prob,
+        "weights": [(np.asarray(w), np.asarray(b)) for w, b in ssm.weights],
+        "mask_u": jax_mc_uniforms(ssm.mask_key, widths, ssm.n_samples,
+                                  p_dtype),
+        "keep_logit": None if ssm.keep_logit is None
+        else np.asarray(ssm.keep_logit),
+        **{k: np.asarray(getattr(ssm, k)) for k in (
+            "log_noise", "l_mu", "l_sigma", "x", "y", "mask", "head")},
+    }
+
+
+def jax_mc_draws(cfg, key, dtype=jnp.float64, n_s=2, n_u=1) -> dict:
+    """An MC-dropout configuration's model draws as the port's draws keys:
+    the first model's (``mc_w{i}``, ``mc_u{i}``) from ``key`` (the
+    runner's model key) and the fit's (``mc_fit{i}``) from ``ssm_fit``'s
+    PRNGKey(0), at max(hyp_iters, 200) steps."""
+    dims = (n_s + n_u,) + tuple(int(h) for h in cfg.mc_hidden) + (n_s,)
+    concrete = cfg.ssm == "mc_dropout_concrete"
+    out = {f"mc_{k}": v for k, v in jax_mc_init_draws(
+        key, dims, cfg.mc_samples, dtype, concrete).items()}
+    fit = jax_mc_fit_draws(jax.random.PRNGKey(0), max(cfg.hyp_iters, 200),
+                           dims[1:-1], cfg.n_max, dtype, concrete)
+    out.update({f"mc_fit{i}": u for i, u in enumerate(fit)})
+    return out
+
+
 def jax_episode_draws(cfg, n_region, plan=None, dtype=jnp.float64, n_s=2,
                       n_u=1) -> dict:
     """The JAX episodic runner's draws as numpy arrays, rebuilt from its key
@@ -79,10 +191,13 @@ def jax_episode_draws(cfg, n_region, plan=None, dtype=jnp.float64, n_s=2,
     rollout_episode; calibrate_lipschitz's PRNGKey(0)) for a plant of n_s
     states and n_u controls (the pendulum's by default). ``plan(k_plan)``
     gives one solve's planner draws (the CEM's); without it the run has
-    none (the SQP draws nothing)."""
+    none (the SQP draws nothing). An MC-dropout configuration adds its
+    model's draws (:func:`jax_mc_draws`, from the runner's model key)."""
     key = jax.random.PRNGKey(cfg.seed)
-    k_init, _, key = jax.random.split(key, 3)
+    k_init, k_ssm, key = jax.random.split(key, 3)
     draws = jax_init_draws(k_init, cfg.n_init_samples, dtype, n_s, n_u)
+    if cfg.ssm.startswith("mc_dropout"):
+        draws.update(jax_mc_draws(cfg, k_ssm, dtype, n_s, n_u))
     draws["region_x"], draws["region_u"] = jax_region(n_region, dtype, n_s,
                                                       n_u)
     reset, plans, step = [], [], []
@@ -231,6 +346,7 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0,
 def jit_once(fn, *args):
     """``fn`` jit-compiled for ``args``' shapes with FAST_COMPILE."""
     return jax.jit(fn).lower(*args).compile(FAST_COMPILE)
+
 
 
 def _rel(a, b):

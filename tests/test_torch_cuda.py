@@ -814,3 +814,30 @@ def test_cuda_cholesky_nan_from_bad_pivot_in_each_tier(dtype, n, at):
     l = cholesky_blocked(a.to(getattr(torch, dtype)).cuda()).cpu()
     assert torch.isfinite(l[:, :at, :at]).all()
     assert torch.isnan(l[:, at:, at]).all() and torch.isnan(l[:, -1, -1]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_episodic_resume_is_bit_exact(tmp_path):
+    """A run on the card checkpointed after episode 0 and resumed to 2
+    episodes equals the uninterrupted run: the checkpoint's tensors land on
+    the card, and the resumed episode runs on the uninterrupted run's
+    draws."""
+    _need_cuda()
+    from safe_exploration_tpu_torch.runtime.config import CONFIGS
+    from safe_exploration_tpu_torch.runtime.main import (
+        _apply_overrides,
+        run_experiment,
+    )
+
+    sets = ["n_steps=2", "n_max=32", "n_init_samples=10", "hyp_iters=3",
+            "cem_samples=8", "cem_elites=2", "cem_iterations=1"]
+    full = _apply_overrides(CONFIGS["pendulum_episode"], sets + ["n_ep=2"])
+    part = _apply_overrides(CONFIGS["pendulum_episode"], sets + ["n_ep=1"])
+    want = run_experiment(full, out_dir=str(tmp_path / "full"),
+                          dtype=torch.float64)["series"]
+    run_experiment(part, out_dir=str(tmp_path / "part"), dtype=torch.float64)
+    got = run_experiment(full, out_dir=str(tmp_path / "part"),
+                         dtype=torch.float64, resume=True)["series"]
+    for k in want:
+        if k != "episode_time_s":
+            assert got[k] == want[k], k

@@ -472,18 +472,10 @@ def test_registry_matches_jax_and_unported_choices_raise():
         run_experiment(_apply_overrides(CONFIGS["pendulum_batch_sqp"],
                                         ["batch_backend=vmapped"]),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_experiment(CONFIGS["pendulum_episode_mcdropout"], device="cpu")
-    exp = build_experiment(ExperimentConfig(n_max=16), dtype=torch.float64,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_episodic(exp["env"], exp["init_state"], exp["get_action"],
-                     exp["a"], exp["b"], exp["k_fb"], kern_types=KT,
-                     n_max=16, l_mu=exp["l_mu"], l_sigma=exp["l_sigma"],
-                     ckpt_dir="ckpt")
-    for name in ("cartpole_risk_sqp", "quadrotor_batch_sqp",
-                 "quadrotor_episode"):
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run_experiment(_apply_overrides(CONFIGS["pendulum_serve"],
+                                        ["ssm=mc_dropout"]), device="cpu")
+    # every registered configuration builds
+    for name in CONFIGS:
         assert build_experiment(CONFIGS[name], device="cpu")["cfg"] == \
-            CONFIGS[name]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_experiment(CONFIGS["pendulum_episode_mcdropout"], device="cpu")
+            CONFIGS[name], name

@@ -8,16 +8,15 @@ time) and carried across as numpy arrays:
   * the lane GP posterior and the tube rollout (p, q, var) at 1e-9;
   * the cfg3 golden batch block: ``batch_feasible`` exact, ``batch_k_ff``
     at 1e-4, ``batch_cost`` at 1e-3 (the gates of tests/test_goldens.py);
-  * the numpy bridge round trip and the cfg1 golden's posterior, held at
-    1e-4 (variance normalized by the prior kzz), and the port's own refit of
-    the carried data against JAX's factors at 1e-9;
-  * the port's ``multistep_reachability`` and the lane scorer's margins on
-    the cfg1 golden's plan, at the goldens' gates: 1e-4 relative on the
-    tube, 1e-4 absolute on the margins;
   * ``solve_safempc_lanes`` against the JAX lane solve on the same inputs
     at H=5, B=8 with a small budget, feasible and infeasible lanes, for the
     tracking and the exploration objective: feasible flags exact, k_ff at
     1e-4.
+
+The cfg1 golden's checks on the same state are in
+tests/test_torch_cfg1_golden.py (a file of its own, so that pytest-xdist,
+which hands files out by their test counts, starts the long JAX files
+first).
 
 The JAX solves are compiled once per objective; the port runs eagerly.
 """
@@ -40,14 +39,7 @@ from safe_exploration_tpu.solvers.sqp import (  # noqa: E402
     SqpConfig as JaxSqpConfig,
     _solve_spd_unrolled as jax_solve_spd,
 )
-from safe_exploration_tpu_torch.models import gp as tgp  # noqa: E402
-from safe_exploration_tpu_torch.models.convert import (  # noqa: E402
-    gpssm_from_numpy,
-    gpssm_to_numpy,
-)
-from safe_exploration_tpu_torch.ops.kernels import tube_score_plain  # noqa: E402
-from safe_exploration_tpu_torch.reachability import onestep as tos  # noqa: E402
-from safe_exploration_tpu_torch.reachability import safety as tsafe  # noqa: E402
+from safe_exploration_tpu_torch.models.convert import gpssm_from_numpy  # noqa: E402
 from test_torch_bridge import (  # noqa: E402,F401
     golden_problem,
     jax_gpssm_to_numpy,
@@ -59,8 +51,6 @@ from safe_exploration_tpu_torch.runtime.config import (  # noqa: E402
     build_experiment,
 )
 from safe_exploration_tpu_torch.solvers import sqp_lanes as tl  # noqa: E402
-from safe_exploration_tpu_torch.solvers.cem import tube_violation  # noqa: E402
-from safe_exploration_tpu_torch.solvers.cem_lanes import _TubeCfg  # noqa: E402
 from safe_exploration_tpu_torch.solvers.sqp import (  # noqa: E402
     SqpConfig,
     _solve_spd_unrolled,
@@ -68,7 +58,6 @@ from safe_exploration_tpu_torch.solvers.sqp import (  # noqa: E402
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(_REPO, "tests", "goldens")
-GOLDEN = os.path.join(GOLDEN_DIR, "cfg1_pendulum_h5.npz")
 KT = ("rbf", "rbf")
 SMALL = dict(sqp_outer=2, sqp_inner=1, sqp_polish=0, sqp_rescue=0)
 
@@ -97,19 +86,6 @@ def golden_state(golden_problem):
 @pytest.fixture(scope="module")
 def fitted(golden_state):
     return golden_state["jssm"], golden_state["tssm"]
-
-
-@pytest.fixture(scope="module")
-def cfg1_state(golden_state):
-    g = golden_state
-    return g["arrays"], g["probes"], g["jssm"]
-
-
-@pytest.fixture(scope="module")
-def cfg1(golden_state):
-    """The JAX-fitted cfg1 state (both sides) and its golden."""
-    g = golden_state
-    return g["exp"], g["jssm"], g["tssm"], g["x0"], np.load(GOLDEN)
 
 
 def _lane_inputs(b=8, h=5, seed=0):
@@ -249,90 +225,14 @@ def test_lanes_supported_covers_the_ported_slice(fitted):
         assert build_experiment(ExperimentConfig(solver=solver,
                                                  ssm="sparse_gp"),
                                 device="cpu")["cfg"].ssm == "sparse_gp"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_experiment(ExperimentConfig(solver="cem", ssm="mc_dropout"),
-                         device="cpu")
+    for solver in ("cem", "sqp"):
+        exp = build_experiment(ExperimentConfig(solver=solver,
+                                                ssm="mc_dropout"),
+                               device="cpu")
+        assert set(exp["ssm_draw_shapes"]) == {"mc_w0", "mc_w1", "mc_w2",
+                                               "mc_u0", "mc_u1"}
     exp = build_experiment(ExperimentConfig(solver="sqp"), device="cpu")
     ff = tssm.replace(gp=tssm.gp.replace(precision="ff"))
     assert not tl.lanes_supported(ff, SqpConfig(), "tracking")
     with pytest.raises(NotImplementedError, match="item 7"):
         exp["batch_planner"](ff, None, None)
-
-
-def test_numpy_bridge_round_trip(cfg1_state):
-    arrays, _, _ = cfg1_state
-    back = gpssm_to_numpy(gpssm_from_numpy(arrays, KT, device="cpu"))
-    for k, v in arrays.items():
-        if k == "params":
-            for pa, pb in zip(v, back[k]):
-                for name in pa:
-                    np.testing.assert_array_equal(pa[name], pb[name])
-        elif v is None:
-            assert back[k] is None
-        else:
-            np.testing.assert_array_equal(np.asarray(v), back[k])
-
-
-def test_cfg1_golden_posterior_on_the_jax_fitted_state(cfg1_state):
-    arrays, probes, jax_ssm = cfg1_state
-    path = os.path.join(GOLDEN_DIR, "cfg1_pendulum_h5.npz")
-    g = np.load(path)
-    np.testing.assert_allclose(probes, g["probes"], rtol=0, atol=1e-6)
-    ssm = gpssm_from_numpy(arrays, KT, device="cpu")
-    mean, var = tgp.gp_predict(ssm.gp, _t(probes))
-    scale_m = np.max(np.abs(g["posterior_mean"])) + 1e-12
-    assert np.max(np.abs(mean.numpy() - g["posterior_mean"])) / scale_m < 1e-4
-    kzz = max(float(np.exp(2.0 * p["log_sf"])) for p in arrays["params"])
-    assert np.max(np.abs(var.numpy() - g["posterior_var"])) / kzz < 1e-4
-    # and the port's own refit of the carried data reproduces JAX's factors
-    refit = tgp.gp_refit(ssm.gp)
-    for f in ("chol", "beta", "kinv"):
-        assert _rel(getattr(refit, f).numpy(), getattr(jax_ssm.gp, f)) < 1e-9
-
-
-def test_multistep_reachability_matches_cfg1_golden(cfg1):
-    exp, _, tssm, x0, g = cfg1
-    k_fb = _t(exp["k_fb"])
-    p, q, var = tos.multistep_reachability(
-        tssm, _t(x0), _t(g["k_ff_eval"]), k_fb.expand(5, 1, 2), _t(exp["a"]),
-        _t(exp["b"]), 2.5)
-    assert _rel(p.numpy(), g["p_traj"]) < 1e-4
-    assert _rel(q.numpy(), g["q_traj"]) < 1e-4
-    assert _rel(var.numpy(), g["var_traj"]) < 1e-4
-    spec = exp["env"].spec
-    d_stage = tsafe.lin_ellipsoid_safety_distance(
-        p, q, _t(spec.h_mat_obs), _t(spec.h_obs))
-    d_term = tsafe.lin_ellipsoid_safety_distance(
-        p[-1], q[-1], _t(spec.h_mat_safe), _t(spec.h_safe))
-    assert np.max(np.abs(d_stage.numpy() - g["d_stage"])) < 1e-4
-    assert np.max(np.abs(d_term.numpy() - g["d_term"])) < 1e-4
-    viol = tube_violation(p, q, _t(spec.h_mat_obs), _t(spec.h_obs),
-                          _t(spec.h_mat_safe), _t(spec.h_safe))
-    ref = (np.maximum(g["d_stage"], 0.0).sum()
-           + np.maximum(g["d_term"], 0.0).sum())
-    assert abs(float(viol) - ref) < 1e-4
-
-
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_lane_scorer_margins_match_cfg1_golden(cfg1, impl):
-    """The lane tube (plain form, and the fused posterior's plain version)
-    and the whole-tube scorer's plain version on the golden's state and
-    plan: stage and terminal margins at 1e-4."""
-    exp, _, tssm, x0, g = cfg1
-    spec = exp["env"].spec
-    k_fb, a, b = (np.asarray(exp[k]) for k in ("k_fb", "a", "b"))
-    s_lift = np.concatenate([np.eye(2), k_fb], 0)
-    bmat = s_lift.T @ s_lift
-    u = _t(g["k_ff_eval"].reshape(5, 1))
-    y = tl._rollout_y_lanes(tssm, u, _t(x0[:, None]), _t(k_fb), _t(a),
-                            _t(b), _TubeCfg(5, 2.5, 0), _t(bmat), impl=impl)
-    polys = [_t(v) for v in (spec.h_mat_obs, spec.h_obs, spec.h_mat_safe,
-                             spec.h_safe)]
-    d = tl._dist_lanes(y, 5, 2, *polys)[:, 0].numpy()
-    ref = np.concatenate([g["d_stage"].reshape(-1), g["d_term"]])
-    assert np.max(np.abs(d - ref)) < 1e-4
-    _, viol = tube_score_plain(
-        tssm, u, _t(x0[:, None]), *(_t(v) for v in (k_fb, a, b, bmat)),
-        *(_t(v) for v in polys), 2.5, 5, "tracking",
-        {"target": _t(spec.target)})
-    assert abs(float(viol[0]) - np.maximum(ref, 0.0).sum()) < 1e-4
